@@ -26,6 +26,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "sharding: multi-device subprocess tests (need spare RAM/CPU)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips without one (run with -m gpu on the card)")
 
 
 @pytest.fixture(autouse=True, scope="module")
