@@ -3,15 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the three Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
-nvcc per source, all at once), holds each against its plain PyTorch version
-at the shapes BackPACK's main path gives it on 3C3D at batch 128, drives the
-main path — ``repro_torch.core.run`` with the ten first-order, exact-GGN and
-MC extensions on 3C3D (CIFAR-10 shapes, full width, random weights from a
-seed) — checks that every kernel launched there and that the card agrees
-with the same ``run`` on the CPU, and runs KFRA and DiagHessian on the
-784-128-64-10 MLP.  Every phase prints a line; any failure exits non-zero.
-The second-to-last lines are the kernel table (JSON) and the card's name and
+Builds the six Hopper kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+per source, all at once) and holds each against its plain PyTorch version at
+the shapes BackPACK's paths give it on 3C3D at batch 128.  Then it drives
+three paths through the entry points a user calls, on 3C3D (CIFAR-10 shapes,
+full width, random weights from a seed), each with the launch counts set to
+0 just before and read just after:
+
+* the main path, ``repro_torch.core.run`` with the ten first-order,
+  exact-GGN and MC extensions on the fused route (the default), which must
+  launch fused_first_order, fused_second_order and sq_matmul and none of
+  the per-extension kernels; it is also timed against the plain PyTorch
+  route, profiled, and compared card against CPU;
+* the per-extension route (``use_fused=False``), which must launch
+  per_sample_moment (9 a call), batch_l2 (3) and sq_matmul (9) and no fused
+  kernel, compared with the fused route on the card and with the CPU, and
+  timed interleaved with the fused route;
+* the paper's curvature-preconditioned training
+  (``make_extended_train_step`` with ``curvature_optimizer``), ten steps each
+  with KFAC and DiagGGN-MC on one fixed batch: the loss must fall, one step
+  must agree card against CPU, and the steps are timed against the plain
+  gradient step (``make_train_step`` with SGD).
+
+Last it runs KFRA and DiagHessian on the 784-128-64-10 MLP, card against
+CPU.  Every phase prints a line; any failure exits non-zero.  The
+second-to-last lines are the kernel table (JSON) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The full
 record goes to ``build/chip_smoke.json``.
 
@@ -34,6 +50,16 @@ TOL = 1e-4       # max |kernel − plain| / max |plain|: float32, other sum orde
 FIRST = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot")
 EXACT = ("diag_ggn", "kflr", "ggn_trace")
 MC = ("diag_ggn_mc", "kfac")
+FUSED_KERNELS = ("fused_first_order", "fused_second_order", "sq_matmul")
+# launches of one run call of the ten extensions on 3C3D's per-extension
+# route: 3 conv layers × (moment, exact diag, MC diag) and l2; 3 dense layers
+# × (moment, exact diag, MC diag).
+PER_EXTENSION_LAUNCHES = {"per_sample_moment": 9, "batch_l2": 3, "sq_matmul": 9}
+TRAIN_STEPS = 10
+# (curvature, extensions, lr, damping): ten steps on one fixed batch
+# reduce the loss with these (chosen on the CPU at the same size).
+TRAIN = (("kfac", ("kfac",), 0.2, 0.1),
+         ("diag_ggn_mc", ("diag_ggn_mc", "variance"), 0.05, 1.0))
 
 
 def say(tag, **kw):
@@ -43,6 +69,36 @@ def say(tag, **kw):
 def fail(msg):
     print(f"FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def medians_ms(samples):
+    return {k: sorted(v)[len(v) // 2] * 1e3 for k, v in samples.items()}
+
+
+def profiled(call):
+    """One call under torch.profiler: wall ms, summed device kernel ms, the
+    top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):  # the attribute's name changed across PyTorch versions
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    # Kernels only (events on the device): an operator's device time (aten::,
+    # autograd's backward nodes) is its kernels' again.
+    events = [e for e in prof.key_averages() if device_us(e) > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith(("Memcpy", "Memset"))]
+    top = sorted(events, key=lambda e: -device_us(e))[:12]
+    return dict(wall_ms=wall * 1e3, device_ms=sum(device_us(e) for e in events) / 1e3,
+                top=[dict(name=e.key[:80], ms=device_us(e) / 1e3, calls=e.count)
+                     for e in top])
 
 
 def main():
@@ -60,9 +116,14 @@ def main():
     from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import batch_l2 as l2_mod
     from repro_torch.kernels import fused_first_order as ffo_mod
     from repro_torch.kernels import fused_second_order as fso_mod
+    from repro_torch.kernels import ggn_diag as gd_mod
+    from repro_torch.kernels import per_sample_moment as psm_mod
     from repro_torch.kernels import sq_matmul as sq_mod
+    from repro_torch.optim import curvature_optimizer, sgd
+    from repro_torch.train import make_extended_train_step, make_train_step
 
     record = {}
     # -- 1. the device --------------------------------------------------------
@@ -78,13 +139,14 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build()
     modules = {"fused_first_order": ffo_mod, "fused_second_order": fso_mod,
-               "sq_matmul": sq_mod}
+               "sq_matmul": sq_mod, "per_sample_moment": psm_mod, "batch_l2": l2_mod,
+               "ggn_diag": gd_mod}
     record["build_s"] = time.perf_counter() - t0
     say("kernels", build_s=record["build_s"],
         kernels=[dict(name=k, source=modules[k].SOURCE, replaces=modules[k].REPLACES,
                       library=libs[k].name) for k in ops.KERNELS])
 
-    # -- 3. each kernel against its plain version at the main path's shapes --
+    # -- 3. each kernel against its plain version at its path's shapes -------
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
@@ -107,7 +169,9 @@ def main():
 
     conv = {"conv1": (1024, 75, 64), "conv2": (256, 576, 96), "conv3": (64, 864, 128)}
     dense = {"dense1": (2048, 512), "dense2": (512, 256), "dense3": (256, 10)}
-    cases = []  # (kernel, shape label, launches per run call, inputs, kwargs, flops, bytes)
+    # (kernel, shape label, launches per run call on its path, weight in the
+    # kernel's per-call sums, inputs, kwargs, flops, bytes)
+    cases = []
     # Operations are the fewest the outputs need: G_n = A_nᵀB_n (2·N·r·a·b),
     # one square per G entry and one add each into l2 and moment (3·N·a·b),
     # and dot's N(N−1)/2 off-diagonal pairs (2·a·b each; dot is symmetric
@@ -116,7 +180,7 @@ def main():
         A, B = randn(N, r, a), randn(N, r, b)
         flops = 2 * N * r * a * b + 3 * N * a * b + N * (N - 1) * a * b
         nbytes = 4 * (N * r * (a + b) + N + a * b + N * N)
-        cases.append(("fused_first_order", f"{name} A[{N},{r},{a}] B[{N},{r},{b}]", 1,
+        cases.append(("fused_first_order", f"{name} A[{N},{r},{a}] B[{N},{r},{b}]", 1, 1,
                       (A, B), dict(want_l2=True, want_moment=True, want_dot=True),
                       flops, nbytes))
         for c, wants, label in ((10, dict(want_diag=True, want_kron=True, want_trace=True),
@@ -131,25 +195,50 @@ def main():
             nbytes = 4 * (N * r * a + c * N * r * b + a * b + b * b
                           + (N if wants.get("want_trace") else 0))
             cases.append(("fused_second_order",
-                          f"{name} {label} A[{N},{r},{a}] S[{c},{N},{r},{b}]", 1,
+                          f"{name} {label} A[{N},{r},{a}] S[{c},{N},{r},{b}]", 1, 1,
                           (A, S), wants, flops, nbytes))
+        # The per-extension route: the moment of the first sweep and the MC
+        # diagonal (N rows), the exact diagonal on the broadcast input (C·N
+        # rows); G_n costs 2·r·a·b, its square and sum 2·a·b.
+        for rows, per_call, label in ((N, 2, "moment+mc"), (10 * N, 1, "exact diag")):
+            Ar = A if rows == N else A.repeat(10, 1, 1)
+            Br = B if rows == N else randn(rows, r, b)
+            cases.append(("per_sample_moment", f"{name} {label} A[{rows},{r},{a}] B[{rows},{r},{b}]",
+                          per_call, per_call, (Ar, Br), {}, rows * (2 * r * a * b + 2 * a * b),
+                          4 * (rows * r * (a + b) + a * b)))
+        # batch_l2 in both forms; the path takes the one with fewer
+        # operations, and the bound counts that one.
+        counts = l2_mod.batch_l2_ops(N, r, a, b)
+        taken = l2_mod.batch_l2_form(r, a, b)
+        for form in l2_mod.FORMS:
+            on_path = int(form == taken)
+            cases.append(("batch_l2", f"{name} form={form}{' (path)' if on_path else ''} "
+                          f"A[{N},{r},{a}] B[{N},{r},{b}]", on_path, on_path, (A, B),
+                          dict(form=form), min(counts.values()),
+                          4 * (N * r * (a + b) + N)))
+        # ggn_diag has no call site; it is held at the exact sweep's shapes,
+        # once each in its sums.
+        S = randn(10, N, r, b)
+        cases.append(("ggn_diag", f"{name} exact A[{N},{r},{a}] S[10,{N},{r},{b}]", 0, 1,
+                      (A, S), {}, 10 * N * (2 * r * a * b + 2 * a * b),
+                      4 * (N * r * a + 10 * N * r * b + a * b)))
     for name, (a, b) in dense.items():
         for rows, per_call, label in ((N, 2, "moment+mc"), (10 * N, 1, "exact diag")):
             A, B = randn(rows, a), randn(rows, b)
             cases.append(("sq_matmul", f"{name} {label} A[{rows},{a}] B[{rows},{b}]",
-                          per_call, (A, B), {}, 2 * rows * a * b + rows * (a + b),
+                          per_call, per_call, (A, B), {}, 2 * rows * a * b + rows * (a + b),
                           4 * (rows * (a + b) + a * b)))
 
-    wrapper = {"fused_first_order": ops.fused_first_order,
-               "fused_second_order": ops.fused_second_order, "sq_matmul": ops.sq_matmul}
-    plain = {"fused_first_order": lambda A, B, **w: ref.fused_first_order(A[None], B[None], **w),
-             "fused_second_order": ref.fused_second_order, "sq_matmul": ref.sq_matmul}
+    wrapper = {k: getattr(ops, k) for k in ops.KERNELS}
+    plain = {k: getattr(ref, k) for k in ops.KERNELS}
+    plain["fused_first_order"] = lambda A, B, **w: ref.fused_first_order(A[None], B[None], **w)
+    plain["batch_l2"] = lambda A, B, form: ref.batch_l2(A, B)
     library = {"sq_matmul": lambda A, B: torch.matmul(A.square().T, B.square())}
     per_kernel = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops_ms=0.0,
                           bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, shapes=[])
                   for k in ops.KERNELS}
     record["checks"] = []
-    for kernel, label, per_call, args, kw, flops, nbytes in cases:
+    for kernel, label, per_call, weight, args, kw, flops, nbytes in cases:
         got = wrapper[kernel](*args, **kw)
         want = plain[kernel](*args, **kw)
         torch.cuda.synchronize()
@@ -167,7 +256,8 @@ def main():
         plain_ms = timed(lambda: plain[kernel](*args, **kw))
         lib_ms = timed(lambda: library[kernel](*args)) if kernel in library else None
         b_ms, b_by = bound(flops, nbytes)
-        row = dict(kernel=kernel, shape=label, launches_per_call=per_call, rel_err=rel_err,
+        row = dict(kernel=kernel, shape=label, launches_per_call=per_call, weight=weight,
+                   rel_err=rel_err,
                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
         say("check", **row)
@@ -178,13 +268,13 @@ def main():
         agg["shapes"].append(label)
         agg["max_abs_err"] = max(agg["max_abs_err"], abs_err)
         agg["max_rel_err"] = max(agg["max_rel_err"], rel_err)
-        agg["ms"] += per_call * ms
-        agg["plain_ms"] += per_call * plain_ms
-        agg["bound_ms"] += per_call * b_ms
-        agg["ops_ms"] += per_call * flops / PEAK_FLOPS * 1e3
-        agg["bytes_ms"] += per_call * nbytes / PEAK_BYTES * 1e3
+        agg["ms"] += weight * ms
+        agg["plain_ms"] += weight * plain_ms
+        agg["bound_ms"] += weight * b_ms
+        agg["ops_ms"] += weight * flops / PEAK_FLOPS * 1e3
+        agg["bytes_ms"] += weight * nbytes / PEAK_BYTES * 1e3
         if lib_ms is not None:
-            agg["library_ms"] += per_call * lib_ms
+            agg["library_ms"] += weight * lib_ms
     del cases  # free the check inputs before the main path
 
     # -- 4. the main path: 3C3D at full width, batch 128, three run calls ----
@@ -194,7 +284,7 @@ def main():
     y = torch.randint(0, 10, (N,), device="cuda", generator=gen)
     loss = CrossEntropyLoss()
     exts = tuple(by_name(n) for n in FIRST + EXACT + MC)
-    cfg = ExtensionConfig(use_kernels=True, mc_seed=0)
+    cfg = ExtensionConfig(mc_seed=0)  # the default route: kernels, fused
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -209,9 +299,9 @@ def main():
     record["main_path"] = dict(model="c3d3", batch=N, extensions=len(exts), step_s=step_s,
                                max_memory_allocated=peak, launches=launches)
     say("main_path", **record["main_path"])
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"the main path launched no {missing}")
+    wrong = {k: v for k, v in launches.items() if (v > 0) != (k in FUSED_KERNELS)}
+    if wrong:
+        fail(f"the fused main path must launch exactly {FUSED_KERNELS}, got {wrong}")
     for name in exts:
         for leaf in tree_leaves(res.ext[name.name]):
             if not torch.isfinite(leaf).all():
@@ -230,74 +320,165 @@ def main():
             steps[route].append(time.perf_counter() - t0)
     if ops.launch_counts() != {k: v + 5 * launches[k] // 3 for k, v in before.items()}:
         fail("use_kernels=False launched a kernel, or use_kernels=True launched other counts")
-    record["step_routes"] = dict(step_s=steps, median_ms={
-        k: sorted(v)[len(v) // 2] * 1e3 for k, v in steps.items()})
+    record["step_routes"] = dict(step_s=steps, median_ms=medians_ms(steps))
     say("step_routes", **record["step_routes"])
 
     # Where one call's device time goes (torch.profiler, CUDA activity).
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(model, params, x, y, loss, extensions=exts, cfg=cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    def device_us(e):  # the attribute's name changed across PyTorch versions
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
-    # Kernels only: the aten:: operators' device time is their kernels' again.
-    events = [e for e in prof.key_averages() if device_us(e) > 0
-              and not e.key.startswith(("aten::", "cuda", "Memcpy", "Memset"))]
-    device_ms = sum(device_us(e) for e in events) / 1e3
-    top = sorted(events, key=lambda e: -device_us(e))[:12]
-    record["profile"] = dict(wall_ms=wall * 1e3, device_ms=device_ms,
-                             top=[dict(name=e.key[:80], ms=device_us(e) / 1e3,
-                                       calls=e.count) for e in top])
+    record["profile"] = profiled(lambda: run(model, params, x, y, loss, extensions=exts,
+                                             cfg=cfg))
     say("profile", **record["profile"])
 
     # -- 5. the card against the CPU on the same call ------------------------
     draws = torch.randint(0, 10, (1, N), generator=torch.Generator().manual_seed(1))
+    cfg_fused = ExtensionConfig(use_kernels=True, use_fused=True)
+    cfg_pe = ExtensionConfig(use_kernels=True, use_fused=False)
 
-    def compare(label, mdl, prm, xx, yy, names, rng, tol=TOL):
-        cfg_k = ExtensionConfig(use_kernels=True)
-        card = run(mdl, prm, xx, yy, loss, extensions=names, cfg=cfg_k, rng=rng)
-        cpu = run(mdl, tree_map(lambda p: p.cpu(), prm), xx.cpu(), yy.cpu(), loss,
-                  extensions=names, cfg=cfg_k, rng=rng)
+    def rel_errs(got, want, names):
+        """max |got − want| / max |want| per output; ``want`` may lie on the CPU."""
         errs = {}
-        pairs = [("loss", [card.loss], [cpu.loss]), ("logits", [card.logits], [cpu.logits]),
-                 ("grads", tree_leaves(card.grads), tree_leaves(cpu.grads))]
-        pairs += [(e.name, tree_leaves(card.ext[e.name]), tree_leaves(cpu.ext[e.name]))
+        pairs = [("loss", [got.loss], [want.loss]), ("logits", [got.logits], [want.logits]),
+                 ("grads", tree_leaves(got.grads), tree_leaves(want.grads))]
+        pairs += [(e.name, tree_leaves(got.ext[e.name]), tree_leaves(want.ext[e.name]))
                   for e in names]
         # Variance = N·Σg² − (Σg)²: its rounding error scales with N·Σg².
-        scale = {"variance": tree_leaves(cpu.ext["second_moment"])} if "variance" in card.ext else {}
-        for key, got, want in pairs:
+        scale = ({"variance": tree_leaves(want.ext["second_moment"])}
+                 if "variance" in got.ext else {})
+        for key, gs, ws in pairs:
             err = 0.0
-            for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            for i, (g, w) in enumerate(zip(gs, ws, strict=True)):
                 den = (scale[key][i] if key in scale else w).abs().max().item()
-                err = max(err, (g.cpu() - w).abs().max().item() / max(den, 1e-30))
+                err = max(err, (g.to(w.device) - w).abs().max().item() / max(den, 1e-30))
             errs[key] = err
-        say("compare", label=label, tol=tol, rel_err=errs)
+        return errs
+
+    def check_errs(label, errs, tol=TOL, **extra):
+        say("compare", label=label, tol=tol, rel_err=errs, **extra)
         bad = {k: v for k, v in errs.items() if not v <= tol}
         if bad:
-            fail(f"{label}: card and CPU disagree {bad}")
+            fail(f"{label}: disagree {bad}")
         return errs
+
+    def compare(label, mdl, prm, xx, yy, names, rng, cfg_k=cfg_fused):
+        card = run(mdl, prm, xx, yy, loss, extensions=names, cfg=cfg_k, rng=rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cpu = run(mdl, tree_map(lambda p: p.cpu(), prm), xx.cpu(), yy.cpu(), loss,
+                  extensions=names, cfg=cfg_k, rng=rng)
+        return check_errs(label, rel_errs(card, cpu, names),
+                          cpu_s=time.perf_counter() - t0, batch=xx.shape[0])
 
     record["compare_c3d3"] = compare("c3d3 card vs cpu", model, params, x, y, exts, draws)
 
-    # -- 6. KFRA and DiagHessian on the MLP ----------------------------------
+    # -- 6. the per-extension route (use_fused=False), same call, same draws --
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    pe_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res_pe = run(model, params, x, y, loss, extensions=exts, cfg=cfg_pe, rng=draws)
+        torch.cuda.synchronize()
+        pe_s.append(time.perf_counter() - t0)
+    pe_launches = ops.launch_counts()
+    record["per_extension_route"] = dict(
+        model="c3d3", batch=N, extensions=len(exts), step_s=pe_s, launches=pe_launches,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    say("per_extension_route", **record["per_extension_route"])
+    want = {k: 3 * PER_EXTENSION_LAUNCHES.get(k, 0) for k in ops.KERNELS}
+    if pe_launches != want:
+        fail(f"the per-extension route launched {pe_launches}, not {want}")
+    res_fused = run(model, params, x, y, loss, extensions=exts, cfg=cfg_fused, rng=draws)
+    record["compare_routes"] = check_errs("c3d3 per-extension vs fused route (card)",
+                                          rel_errs(res_pe, res_fused, exts))
+    del res_pe, res_fused
+    record["compare_c3d3_per_extension"] = compare(
+        "c3d3 per-extension route card vs cpu", model, params, x, y, exts, draws, cfg_pe)
+    steps = {"per_extension": [], "fused": []}
+    for _ in range(5):
+        for route, c in (("per_extension", cfg_pe), ("fused", cfg_fused)):
+            t0 = time.perf_counter()
+            run(model, params, x, y, loss, extensions=exts, cfg=c, rng=draws)
+            torch.cuda.synchronize()
+            steps[route].append(time.perf_counter() - t0)
+    record["per_extension_steps"] = dict(step_s=steps, median_ms=medians_ms(steps))
+    say("per_extension_steps", **record["per_extension_steps"])
+    record["profile_per_extension"] = profiled(lambda: run(
+        model, params, x, y, loss, extensions=exts, cfg=cfg_pe, rng=draws))
+    say("profile_per_extension", **record["profile_per_extension"])
+
+    # -- 7. the paper's curvature-preconditioned training --------------------
+    batch = {"inputs": x, "labels": y}
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    cpu_batch = {"inputs": x.cpu(), "labels": y.cpu()}
+    plain_step = make_train_step(model, loss, sgd(0.1))
+    record["train"] = {}
+    for curvature, names, lr, damping in TRAIN:
+        opt = curvature_optimizer(lr, damping=damping, curvature=curvature)
+        step = make_extended_train_step(model, loss, opt, tuple(by_name(n) for n in names),
+                                        track=("variance",))
+        p, state, pp = params, opt.init(params), params
+        rng = torch.Generator(device="cuda").manual_seed(3)
+        losses, means, times = [], [], {"extended": [], "plain": []}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for i in range(TRAIN_STEPS):  # the extended and the plain step in turns
+            t0 = time.perf_counter()
+            p, state, m = step(p, state, batch, i, rng)
+            torch.cuda.synchronize()
+            times["extended"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            pp, _, _ = plain_step(pp, (), batch, i)
+            torch.cuda.synchronize()
+            times["plain"].append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+            means.append(m["variance_mean"].item() if "variance_mean" in m else None)
+        counts = ops.launch_counts()
+        med = medians_ms({k: v[1:] for k, v in times.items()})  # after the first step
+        prof = profiled(lambda: step(p, state, batch, TRAIN_STEPS, rng))
+        # One step card against CPU, from the same parameters and draws.
+        card_p, _, _ = step(params, opt.init(params), batch, 0, draws)
+        cpu_p, _, _ = step(cpu_params, opt.init(cpu_params), cpu_batch, 0, draws)
+        param_err = update_err = 0.0
+        for c, w, p0 in zip(tree_leaves(card_p), tree_leaves(cpu_p), tree_leaves(cpu_params)):
+            diff = (c.cpu() - w).abs().max().item()
+            param_err = max(param_err, diff / w.abs().max().item())
+            update_err = max(update_err, diff / max((w - p0).abs().max().item(), 1e-30))
+        row = dict(curvature=curvature, extensions=names, lr=lr, damping=damping,
+                   losses=losses, variance_mean=means, launches=counts, step_s=times,
+                   median_ms=med, extended_over_plain=med["extended"] / med["plain"],
+                   card_vs_cpu=dict(params_rel_err=param_err, update_rel_err=update_err,
+                                    tol=TOL), profile=prof)
+        record["train"][curvature] = row
+        say("train", **row)
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            fail(f"train {curvature}: the loss did not fall: {losses}")
+        on = {k for k, v in counts.items() if v}
+        if not on or not on <= set(FUSED_KERNELS):
+            fail(f"train {curvature}: launched {counts}, not the fused route's kernels")
+        if not param_err <= TOL:
+            fail(f"train {curvature}: card and CPU parameters differ by {param_err:.3e}")
+
+    record["profile_plain_step"] = profiled(lambda: plain_step(params, (), batch, 0))
+    say("profile_plain_step", **record["profile_plain_step"])
+
+    # -- 8. KFRA and DiagHessian on the MLP ----------------------------------
     mlp = papernets.mlp(device="cuda", generator=torch.Generator().manual_seed(2))
     xm = torch.randn(N, 784, device="cuda", generator=gen)
     ym = torch.randint(0, 10, (N,), device="cuda", generator=gen)
     record["compare_mlp"] = compare("mlp kfra+diag_hessian card vs cpu", mlp, mlp.params(),
                                     xm, ym, (by_name("kfra"), by_name("diag_hessian")), None)
 
-    # -- 7. the kernel table --------------------------------------------------
+    # -- 9. the kernel table --------------------------------------------------
+    # launches: each kernel's count on its path (the fused main path's three
+    # run calls; the per-extension route's three for its own kernels).
+    path_launches = dict(launches, per_sample_moment=pe_launches["per_sample_moment"],
+                         batch_l2=pe_launches["batch_l2"])
     table = []
     for k in ops.KERNELS:
         agg = per_kernel[k]
         table.append(dict(
             name=k, route="cuda", source=modules[k].SOURCE, replaces=modules[k].REPLACES,
-            launches=launches[k], max_abs_err=agg["max_abs_err"],
+            launches=path_launches[k], max_abs_err=agg["max_abs_err"],
             max_rel_err=agg["max_rel_err"], ms=agg["ms"],
             plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
             bound_by="operations" if agg["ops_ms"] >= agg["bytes_ms"] else "bytes",

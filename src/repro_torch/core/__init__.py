@@ -1,5 +1,5 @@
 """The BackPACK engine: extensions, losses, the module protocol and ``run``."""
-from .engine import Results, SweepPlan, loss_and_grad, plan_sweeps, run
+from .engine import Results, SweepPlan, loss_and_grad, plan_for_batch, plan_sweeps, run
 from .extensions import (
     ALL_EXTENSIONS,
     KFAC,
@@ -26,5 +26,6 @@ __all__ = [
     "CrossEntropyLoss", "Dense", "DiagGGN", "DiagGGNMC", "DiagHessian",
     "Extension", "ExtensionConfig", "GGNTrace", "KFAC", "KFLR", "KFRA",
     "Lambda", "MSELoss", "Module", "Results", "SecondMoment", "Sequential",
-    "SweepPlan", "Variance", "by_name", "loss_and_grad", "plan_sweeps", "run",
+    "SweepPlan", "Variance", "by_name", "loss_and_grad", "plan_for_batch",
+    "plan_sweeps", "run",
 ]

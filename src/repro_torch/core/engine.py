@@ -107,6 +107,29 @@ def plan_sweeps(extensions: Sequence[Extension],
     )
 
 
+def plan_for_batch(extensions, cfg: Optional[ExtensionConfig], n: int, mesh=None,
+                   shard_axes=("data",), microbatch_size: Optional[int] = None
+                   ) -> SweepPlan:
+    """The sweep lane for a batch of ``n`` samples: the single-device
+    :class:`SweepPlan` of ``extensions``.
+
+    The port has that one lane so far.  A ``mesh`` (the batch-sharded lane,
+    ROADMAP queue A item 12) or a ``microbatch_size`` that cuts the batch
+    into more than one slice (the accumulated lane, item 6) raises, rather
+    than running another lane silently.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            f"plan_for_batch: the sharded lane (mesh over {tuple(shard_axes)}) is "
+            "not ported yet (ROADMAP queue A item 12)")
+    if microbatch_size and -(-n // microbatch_size) > 1:
+        raise NotImplementedError(
+            f"plan_for_batch: microbatch_size={microbatch_size} cuts a batch of {n} "
+            "into several slices; the accumulated lane is not ported yet "
+            "(ROADMAP queue A item 6)")
+    return plan_sweeps(extensions, cfg)
+
+
 @dataclasses.dataclass
 class Results:
     loss: torch.Tensor
@@ -151,14 +174,6 @@ def _default_rng(sweeps, cfg, rng, device) -> Optional[MCDraws]:
             "MC extensions need an rng: pass rng= (a torch.Generator or the "
             "draws) or set ExtensionConfig(mc_seed=...)")
     return torch.Generator(device=device).manual_seed(cfg.mc_seed)
-
-
-def _check_routing(cfg: ExtensionConfig) -> None:
-    if cfg.use_kernels and not cfg.use_fused:
-        raise ValueError(
-            "use_kernels=True with use_fused=False routes through the "
-            "per_sample_moment and batch_l2 kernels, which are not ported "
-            "yet: use use_fused=True or use_kernels=False")
 
 
 @torch.no_grad()
@@ -206,7 +221,6 @@ def run(
         one entry per requested extension mirroring the params.
     """
     cfg = cfg or ExtensionConfig()
-    _check_routing(cfg)
     plan = plan_sweeps(extensions, cfg)
     sweeps = plan.sweeps
     first_exts, kron_exts = plan.first_exts, plan.kron_exts

@@ -174,15 +174,16 @@ class ExtensionConfig:
     use_kernels : bool
         Route the reductions through :mod:`repro_torch.kernels.ops` (the
         Hopper kernels on CUDA tensors, their plain versions on CPU
-        tensors); plain einsums otherwise.
+        tensors); plain einsums otherwise.  On by default, unlike the JAX
+        package's ``False``: on the card the kernels are the port's route.
     use_fused : bool
         With ``use_kernels``: one fused kernel launch per layer per sweep.
-        ``False`` (one kernel per statistic) needs the ``per_sample_moment``
-        and ``batch_l2`` kernels, which are not ported yet.
+        ``False`` is the paper's per-extension route, one kernel per
+        statistic (``per_sample_moment``, ``batch_l2``).
     """
 
     mc_samples: int = 1
     mc_seed: Optional[int] = None
     class_chunk: Optional[int] = None
-    use_kernels: bool = False
+    use_kernels: bool = True
     use_fused: bool = True

@@ -83,13 +83,6 @@ class UnsupportedSweep(Exception):
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(kernel):
-    return ValueError(
-        f"use_kernels=True with use_fused=False needs the {kernel} kernel, "
-        "which is not ported yet (per_sample_moment, batch_l2): use "
-        "use_fused=True or use_kernels=False")
-
-
 def per_sample_sq_sum(A, B, chunk=8, use_kernels=False):
     """Σ_n (A_nᵀ B_n)∘² without keeping all N [a×b] matrices.
 
@@ -104,7 +97,7 @@ def per_sample_sq_sum(A, B, chunk=8, use_kernels=False):
             return kops.sq_matmul(A[:, 0, :].contiguous(), B[:, 0, :].contiguous())
         return torch.einsum("na,nb->ab", A[:, 0, :] ** 2, B[:, 0, :] ** 2)
     if use_kernels:
-        raise _not_ported("per_sample_moment")
+        return kops.per_sample_moment(A.contiguous(), B.contiguous())
     out = torch.zeros((a, b), dtype=torch.float32, device=A.device)
     for i in range(0, n, max(1, chunk)):
         g = torch.einsum("nra,nrb->nab", A[i:i + chunk], B[i:i + chunk])
@@ -144,7 +137,7 @@ def per_sample_l2(A, B, use_kernels=False):
     if A.shape[1] == 1:
         return (A[:, 0, :] ** 2).sum(-1) * (B[:, 0, :] ** 2).sum(-1)
     if use_kernels:
-        raise _not_ported("batch_l2")
+        return kops.batch_l2(A.contiguous(), B.contiguous())
     ga = torch.einsum("nra,nsa->nrs", A, A)
     gb = torch.einsum("nrb,nsb->nrs", B, B)
     return (ga * gb).sum(dim=(1, 2))
@@ -213,6 +206,9 @@ def dense_curv_stats(A, S, exts, cfg: ExtensionConfig, bias: bool, ext_prefix):
     With ``cfg.use_kernels`` every requested statistic of an R > 1 layer
     comes out of ONE fused kernel launch over (A, S); rank-1 layers take the
     closed forms (the diagonal through ``sq_matmul`` on the broadcast input).
+    With ``use_fused=False`` the diagonal goes through ``per_sample_sq_sum``
+    on the broadcast ``[C·N, R, a]`` input (the ``per_sample_moment``
+    kernel), and kron and trace stay einsums, as in the JAX package.
     The MC sweep lands here too, its sample axis standing in for classes.
     """
     names = {e.name for e in exts}

@@ -20,6 +20,21 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, *rest, path: tuple = ()):
+    """:func:`tree_map` that also passes each leaf's path: the dict keys
+    and sequence indices from the root, as ``jax.tree_util``'s
+    ``tree_map_with_path`` gives them (``DictKey.key``, ``SequenceKey.idx``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest), path=path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, *children, path=path + (i,))
+                          for i, children in enumerate(zip(tree, *rest)))
+    if tree is None:
+        return None
+    return fn(path, tree, *rest)
+
+
 def tree_leaves(tree) -> List[Any]:
     """Leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
     if isinstance(tree, dict):

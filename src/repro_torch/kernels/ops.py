@@ -25,11 +25,15 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.batch_l2 import batch_l2_cuda
 from repro_torch.kernels.fused_first_order import fused_first_order_cuda
 from repro_torch.kernels.fused_second_order import fused_second_order_cuda
+from repro_torch.kernels.ggn_diag import ggn_diag_cuda
+from repro_torch.kernels.per_sample_moment import per_sample_moment_cuda
 from repro_torch.kernels.sq_matmul import sq_matmul_cuda
 
-KERNELS = ("fused_first_order", "fused_second_order", "sq_matmul")
+KERNELS = ("fused_first_order", "fused_second_order", "sq_matmul",
+           "per_sample_moment", "batch_l2", "ggn_diag")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -95,4 +99,33 @@ def fused_second_order(A, S, want_diag=True, want_kron=False,
         return ref.fused_second_order(A, S, **wants)
     out = fused_second_order_cuda(A, S, **wants)
     _LAUNCHES["fused_second_order"] += 1
+    return out
+
+
+def per_sample_moment(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Σ_n (A_nᵀB_n)∘²: A [N, R, a], B [N, R, b] → [a, b] float32."""
+    if not _on_card("per_sample_moment", A, B):
+        return ref.per_sample_moment(A, B)
+    out = per_sample_moment_cuda(A, B)
+    _LAUNCHES["per_sample_moment"] += 1
+    return out
+
+
+def batch_l2(A: torch.Tensor, B: torch.Tensor, form=None) -> torch.Tensor:
+    """‖A_nᵀB_n‖²: A [N, R, a], B [N, R, b] → [N] float32.  On the card
+    ``form`` (``"gram"`` or ``"g"``) overrides the kernel's choice of
+    algorithm (:func:`repro_torch.kernels.batch_l2.batch_l2_form`)."""
+    if not _on_card("batch_l2", A, B):
+        return ref.batch_l2(A, B)
+    out = batch_l2_cuda(A, B, form)
+    _LAUNCHES["batch_l2"] += 1
+    return out
+
+
+def ggn_diag(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """Σ_cn (A_nᵀS_cn)∘²: A [N, R, a], S [C, N, R, b] → [a, b] float32."""
+    if not _on_card("ggn_diag", A, S):
+        return ref.ggn_diag(A, S)
+    out = ggn_diag_cuda(A, S)
+    _LAUNCHES["ggn_diag"] += 1
     return out

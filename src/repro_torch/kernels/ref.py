@@ -16,6 +16,35 @@ def sq_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return (Af * Af).T @ (Bf * Bf)
 
 
+def per_sample_moment(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """M[a,b] = Σ_n (Σ_r A[n,r,a] B[n,r,b])² — the sequence second moment.
+
+    A: [N, R, a], B: [N, R, b] → [a, b] float32.
+    """
+    g = torch.einsum("nra,nrb->nab", A.float(), B.float())
+    return (g * g).sum(dim=0)
+
+
+def batch_l2(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """l2[n] = Σ_rs (A_n A_nᵀ)[r,s] (B_n B_nᵀ)[r,s] — the Gram trick.
+
+    A: [N, R, a], B: [N, R, b] → [N] float32.
+    """
+    Af, Bf = A.float(), B.float()
+    ga = torch.einsum("nra,nsa->nrs", Af, Af)
+    gb = torch.einsum("nrb,nsb->nrs", Bf, Bf)
+    return (ga * gb).sum(dim=(1, 2))
+
+
+def ggn_diag(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """diag[a,b] = Σ_{c,n} (Σ_r A[n,r,a] S[c,n,r,b])² (Eq. 19/22).
+
+    A: [N, R, a], S: [C, N, R, b] → [a, b] float32.
+    """
+    t = torch.einsum("nra,cnrb->cnab", A.float(), S.float())
+    return (t * t).sum(dim=(0, 1))
+
+
 def fused_second_order(A, S, want_diag=True, want_kron=False,
                        want_trace=False) -> Dict[str, torch.Tensor]:
     """t[c,n] = A_nᵀ S_cn, reduced.

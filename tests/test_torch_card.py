@@ -8,13 +8,20 @@ The file imports no JAX, so it runs on a machine that has only PyTorch:
 Each kernel is called through its dispatch wrapper on CUDA tensors at the
 shapes the 3C3D main path gives it at batch 128 (and at ragged shapes, for
 every output mask), and held against its plain version on the same tensors.
+A default ``run`` on CUDA tensors launches the kernels, and one
+curvature-preconditioned training step agrees card against CPU.
 """
 import itertools
 
 import pytest
 import torch
 
+from repro_torch.configs import papernets
+from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops, ref
+from repro_torch.optim import curvature_optimizer
+from repro_torch.train import make_extended_train_step
 
 FIRST_MASKS = [dict(want_l2=l2, want_moment=mo, want_dot=do)
                for l2, mo, do in itertools.product([False, True], repeat=3)
@@ -78,3 +85,74 @@ def test_card_sq_matmul(cuda, shape):
     A = torch.randn(n, a, device="cuda", generator=cuda)
     B = torch.randn(n, b, device="cuda", generator=cuda)
     _card_close({"out": ops.sq_matmul(A, B)}, {"out": ref.sq_matmul(A, B)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 10], ids=["moment", "exact_broadcast"])
+@pytest.mark.parametrize("layer", sorted(CONV))
+def test_card_per_sample_moment(cuda, layer, rows):
+    n, r, a, b = CONV[layer]
+    A = torch.randn(rows * n, r, a, device="cuda", generator=cuda)
+    B = torch.randn(rows * n, r, b, device="cuda", generator=cuda)
+    _card_close({"out": ops.per_sample_moment(A, B)}, {"out": ref.per_sample_moment(A, B)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", [None, "gram", "g"], ids=["auto", "gram", "g"])
+@pytest.mark.parametrize("layer", sorted(CONV))
+def test_card_batch_l2(cuda, layer, form):
+    n, r, a, b = CONV[layer]
+    A = torch.randn(n, r, a, device="cuda", generator=cuda)
+    B = torch.randn(n, r, b, device="cuda", generator=cuda)
+    _card_close({"out": ops.batch_l2(A, B, form)}, {"out": ref.batch_l2(A, B)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("classes", [10, 1], ids=["exact", "mc"])
+@pytest.mark.parametrize("layer", sorted(CONV))
+def test_card_ggn_diag(cuda, layer, classes):
+    n, r, a, b = CONV[layer]
+    A = torch.randn(n, r, a, device="cuda", generator=cuda)
+    S = torch.randn(classes, n, r, b, device="cuda", generator=cuda)
+    _card_close({"out": ops.ggn_diag(A, S)}, {"out": ref.ggn_diag(A, S)})
+
+
+def _c2d2(cuda):
+    model = papernets.c2d2(img=16, device="cuda", generator=torch.Generator().manual_seed(0))
+    x = torch.randn(16, 16, 16, 1, device="cuda", generator=cuda)
+    y = torch.randint(0, 10, (16,), device="cuda", generator=cuda)
+    return model, x, y
+
+
+@pytest.mark.gpu
+def test_card_default_run_launches_kernels(cuda):
+    """No cfg: the port's default routes CUDA tensors through the kernels."""
+    model, x, y = _c2d2(cuda)
+    ops.reset_launch_counts()
+    run(model, model.params(), x, y, CrossEntropyLoss(),
+        extensions=(by_name("batch_l2"), by_name("diag_ggn")))
+    counts = ops.launch_counts()
+    assert counts["fused_first_order"] == 2 and counts["fused_second_order"] == 2
+    assert counts["sq_matmul"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_fused", [True, False], ids=["fused", "per_extension"])
+@pytest.mark.parametrize("curvature", ["kfac", "diag_ggn_mc"])
+def test_card_train_step_matches_cpu(cuda, curvature, use_fused):
+    model, x, y = _c2d2(cuda)
+    opt = curvature_optimizer(0.1, damping=1.0, curvature=curvature)
+    cfg = ExtensionConfig(use_kernels=True, use_fused=use_fused)
+    step = make_extended_train_step(model, CrossEntropyLoss(), opt,
+                                    (by_name(curvature), by_name("variance")), cfg,
+                                    track=("variance",))
+    draws = torch.randint(0, 10, (1, 16), generator=torch.Generator().manual_seed(1))
+    params = model.params()
+    card, _, m_card = step(params, opt.init(params), {"inputs": x, "labels": y}, 0, draws)
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    cpu, _, m_cpu = step(cpu_params, opt.init(cpu_params),
+                         {"inputs": x.cpu(), "labels": y.cpu()}, 0, draws)
+    torch.cuda.synchronize()
+    assert abs(m_card["loss"].item() - m_cpu["loss"].item()) <= CARD_TOL * m_cpu["loss"].item()
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu), strict=True):
+        assert ((a.cpu() - b).abs().max() / b.abs().max()).item() < CARD_TOL

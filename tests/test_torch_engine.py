@@ -3,10 +3,13 @@
 Each paper network is initialised in JAX, its parameters cross into the port
 through numpy (``repro_torch.bridge``), and both packages run the same
 numpy-made batch.  The JAX side is the reference: ``use_kernels=True``
-(Pallas interpret mode), all extensions in one jitted call.  The port runs
-every sweep with ``use_kernels`` off and on (on the CPU the kernels' plain
-versions run).  The MC sweep gets JAX's own draws, computed with
-``jax.random`` exactly as ``repro/core/loss_hessian.py`` draws them.
+(Pallas interpret mode), all extensions in one jitted call, on the fused
+route and on the per-extension route (``use_fused=False``).  The port runs
+every sweep with ``use_kernels`` off and on, and on the per-extension route
+(on the CPU the kernels' plain versions run); every call names its routing
+flags, since the port's default (``use_kernels=True``) is not JAX's.  The MC
+sweep gets JAX's own draws, computed with ``jax.random`` exactly as
+``repro/core/loss_hessian.py`` draws them.
 
 Tolerances are those of ``tests/test_differential.py``: loss rtol 1e-6,
 logits and gradients rtol 1e-5 / atol 1e-6, statistics rtol = atol = 3e-5.
@@ -33,6 +36,7 @@ from repro_torch.configs import papernets as tnets
 from repro_torch.core import CrossEntropyLoss, ExtensionConfig, MSELoss, by_name, plan_sweeps, run
 from repro_torch.core.module import per_sample_dots
 from repro_torch.core.tree import tree_leaves
+from repro_torch.kernels import ops as kops
 from repro_torch.nn.layers import MaxPool2d
 
 SWEEPS = {
@@ -87,11 +91,13 @@ def _jax_draws(case, logits, rng, k):
 _REFERENCE = {}
 
 
-def reference(name):
-    """JAX model, params, batch and results for one case (computed once)."""
-    if name in _REFERENCE:
-        return _REFERENCE[name]
+def reference(name, use_fused=True):
+    """JAX model, params, batch and results for one case and route
+    (computed once)."""
+    if (name, use_fused) in _REFERENCE:
+        return _REFERENCE[name, use_fused]
     case = CASES[name]
+    sweeps = case.sweeps if use_fused else [s for s in case.sweeps if s != "chain"]
     model = getattr(jnets, case.net)(**dict(case.kwargs))
     params = model.init(jax.random.PRNGKey(0))
     rs = np.random.RandomState(1)
@@ -101,10 +107,10 @@ def reference(name):
         y, loss = rs.randint(0, case.n_classes, n), JCrossEntropy()
     else:
         y, loss = rs.randn(n, case.n_classes).astype(np.float32), JMSE()
-    names = tuple(e for s in case.sweeps for e in SWEEPS[s])
+    names = tuple(e for s in sweeps for e in SWEEPS[s])
     exts = tuple(jby_name(e) for e in names)
     rng = jax.random.PRNGKey(42)
-    cfg = JConfig(use_kernels=True, mc_samples=MC_SAMPLES)
+    cfg = JConfig(use_kernels=True, use_fused=use_fused, mc_samples=MC_SAMPLES)
 
     @jax.jit
     def go(p, xx, yy):
@@ -113,19 +119,20 @@ def reference(name):
 
     res = jax.tree.map(np.asarray, go(params, jnp.asarray(x), jnp.asarray(y)))
     draws = _jax_draws(case, jnp.asarray(res[2]), rng, MC_SAMPLES)
-    _REFERENCE[name] = dict(case=case, np_params=jax.tree.map(np.asarray, params),
-                            x=x, y=y, res=res, draws=draws)
-    return _REFERENCE[name]
+    _REFERENCE[name, use_fused] = dict(case=case, np_params=jax.tree.map(np.asarray, params),
+                                       x=x, y=y, res=res, draws=draws)
+    return _REFERENCE[name, use_fused]
 
 
-def port_run(ref, names, **cfg):
+def port_run(ref, names, use_kernels, use_fused=True, **cfg):
     case = ref["case"]
     model = getattr(tnets, case.net)(**dict(case.kwargs), device="cpu")
     params = params_from_numpy(model, ref["np_params"], "cpu")
     loss = CrossEntropyLoss() if case.loss == "ce" else MSELoss()
     return run(model, params, torch.from_numpy(ref["x"]), torch.from_numpy(ref["y"]),
                loss, extensions=tuple(by_name(n) for n in names),
-               cfg=ExtensionConfig(mc_samples=MC_SAMPLES, **cfg),
+               cfg=ExtensionConfig(mc_samples=MC_SAMPLES, use_kernels=use_kernels,
+                                   use_fused=use_fused, **cfg),
                rng=torch.tensor(ref["draws"]))
 
 
@@ -166,10 +173,36 @@ def test_class_chunk_matches_jax(case, use_kernels):
     assert_matches(res, ref, names)
 
 
-def test_unported_routing_raises():
-    ref = reference("mlp")
-    with pytest.raises(ValueError, match="per_sample_moment and batch_l2"):
-        port_run(ref, SWEEPS["first"], use_kernels=True, use_fused=False)
+ROUTE_PARAMS = [(c, s) for c in CASES for s in CASES[c].sweeps if s != "chain"]
+
+
+@pytest.mark.parametrize("case,sweep", ROUTE_PARAMS,
+                         ids=[f"{c}-{s}" for c, s in ROUTE_PARAMS])
+def test_per_extension_route_matches_jax(case, sweep):
+    """``use_kernels=True, use_fused=False``: one kernel per statistic
+    (per_sample_moment, batch_l2, sq_matmul), against JAX's same route."""
+    ref = reference(case, use_fused=False)
+    names = SWEEPS[sweep]
+    assert_matches(port_run(ref, names, use_kernels=True, use_fused=False), ref, names)
+
+
+def test_per_extension_route_calls_its_kernels(monkeypatch):
+    """The route reaches ops.per_sample_moment and ops.batch_l2 on each conv
+    layer, sq_matmul on each dense layer, and no fused op.  On the CPU no
+    launch is counted, so the ops are spied on."""
+    calls = {k: 0 for k in kops.KERNELS}
+    for k in kops.KERNELS:
+        def spy(*args, _k=k, _f=getattr(kops, k), **kw):
+            calls[_k] += 1
+            return _f(*args, **kw)
+        monkeypatch.setattr(kops, k, spy)
+    ref = reference("c2d2", use_fused=False)
+    names = SWEEPS["first"] + SWEEPS["exact"] + SWEEPS["mc"]
+    port_run(ref, names, use_kernels=True, use_fused=False)
+    # c2d2: 2 conv layers (moment + exact diag + MC diag each, and l2), and
+    # 2 dense layers (the rank-1 moment and both diagonals through sq_matmul).
+    assert calls == {"fused_first_order": 0, "fused_second_order": 0, "sq_matmul": 6,
+                     "per_sample_moment": 6, "batch_l2": 2, "ggn_diag": 0}
 
 
 def test_mc_seed_draws_are_deterministic():
@@ -195,7 +228,7 @@ def test_mc_seed_draws_are_deterministic():
 @pytest.mark.parametrize("use_kernels", [False, True])
 def test_plan_describe_matches_jax(names, use_kernels):
     got = plan_sweeps(tuple(by_name(n) for n in names),
-                      ExtensionConfig(use_kernels=use_kernels)).describe()
+                      ExtensionConfig(use_kernels=use_kernels, use_fused=True)).describe()
     want = jplan_sweeps(tuple(jby_name(n) for n in names),
                         JConfig(use_kernels=use_kernels)).describe()
     assert got == want

@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
+from repro_torch.kernels.batch_l2 import batch_l2_form, batch_l2_ops
 
 RTOL = ATOL = 3e-5  # float32 sums in another order (tests/test_differential.py)
 
@@ -92,12 +93,62 @@ def test_sq_matmul_matches_jax(shape):
                                    rtol=RTOL, atol=ATOL)
 
 
+# (N, R, a, b): ragged (no multiple of 16 or 64), a Gram tile edge (R = 65),
+# and the per-extension route's dense-ish conv shape (a > b).
+PER_SAMPLE_SHAPES = {"ragged": (5, 7, 9, 13), "r65": (3, 65, 10, 6),
+                     "wide_a": (4, 6, 130, 3)}
+
+
+@pytest.mark.parametrize("shape", PER_SAMPLE_SHAPES.values(), ids=PER_SAMPLE_SHAPES)
+def test_per_sample_moment_matches_jax(shape):
+    n, r, a, b = shape
+    A, B = _rand(8, n, r, a), _rand(9, n, r, b)
+    port = ops.per_sample_moment(torch.from_numpy(A), torch.from_numpy(B))
+    _close({"out": port},
+           {"out": jops.per_sample_moment(jnp.asarray(A), jnp.asarray(B))},
+           {"out": jref.per_sample_moment(jnp.asarray(A), jnp.asarray(B))})
+
+
+@pytest.mark.parametrize("shape", PER_SAMPLE_SHAPES.values(), ids=PER_SAMPLE_SHAPES)
+def test_batch_l2_matches_jax(shape):
+    n, r, a, b = shape
+    A, B = _rand(10, n, r, a), _rand(11, n, r, b)
+    port = ops.batch_l2(torch.from_numpy(A), torch.from_numpy(B))
+    _close({"out": port},
+           {"out": jops.batch_l2(jnp.asarray(A), jnp.asarray(B))},
+           {"out": jref.batch_l2(jnp.asarray(A), jnp.asarray(B))})
+
+
+@pytest.mark.parametrize("c", [1, 3, 10])
+@pytest.mark.parametrize("shape", PER_SAMPLE_SHAPES.values(), ids=PER_SAMPLE_SHAPES)
+def test_ggn_diag_matches_jax(shape, c):
+    n, r, a, b = shape
+    A, S = _rand(12, n, r, a), _rand(13, c, n, r, b)
+    port = ops.ggn_diag(torch.from_numpy(A), torch.from_numpy(S))
+    _close({"out": port},
+           {"out": jops.ggn_diag(jnp.asarray(A), jnp.asarray(S))},
+           {"out": jref.ggn_diag(jnp.asarray(A), jnp.asarray(S))})
+
+
+@pytest.mark.parametrize("shape,form", [((128, 1024, 75, 64), "g"), ((128, 256, 576, 96), "g"),
+                                        ((128, 64, 864, 128), "gram"), ((4, 1, 3, 2), "gram")],
+                         ids=["conv1", "conv2", "conv3", "rank1"])
+def test_batch_l2_form_takes_fewer_operations(shape, form):
+    """The kernel's form rule at the 3C3D conv shapes (as the .cu note says)."""
+    n, r, a, b = shape
+    counts = batch_l2_ops(n, r, a, b)
+    assert batch_l2_form(r, a, b) == form == min(counts, key=counts.get)
+
+
 def test_cpu_dispatch_takes_plain_version_and_counts_no_launch():
     ops.reset_launch_counts()
     A, B = torch.randn(4, 3, 5), torch.randn(4, 3, 6)
     ops.fused_first_order(A, B)
     ops.fused_second_order(A, B[None])
     ops.sq_matmul(A[:, 0], B[:, 0])
+    ops.per_sample_moment(A, B)
+    ops.batch_l2(A, B)
+    ops.ggn_diag(A, B[None])
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 

@@ -6,6 +6,7 @@
   triton: kernels are built and loaded only when they launch.
 * A CUDA request without a card raises; nothing carries on on the CPU.
 * ``chip_smoke.py`` fails without a card, and outside a checkout.
+* The examples run with ``--device cpu``, and ask for the card by default.
 """
 import ast
 import os
@@ -87,3 +88,24 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("name,expect", [("quickstart", "ONE extended backward pass"),
+                                         ("per_sample_clipping", "clipped fraction")])
+def test_examples_run_on_cpu(name, expect):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}",
+                           "--device", "cpu"], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert expect in proc.stdout
+
+
+def test_example_asks_for_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the example runs on it")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.examples.quickstart"],
+                          env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA device was requested" in proc.stderr
