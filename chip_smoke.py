@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the six Hopper kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-per source, all at once) and holds each against its plain PyTorch version at
-the shapes BackPACK's paths give it on 3C3D at batch 128.  Then it drives
-three paths through the entry points a user calls, on 3C3D (CIFAR-10 shapes,
-full width, random weights from a seed), each with the launch counts set to
-0 just before and read just after:
+Builds the eight Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
+nvcc per source, all at once) and holds each against its plain PyTorch
+version at the shapes BackPACK's paths give it on 3C3D at batch 128.  Then it
+drives five paths through the entry points a user calls, on 3C3D (CIFAR-10
+shapes, full width, random weights from a seed), each with the launch counts
+set to 0 just before and read just after:
 
 * the main path, ``repro_torch.core.run`` with the ten first-order,
   exact-GGN and MC extensions on the fused route (the default), which must
@@ -25,7 +25,19 @@ full width, random weights from a seed), each with the launch counts set to
   must agree card against CPU, and the steps are timed against the plain
   gradient step (``make_train_step`` with SGD).
 
-Last it runs KFRA and DiagHessian on the 784-128-64-10 MLP, card against
+* the Gram family, ``run`` with NTK, NTKClasswise and GGNGram, which must
+  launch cross_dot 6 times (3 conv layers × the NTK and the GGNGram Gram)
+  and nothing else, compared card against CPU, with the NTK symmetric, its
+  diagonal ≥ 0 and the class-wise kernel summing to it; then the
+  kernel-space natural gradient ``kernel_ngd_direction`` card against CPU;
+* the Laplace posterior on the parameters the KFAC steps trained: DiagLaplace
+  (DiagGGN), KronLaplace (KFLR) and LastLayerLaplace (kron) fitted on the
+  training batch, ``glm_predictive`` on a held-out batch of 128 (3
+  predictive_var launches for each full-network posterior, none for the
+  last-layer closed form), card against CPU, ``probit_predictive`` rows
+  summing to 1, a finite ``log_marglik`` that ``optimize_marglik`` raises.
+
+It also runs KFRA and DiagHessian on the 784-128-64-10 MLP, card against
 CPU.  Every phase prints a line; any failure exits non-zero.  The
 second-to-last lines are the kernel table (JSON) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The full
@@ -113,15 +125,35 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import papernets
-    from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
+    from repro_torch.core import (
+        NTK,
+        CrossEntropyLoss,
+        ExtensionConfig,
+        GGNGram,
+        NTKClasswise,
+        by_name,
+        gram_total,
+        ntk_total,
+        run,
+    )
     from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.curv import kernel_ngd_direction
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import batch_l2 as l2_mod
+    from repro_torch.kernels import cross_dot as cd_mod
     from repro_torch.kernels import fused_first_order as ffo_mod
     from repro_torch.kernels import fused_second_order as fso_mod
     from repro_torch.kernels import ggn_diag as gd_mod
     from repro_torch.kernels import per_sample_moment as psm_mod
+    from repro_torch.kernels import predictive_var as pv_mod
     from repro_torch.kernels import sq_matmul as sq_mod
+    from repro_torch.laplace import (
+        fit_posterior,
+        glm_predictive,
+        log_marglik,
+        optimize_marglik,
+        probit_predictive,
+    )
     from repro_torch.optim import curvature_optimizer, sgd
     from repro_torch.train import make_extended_train_step, make_train_step
 
@@ -140,7 +172,7 @@ def main():
     libs = _build.build()
     modules = {"fused_first_order": ffo_mod, "fused_second_order": fso_mod,
                "sq_matmul": sq_mod, "per_sample_moment": psm_mod, "batch_l2": l2_mod,
-               "ggn_diag": gd_mod}
+               "ggn_diag": gd_mod, "cross_dot": cd_mod, "predictive_var": pv_mod}
     record["build_s"] = time.perf_counter() - t0
     say("kernels", build_s=record["build_s"],
         kernels=[dict(name=k, source=modules[k].SOURCE, replaces=modules[k].REPLACES,
@@ -229,10 +261,48 @@ def main():
                           per_call, per_call, (A, B), {}, 2 * rows * a * b + rows * (a + b),
                           4 * (rows * (a + b) + a * b)))
 
+    # The Gram family's cross_dot (per gram run call: the NTK's E = C groups
+    # over one shared input and GGNGram's C·N class-major rows, one row set
+    # each, so the kernel forms G once and the upper triangle of the Gram;
+    # and, off the path, two different row sets: the two halves of the
+    # batch) and the Laplace predictive's predictive_var (per glm_predictive
+    # call: with Sigma for a diagonal posterior, without for a Kronecker
+    # one), at the conv layers; the dense layers take closed forms.
+    # Operations: G = AᵀB (2·R·a·b a row), the Gram's pairs (2·a·b each,
+    # N(N+1)/2 of them on one row set), t = A_nᵀS_cn (2·C·N·R·a·b) and its
+    # square, weight and sum (3 or 2 per t entry).
+    for name, (r, a, b) in conv.items():
+        A, S = randn(N, r, a), randn(10, N, r, b)
+        rows = S.reshape(1, 10 * N, r, b)
+        for label, args, e, n_rows in (
+                (f"{name} ntk A[{N},{r},{a}] S[10,{N},{r},{b}]", (A[None], S, A[None], S), 10, N),
+                (f"{name} ggn_gram A[{N},{r},{a}] rows[{10 * N},{r},{b}]",
+                 (A[None], rows, A[None], rows), 1, 10 * N)):
+            flops = 2 * e * n_rows * r * a * b + e * n_rows * (n_rows + 1) * a * b
+            nbytes = 4 * (N * r * a + e * n_rows * r * b + e * n_rows * n_rows)
+            cases.append(("cross_dot", label, 1, 1, args, {}, flops, nbytes))
+        if name == "conv2":
+            h = N // 2
+            args = (A[None, :h].contiguous(), S[:1, :h].contiguous(),
+                    A[None, h:].contiguous(), S[:1, h:].contiguous())
+            cases.append(("cross_dot", f"{name} two row sets A[2x{h},{r},{a}] B[2x{h},{r},{b}]",
+                          0, 0, args, {}, 2 * N * r * a * b + 2 * h * h * a * b,
+                          4 * (N * r * (a + b) + h * h)))
+        W = torch.rand(a, b, device="cuda", generator=gen)
+        for sigma in (W, None):
+            label = "diag Sigma" if sigma is not None else "kron"
+            cases.append(("predictive_var", f"{name} {label} A[{N},{r},{a}] S[10,{N},{r},{b}]",
+                          1, int(sigma is not None), (A, S, sigma), {},
+                          2 * 10 * N * r * a * b + (2 + (sigma is not None)) * 10 * N * a * b,
+                          4 * (N * r * a + 10 * N * r * b + 10 * N
+                               + (a * b if sigma is not None else 0))))
+
     wrapper = {k: getattr(ops, k) for k in ops.KERNELS}
     plain = {k: getattr(ref, k) for k in ops.KERNELS}
     plain["fused_first_order"] = lambda A, B, **w: ref.fused_first_order(A[None], B[None], **w)
     plain["batch_l2"] = lambda A, B, form: ref.batch_l2(A, B)
+    plain["cross_dot"] = lambda A1, B1, A2, B2: ref.cross_dot(
+        ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2)
     library = {"sq_matmul": lambda A, B: torch.matmul(A.square().T, B.square())}
     per_kernel = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops_ms=0.0,
                           bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, shapes=[])
@@ -412,6 +482,7 @@ def main():
     cpu_batch = {"inputs": x.cpu(), "labels": y.cpu()}
     plain_step = make_train_step(model, loss, sgd(0.1))
     record["train"] = {}
+    trained = {}
     for curvature, names, lr, damping in TRAIN:
         opt = curvature_optimizer(lr, damping=damping, curvature=curvature)
         step = make_extended_train_step(model, loss, opt, tuple(by_name(n) for n in names),
@@ -433,6 +504,7 @@ def main():
             losses.append(m["loss"].item())
             means.append(m["variance_mean"].item() if "variance_mean" in m else None)
         counts = ops.launch_counts()
+        trained[curvature] = p
         med = medians_ms({k: v[1:] for k, v in times.items()})  # after the first step
         prof = profiled(lambda: step(p, state, batch, TRAIN_STEPS, rng))
         # One step card against CPU, from the same parameters and draws.
@@ -468,11 +540,138 @@ def main():
     record["compare_mlp"] = compare("mlp kfra+diag_hessian card vs cpu", mlp, mlp.params(),
                                     xm, ym, (by_name("kfra"), by_name("diag_hessian")), None)
 
-    # -- 9. the kernel table --------------------------------------------------
+    # -- 9. the Gram family and the kernel-space natural gradient -----------
+    gram_exts = (NTK, NTKClasswise, GGNGram)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_g = run(model, params, x, y, loss, extensions=gram_exts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    gram_launches = ops.launch_counts()
+    ntk = ntk_total(res_g.ext["ntk"])
+    K = gram_total(res_g.ext["ggn_gram"])
+    scale = ntk.abs().max().item()
+    gram = dict(model="c3d3", batch=N, launches=gram_launches, first_call_s=first_s,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                shapes=dict(ntk=list(ntk.shape), ntk_classwise=list(
+                    ntk_total(res_g.ext["ntk_classwise"]).shape), ggn_gram=list(K.shape)),
+                ntk_asymmetry=(ntk - ntk.T).abs().max().item() / scale,
+                ntk_min_diagonal=torch.diagonal(ntk).min().item(),
+                classwise_sum_err=(ntk_total(res_g.ext["ntk_classwise"]).sum(-1) - ntk)
+                .abs().max().item() / scale)
+    record["gram"] = gram
+    say("gram", **gram)
+    if gram_launches != {k: 6 if k == "cross_dot" else 0 for k in ops.KERNELS}:
+        fail(f"the gram path must launch cross_dot 6 times and nothing else, got {gram_launches}")
+    if gram["shapes"] != dict(ntk=[N, N], ntk_classwise=[N, N, 10], ggn_gram=[N, N, 10, 10]):
+        fail(f"gram: wrong shapes {gram['shapes']}")
+    if not (torch.isfinite(ntk).all() and torch.isfinite(K).all()):
+        fail("gram: non-finite kernel")
+    if not (gram["ntk_asymmetry"] <= 1e-6 and gram["ntk_min_diagonal"] >= 0
+            and gram["classwise_sum_err"] <= TOL):
+        fail(f"gram: the NTK is not a symmetric PSD-diagonal kernel summing its classes: {gram}")
+    record["compare_gram"] = compare("c3d3 gram card vs cpu", model, params, x, y, gram_exts,
+                                     None)
+    # Kernel-space NGD, damped by the mean eigenvalue of the [N·C, N·C] Gram.
+    K2 = K.permute(0, 2, 1, 3).reshape(10 * N, 10 * N)
+    damping = torch.diagonal(K2).mean().item()
+    ngd_card, _ = kernel_ngd_direction(model, params, x, y, loss, damping=damping)
+    ngd_cpu, _ = kernel_ngd_direction(model, cpu_params, x.cpu(), y.cpu(), loss,
+                                      damping=damping)
+    ngd_err = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(tree_leaves(ngd_card), tree_leaves(ngd_cpu), strict=True))
+    record["compare_ngd"] = check_errs("c3d3 kernel_ngd_direction card vs cpu",
+                                       {"direction": ngd_err}, damping=damping)
+    steps = {"gram_run": [], "kernel_ngd": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run(model, params, x, y, loss, extensions=gram_exts)
+        torch.cuda.synchronize()
+        steps["gram_run"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        kernel_ngd_direction(model, params, x, y, loss, damping=damping)
+        torch.cuda.synchronize()
+        steps["kernel_ngd"].append(time.perf_counter() - t0)
+    record["gram_steps"] = dict(step_s=steps, median_ms=medians_ms(steps))
+    say("gram_steps", **record["gram_steps"])
+    record["profile_gram"] = profiled(lambda: run(model, params, x, y, loss,
+                                                  extensions=gram_exts))
+    say("profile_gram", **record["profile_gram"])
+    del res_g, ntk, K, K2
+
+    # -- 10. the Laplace posterior on the parameters the KFAC steps trained --
+    map_params = trained["kfac"]
+    cpu_map = tree_map(lambda p: p.cpu(), map_params)
+    x_out = torch.randn(N, 32, 32, 3, device="cuda", generator=gen)  # held out
+    posteriors = (("diag", "diag", False), ("kron", "kron", False),
+                  ("last_layer_kron", "kron", True))
+    record["laplace"] = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for label, structure, last in posteriors:
+        fit_s, pred_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            post = fit_posterior(model, map_params, x, y, loss, structure=structure,
+                                 last_layer=last)
+            torch.cuda.synchronize()
+            fit_s.append(time.perf_counter() - t0)
+        for _ in range(3):
+            before = ops.launch_counts()["predictive_var"]
+            t0 = time.perf_counter()
+            mean, var = glm_predictive(model, map_params, post, x_out)
+            torch.cuda.synchronize()
+            pred_s.append(time.perf_counter() - t0)
+            per_call = ops.launch_counts()["predictive_var"] - before
+            if per_call != (0 if last else 3):
+                fail(f"laplace {label}: glm_predictive launched predictive_var {per_call} times")
+        probs = probit_predictive(mean, var)
+        cpu_post = fit_posterior(model, cpu_map, x.cpu(), y.cpu(), loss, structure=structure,
+                                 last_layer=last)
+        cpu_mean, cpu_var = glm_predictive(model, cpu_map, cpu_post, x_out.cpu())
+        ev = log_marglik(post).item()
+        t0 = time.perf_counter()
+        tuned, mres = optimize_marglik(post, n_steps=100, lr=0.1)
+        torch.cuda.synchronize()
+        marglik_s = time.perf_counter() - t0
+        ev_tuned = log_marglik(tuned).item()
+        row = dict(structure=structure, last_layer=last, fit_s=fit_s, predictive_s=pred_s,
+                   marglik_s=marglik_s, median_ms=dict(
+                       fit=medians_ms({"f": fit_s})["f"], predictive=medians_ms({"p": pred_s})["p"],
+                       optimize_marglik_100_steps=marglik_s * 1e3),
+                   predictive_var_per_call=per_call, log_marglik=ev,
+                   log_marglik_tuned=ev_tuned, prior_prec_tuned=mres.prior_prec,
+                   var_range=[var.min().item(), var.max().item()],
+                   probit_row_sum_err=(probs.sum(-1) - 1).abs().max().item())
+        record["laplace"][label] = row
+        say("laplace", **row)
+        if not (torch.isfinite(mean).all() and torch.isfinite(var).all() and (var > 0).all()
+                and tuple(var.shape) == (N, 10)):
+            fail(f"laplace {label}: the predictive is not finite, positive, [N, C]")
+        if not row["probit_row_sum_err"] <= 1e-5:
+            fail(f"laplace {label}: probit rows do not sum to 1")
+        if not (math.isfinite(ev) and ev_tuned > ev):
+            fail(f"laplace {label}: evidence {ev} not finite or not raised ({ev_tuned})")
+        err = {"mean": (mean.cpu() - cpu_mean).abs().max().item() / cpu_mean.abs().max().item(),
+               "var": (var.cpu() - cpu_var).abs().max().item() / cpu_var.abs().max().item()}
+        record["laplace"][label]["card_vs_cpu"] = check_errs(f"laplace {label} card vs cpu", err)
+    laplace_launches = ops.launch_counts()
+    say("laplace_launches", launches=laplace_launches)
+    kron_post = fit_posterior(model, map_params, x, y, loss, structure="kron")
+    record["profile_laplace_predictive"] = profiled(
+        lambda: glm_predictive(model, map_params, kron_post, x_out))
+    say("profile_laplace_predictive", **record["profile_laplace_predictive"])
+
+    # -- 11. the kernel table -------------------------------------------------
     # launches: each kernel's count on its path (the fused main path's three
-    # run calls; the per-extension route's three for its own kernels).
+    # run calls; the per-extension route's three for its own kernels; the
+    # gram path's one run call; the Laplace path's diag and kron predictives).
     path_launches = dict(launches, per_sample_moment=pe_launches["per_sample_moment"],
-                         batch_l2=pe_launches["batch_l2"])
+                         batch_l2=pe_launches["batch_l2"],
+                         cross_dot=gram_launches["cross_dot"],
+                         predictive_var=laplace_launches["predictive_var"])
     table = []
     for k in ops.KERNELS:
         agg = per_kernel[k]

@@ -11,11 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.module import Module, resolve_device
-from repro_torch.core.tree import tree_leaves, tree_map
-
-
-def _structure(tree):
-    return tree_map(lambda _: 0, tree)
+from repro_torch.core.tree import tree_leaves, tree_map, tree_structure
 
 
 def params_from_numpy(model: Module, np_params, device="cuda"):
@@ -25,9 +21,9 @@ def params_from_numpy(model: Module, np_params, device="cuda"):
     device = resolve_device(device)
     model.to(device)
     params = model.params()
-    if _structure(params) != _structure(np_params):
+    if tree_structure(params) != tree_structure(np_params):
         raise ValueError("parameter trees differ: the model has "
-                         f"{_structure(params)}, the arrays {_structure(np_params)}")
+                         f"{tree_structure(params)}, the arrays {tree_structure(np_params)}")
     for p, a in zip(tree_leaves(params), tree_leaves(np_params)):
         a = np.asarray(a)
         if tuple(p.shape) != a.shape:

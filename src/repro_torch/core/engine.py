@@ -11,6 +11,8 @@ Sweep plan (decided from the requested extensions):
   ggn_exact  exact loss-Hessian factor ``S`` (Eq. 15/18), in chunks of
              ``cfg.class_chunk`` columns when that is set.
   ggn_mc     Monte-Carlo factor ``S̃`` (Eq. 20).
+  jac        raw-Jacobian sweep with identity cotangents (the NTK family);
+             flat ``[N, C]`` outputs only.
   kfra       averaged ``Ḡ`` recursion (Eq. 24); chain models only.
   hess       exact Hessian diagonal with residual ± factors (Eq. 25/26);
              chain models only.
@@ -253,6 +255,13 @@ def run(
         exact_exts = tuple(e for e in extensions if e.sweep == "ggn_exact")
         C = loss.n_exact_cols(z)  # U·C columns for token-factored losses
         chunk = cfg.class_chunk or C
+        if "ggn_gram" in names and chunk < C:
+            # Cross-column Gram entries K[·,·,c,c'] pair columns across
+            # chunks; one chunk only ever sees its own columns.
+            raise ValueError(
+                "GGNGram is incompatible with class_chunk: the logit-space "
+                "Gram needs all C̃ columns of the sqrt-Hessian factor at "
+                "once (cross-chunk column pairs are unformable)")
         curv = None
         for lo in range(0, C, chunk):
             S = loss.sqrt_hessian_chunk(z, targets, lo, min(chunk, C - lo))
@@ -264,6 +273,8 @@ def run(
             ext["kflr"] = _combine_kron(curv, kron_a, "kflr")
         if "ggn_trace" in names:
             ext["ggn_trace"] = _merge_stat_trees(curv, "ggn_trace")
+        if "ggn_gram" in names:
+            ext["ggn_gram"] = _merge_stat_trees(curv, "ggn_gram")
 
     if "ggn_mc" in sweeps:
         mc_exts = tuple(e for e in extensions if e.sweep == "ggn_mc")
@@ -274,6 +285,26 @@ def run(
             ext["diag_ggn_mc"] = _merge_stat_trees(curv, "diag_ggn_mc")
         if "kfac" in names:
             ext["kfac"] = _combine_kron(curv, kron_a, "kfac")
+
+    # ---- raw-Jacobian sweep (empirical NTK family) --------------------------
+    if "jac" in sweeps:
+        jac_exts = tuple(e for e in extensions if e.sweep == "jac")
+        if z.dim() != 2:
+            raise ValueError(
+                "NTK extensions need flat [N, C] model outputs, got logits "
+                f"of shape {tuple(z.shape)} — reduce the sequence axis before "
+                "the head or restrict the NTK to a flat-output model")
+        C = z.shape[-1]
+        # Identity cotangents per class, S0[c, n, :] = e_c: the transposed-
+        # Jacobian sweep then yields raw per-sample Jacobian factors (no loss
+        # curvature, no 1/M scaling, no MC draws).
+        S0 = torch.eye(C, dtype=torch.float32, device=z.device)[:, None, :].expand(
+            C, z.shape[0], C)
+        _, jcurv = model.curv_backward(params, tape, S0, jac_exts, cfg, "ntk")
+        if "ntk" in names:
+            ext["ntk"] = _merge_stat_trees(jcurv, "ntk")
+        if "ntk_classwise" in names:
+            ext["ntk_classwise"] = _merge_stat_trees(jcurv, "ntk_classwise")
 
     # ---- chain-only sweeps ---------------------------------------------------
     if "kfra" in sweeps:
@@ -313,6 +344,29 @@ def _combine_kron(curv_stats, kron_a_stats, name):
         return b_node
 
     return rec(b_tree, kron_a_stats)
+
+
+def _sum_leaves(ext_tree, what):
+    leaves = tree_leaves(ext_tree)
+    if not leaves:
+        raise ValueError(f"empty {what} stats tree — was the extension run?")
+    out = leaves[0].float()
+    for leaf in leaves[1:]:
+        out = out + leaf.float()
+    return out
+
+
+def ntk_total(ext_tree):
+    """The empirical NTK Θ = J Jᵀ: the sum of ``run(...).ext['ntk']``'s
+    per-parameter ``[N, N]`` blocks (``[N, N, C]`` for ``ntk_classwise``)."""
+    return _sum_leaves(ext_tree, "NTK")
+
+
+def gram_total(ext_tree):
+    """The half-sandwich kernel K = J' J'ᵀ (J' = √Hᵀ J): the sum of
+    ``run(...).ext['ggn_gram']``'s per-parameter ``[N, N, C̃, C̃]`` blocks,
+    the ``[N·C̃]`` operator kernel-space natural gradients invert."""
+    return _sum_leaves(ext_tree, "GGN-Gram")
 
 
 def loss_and_grad(model, params, inputs, targets, loss):

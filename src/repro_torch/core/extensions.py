@@ -9,10 +9,12 @@ requested extensions to decide which backward sweeps to run:
   * ``ggn_exact``  — the exact loss-Hessian factor sweep (DiagGGN, KFLR,
                      GGNTrace); ``ggn_mc`` its Monte-Carlo counterpart
                      (DiagGGNMC, KFAC).
+  * ``jac``        — the raw-Jacobian sweep with identity cotangents (the
+                     empirical NTK family).
   * ``kfra``       — the batch-averaged Ḡ recursion (paper Eq. 24).
   * ``hess``       — the exact Hessian diagonal (Eq. 25/26).
 
-Port of ``src/repro/core/extensions.py``: the twelve extensions the
+Port of ``src/repro/core/extensions.py``: the fifteen extensions the
 monolithic ``run`` serves.  ``reduce`` names the reducer that combines
 partial results over a split batch; the reducers themselves come with the
 sharded and streaming lanes.
@@ -73,6 +75,23 @@ models only."""
 GGNTrace = Extension("ggn_trace", "ggn_exact", reduce="concat")
 """Per-sample GGN trace ``[N]``."""
 
+# --- empirical NTK family (Gram blocks of the Jacobian) ---------------------
+NTK = Extension("ntk", "jac", reduce="gram")
+"""Empirical NTK blocks ``[N, N]`` per parameter, ``Θ[n, m] = Σ_c
+⟨J_c(x_n), J_c(x_m)⟩`` from raw output Jacobians (no loss weighting);
+flat ``[N, C]`` outputs only.  :func:`repro_torch.core.engine.ntk_total`
+sums the leaves into the kernel."""
+
+NTKClasswise = Extension("ntk_classwise", "jac", reduce="gram")
+"""Class-diagonal empirical NTK ``[N, N, C]`` per parameter,
+``Θ[n, m, c] = ⟨J_c(x_n), J_c(x_m)⟩``."""
+
+GGNGram = Extension("ggn_gram", "ggn_exact", reduce="gram_pair")
+"""Loss-scaled logit-space GGN Gram blocks ``[N, N, C̃, C̃]`` per parameter,
+``K[n, m, c, c'] = ⟨Jᵀ√H-col c of x_n, Jᵀ√H-col c' of x_m⟩``;
+:func:`repro_torch.core.engine.gram_total` sums them into the ``[N·C̃]``
+kernel that kernel-space natural gradients solve against."""
+
 ALL_EXTENSIONS = (
     BatchGrad,
     BatchL2,
@@ -86,6 +105,9 @@ ALL_EXTENSIONS = (
     KFRA,
     DiagHessian,
     GGNTrace,
+    NTK,
+    NTKClasswise,
+    GGNGram,
 )
 _BY_NAME = {e.name: e for e in ALL_EXTENSIONS}
 

@@ -196,6 +196,97 @@ def dense_first_order_stats(A, B, exts, cfg: ExtensionConfig, bias: bool):
     return out
 
 
+def _gram_of_g(G1, G2):
+    """T[c, n, m] = ⟨G1[c, n], G2[c, m]⟩ for per-row matrices G [C, N, a, b]."""
+    return torch.einsum("cnk,cmk->cnm", G1.flatten(2), G2.flatten(2))
+
+
+def _dense_ntk_stats(A, S, names, cfg: ExtensionConfig, bias: bool):
+    """Empirical-NTK blocks for y = x @ W (+ b) from raw-Jacobian factors.
+
+    A: [N, R, a] inputs, S: [C, N, R, b] identity-cotangent factors (the raw
+    output Jacobian backpropagated to this layer, no loss weighting).  The
+    per-class per-sample weight Jacobian is G[c,n] = A_nᵀS[c,n]; the
+    class-diagonal block T[c, n, m] = ⟨G[c,n], G[c,m]⟩ is emitted as
+    [N, N, C] (``ntk_classwise``) or summed over classes, [N, N] (``ntk``).
+    Rank-1 layers take the closed form (A Aᵀ) ∘ (S_c S_cᵀ); with
+    ``use_kernels`` and ``use_fused`` the class axis goes through one
+    ``cross_dot`` launch (E = C, the input read once for all classes).
+    Without kernels T comes from whichever form has fewer elements: JAX's
+    pairwise products [N, N, R, R] and [C, N, N, R, R], or G [C, N, a, b]
+    and its Gram (the pairwise form needs more than 69 GB at 3C3D's
+    first convolution at N = 128).
+    """
+    out = {}
+    Af, Sf = _f32(A).contiguous(), _f32(S).contiguous()
+    c, n, r, b = Sf.shape
+    a = Af.shape[-1]
+    if r == 1:
+        KA = Af[:, 0] @ Af[:, 0].T                                # [N, N]
+        KS = torch.einsum("cnb,cmb->cnm", Sf[:, :, 0], Sf[:, :, 0])
+        T = KA[None] * KS                                         # [C, N, N]
+    elif cfg.use_kernels and cfg.use_fused:
+        T = kops.cross_dot(Af[None], Sf, Af[None], Sf)
+    elif c * n * a * b < n * n * r * r * (1 + c):
+        G = torch.einsum("nra,cnrb->cnab", Af, Sf)
+        T = _gram_of_g(G, G)
+    else:
+        ga = torch.einsum("nra,msa->nmrs", Af, Af)
+        gs = torch.einsum("cnrb,cmsb->cnmrs", Sf, Sf)
+        T = torch.einsum("nmrs,cnmrs->cnm", ga, gs)
+    if bias:
+        Sb = Sf.sum(dim=2)                                        # [C, N, b]
+    if "ntk" in names:
+        d = {"w": T.sum(dim=0)}
+        if bias:
+            d["b"] = torch.einsum("cnb,cmb->nm", Sb, Sb)
+        out["ntk"] = d
+    if "ntk_classwise" in names:
+        d = {"w": T.movedim(0, -1)}
+        if bias:
+            d["b"] = torch.einsum("cnb,cmb->nmc", Sb, Sb)
+        out["ntk_classwise"] = d
+    return out
+
+
+def _dense_ggn_gram_stats(A, S, cfg: ExtensionConfig, bias: bool):
+    """Loss-scaled logit-space Gram blocks for y = x @ W (+ b).
+
+    A: [N, R, a] inputs, S: [C̃, N, R, b] the exact sweep's loss-scaled
+    factors.  The half-sandwich row J'[(n,c)] = A_nᵀS[c,n] gives
+    T[n, m, c, c'] = ⟨J'[(n,c)], J'[(m,c')]⟩, emitted as [N, N, C̃, C̃].
+    Rank-1 layers take the closed form; with ``use_kernels`` and
+    ``use_fused`` the C̃·N class-major rows go through one ``cross_dot``
+    launch (E = 1, each input row read for its C̃ rows); without kernels
+    whichever form has fewer elements: JAX's pairwise products or the
+    rows' Gram.
+    """
+    Af, Sf = _f32(A).contiguous(), _f32(S).contiguous()
+    c, n, r, b = Sf.shape
+    a = Af.shape[-1]
+    if r == 1:
+        KA = Af[:, 0] @ Af[:, 0].T                                # [N, N]
+        KS = torch.einsum("cnb,dmb->nmcd", Sf[:, :, 0], Sf[:, :, 0])
+        T = KA[:, :, None, None] * KS
+    else:
+        if cfg.use_kernels and cfg.use_fused:
+            rows = Sf.reshape(1, c * n, r, b)
+            flat = kops.cross_dot(Af[None], rows, Af[None], rows)[0]
+        elif c * n * a * b < n * n * r * (r + c * b):
+            G = torch.einsum("nra,cnrb->cnab", Af, Sf).reshape(1, c * n, a, b)
+            flat = _gram_of_g(G, G)[0]
+        else:
+            ga = torch.einsum("nra,msa->nmrs", Af, Af)
+            flat = torch.einsum("nmrs,cnrb,dmsb->cndm", ga, Sf, Sf)
+        # [(c,n), (d,m)] → [n, m, c, d]
+        T = flat.reshape(c, n, c, n).permute(1, 3, 0, 2)
+    d = {"w": T}
+    if bias:
+        Sb = Sf.sum(dim=2)                                        # [C, N, b]
+        d["b"] = torch.einsum("cnb,dmb->nmcd", Sb, Sb)
+    return {"ggn_gram": d}
+
+
 def dense_curv_stats(A, S, exts, cfg: ExtensionConfig, bias: bool, ext_prefix):
     """Second-order stats for a Dense layer from backpropagated factor ``S``.
 
@@ -209,9 +300,13 @@ def dense_curv_stats(A, S, exts, cfg: ExtensionConfig, bias: bool, ext_prefix):
     With ``use_fused=False`` the diagonal goes through ``per_sample_sq_sum``
     on the broadcast ``[C·N, R, a]`` input (the ``per_sample_moment``
     kernel), and kron and trace stay einsums, as in the JAX package.
-    The MC sweep lands here too, its sample axis standing in for classes.
+    The MC sweep lands here too, its sample axis standing in for classes;
+    the raw-Jacobian (``"ntk"``) sweep takes the NTK blocks instead, and the
+    exact sweep adds the GGNGram blocks when they are asked for.
     """
     names = {e.name for e in exts}
+    if ext_prefix == "ntk":
+        return _dense_ntk_stats(A, S, names, cfg, bias)
     out = {}
     c, n, r, b = S.shape
     Af, Sf = _f32(A).contiguous(), _f32(S).contiguous()
@@ -259,6 +354,8 @@ def dense_curv_stats(A, S, exts, cfg: ExtensionConfig, bias: bool, ext_prefix):
             ssum = Sf.sum(dim=2)
             d["b"] = (ssum * ssum).sum(dim=(0, 2))
         out["ggn_trace"] = d
+    if "ggn_gram" in names:
+        out.update(_dense_ggn_gram_stats(A, S, cfg, bias))
     return out
 
 

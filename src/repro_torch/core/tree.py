@@ -35,6 +35,11 @@ def tree_map_with_path(fn: Callable, tree, *rest, path: tuple = ()):
     return fn(path, tree, *rest)
 
 
+def tree_structure(tree):
+    """The tree with every leaf replaced by 0: equal for trees of one shape."""
+    return tree_map(lambda _: 0, tree)
+
+
 def tree_leaves(tree) -> List[Any]:
     """Leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
     if isinstance(tree, dict):
@@ -44,3 +49,21 @@ def tree_leaves(tree) -> List[Any]:
     if tree is None:
         return []
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure whose leaves are ``leaves``, taken in
+    :func:`tree_leaves` order (``jax.tree_util.tree_unflatten``)."""
+    it = iter(leaves)
+
+    def rec(node):
+        if isinstance(node, dict):
+            filled = {k: rec(node[k]) for k in sorted(node)}
+            return {k: filled[k] for k in node}
+        if isinstance(node, (tuple, list)):
+            return type(node)(rec(child) for child in node)
+        if node is None:
+            return None
+        return next(it)
+
+    return rec(tree)

@@ -25,7 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_first_order", "fused_second_order", "sq_matmul",
-           "per_sample_moment", "batch_l2", "ggn_diag")
+           "per_sample_moment", "batch_l2", "ggn_diag", "cross_dot",
+           "predictive_var")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,7 +11,8 @@
 //     in registers, Σ_cn t² per element and Σ_c,elements t² per sample, so t
 //     never reaches device memory (the fused second-order kernel's diag and
 //     trace; the fused first-order kernel's moment and l2 when no dot is
-//     asked for).
+//     asked for); or, in its variance mode, Σ_elements t² [· Σ] per (c, n)
+//     (the GLM predictive variance).
 // Sums across blocks never use atomics: each block writes its own partial and
 // sum_partials adds them in a fixed order, so every result is the same from
 // run to run.
@@ -213,17 +214,20 @@ inline void atb_launch(const float* X, const float* Y, long long K, int M, int N
 // sq_stats: reductions of t[e,c,n] = X[e,n]ᵀ Y[e,c,n]
 //   diag[e]  = Σ_cn t∘t        [E, a, b]
 //   trace[e,n] = Σ_c Σ t∘t     [E, N]
+//   var[e,c,n] = Σ t∘t [∘ W]   [E, C, N]   (VAR = 1 unweighted, 2 weighted by W [a, b])
 // X is [E, N, R, a], Y is [E, C, N, R, b].
 // ---------------------------------------------------------------------------
 
 // Grid (tiles_a, tiles_b, E·groups); block (·, ·, e·groups + g) takes the
 // samples [g·group_size, (g+1)·group_size).  diag_part is [E, groups, a, b]
-// (the diag output itself when groups == 1); trace_part is [E, tiles, N].
-template <bool DIAG, bool TRACE>
+// (the diag output itself when groups == 1); trace_part is [E, tiles, N];
+// var_part is [E, tiles, C, N].
+template <bool DIAG, bool TRACE, int VAR = 0>
 __global__ void __launch_bounds__(THREADS)
 sq_stats_kernel(const float* __restrict__ X, const float* __restrict__ Y, int C, int N, int R,
                 int a, int b, int groups, int group_size, float* __restrict__ diag_part,
-                float* __restrict__ trace_part) {
+                float* __restrict__ trace_part, const float* __restrict__ W,
+                float* __restrict__ var_part) {
   __shared__ __align__(16) Stage st;
   __shared__ float red[32];
   const int e = blockIdx.z / groups, g = blockIdx.z % groups;
@@ -232,6 +236,17 @@ sq_stats_kernel(const float* __restrict__ X, const float* __restrict__ Y, int C,
   const int n_lo = g * group_size, n_hi = min(N, n_lo + group_size);
   float diag[4][4];
   zero(diag);
+  float w[4][4];  // this thread's weights (VAR == 2); 0 past the edges, where t is 0 too
+  if (VAR == 2) {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = a0 + 4 * ty + i, c = b0 + 4 * tx + j;
+        w[i][j] = (r < a && c < b) ? W[(size_t)r * b + c] : 0.f;
+      }
+  }
   for (int n = n_lo; n < n_hi; ++n) {
     const float* Xn = X + ((size_t)e * N + n) * R * a;
     float tr = 0.f;
@@ -240,6 +255,7 @@ sq_stats_kernel(const float* __restrict__ X, const float* __restrict__ Y, int C,
       float acc[4][4];
       zero(acc);
       tile64<false>(Xn, a, a0, Yn, b, b0, R, st, acc);
+      float vs = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -247,7 +263,13 @@ sq_stats_kernel(const float* __restrict__ X, const float* __restrict__ Y, int C,
           const float v = acc[i][j] * acc[i][j];
           diag[i][j] += v;
           tr += v;
+          if (VAR == 1) vs += v;
+          if (VAR == 2) vs = fmaf(v, w[i][j], vs);
         }
+      if (VAR) {
+        const float s = block_sum(vs, red);
+        if (threadIdx.x == 0) var_part[(((size_t)e * tiles + tile) * C + c) * N + n] = s;
+      }
     }
     if (TRACE) {
       const float s = block_sum(tr, red);
@@ -287,8 +309,8 @@ inline cudaError_t sq_stats_launch(const float* X, const float* Y, int E, int C,
   float* diag_part = p.groups > 1 ? scratch : diag;
   float* trace_part = scratch + (DIAG && p.groups > 1 ? (size_t)E * p.groups * a * b : 0);
   dim3 grid(p.tiles_a, p.tiles_b, E * p.groups);
-  sq_stats_kernel<DIAG, TRACE><<<grid, THREADS, 0, stream>>>(X, Y, C, N, R, a, b, p.groups,
-                                                              p.group_size, diag_part, trace_part);
+  sq_stats_kernel<DIAG, TRACE><<<grid, THREADS, 0, stream>>>(
+      X, Y, C, N, R, a, b, p.groups, p.group_size, diag_part, trace_part, nullptr, nullptr);
   if (DIAG && p.groups > 1)
     launch_sum_partials(diag_part, diag, E, p.groups, (long long)a * b, stream);
   if (TRACE) launch_sum_partials(trace_part, trace, E, (int)tiles, N, stream);

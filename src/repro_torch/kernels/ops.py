@@ -26,14 +26,17 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.batch_l2 import batch_l2_cuda
+from repro_torch.kernels.cross_dot import cross_dot_cuda
 from repro_torch.kernels.fused_first_order import fused_first_order_cuda
 from repro_torch.kernels.fused_second_order import fused_second_order_cuda
 from repro_torch.kernels.ggn_diag import ggn_diag_cuda
 from repro_torch.kernels.per_sample_moment import per_sample_moment_cuda
+from repro_torch.kernels.predictive_var import predictive_var_cuda
 from repro_torch.kernels.sq_matmul import sq_matmul_cuda
 
 KERNELS = ("fused_first_order", "fused_second_order", "sq_matmul",
-           "per_sample_moment", "batch_l2", "ggn_diag")
+           "per_sample_moment", "batch_l2", "ggn_diag", "cross_dot",
+           "predictive_var")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -128,4 +131,46 @@ def ggn_diag(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
         return ref.ggn_diag(A, S)
     out = ggn_diag_cuda(A, S)
     _LAUNCHES["ggn_diag"] += 1
+    return out
+
+
+def full_a_side(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """An A side [E or 1, N/k, R, a] as the [E, N, R, a] it stands for:
+    the group axis broadcast, the rows repeated class-major."""
+    A = A.expand((B.shape[0],) + tuple(A.shape[1:]))
+    reps = B.shape[1] // A.shape[1]
+    return A.repeat(1, reps, 1, 1) if reps > 1 else A
+
+
+def cross_dot(A1, B1, A2, B2) -> torch.Tensor:
+    """Cross-block pairwise dots out[e,n,m] = ⟨A1ᵀB1[e,n], A2ᵀB2[e,m]⟩.
+
+    B1 [E, N1, R, b], B2 [E, N2, R, b] → [E, N1, N2] float32; 3-dimensional
+    inputs get a group axis of 1, stripped from the output.  Each A side may
+    be [E, N, R, a] or a shared one: a group axis of 1 serves every group,
+    and N/k rows serve N rows class-major (row p of B pairs with row
+    p mod N/k), so the NTK and GGNGram read the layer input without a
+    broadcast copy.
+    """
+    squeeze = B1.dim() == 3
+    if squeeze:
+        A1, B1, A2, B2 = A1[None], B1[None], A2[None], B2[None]
+    if _on_card("cross_dot", A1, B1, A2, B2):
+        out = cross_dot_cuda(A1.contiguous(), B1.contiguous(), A2.contiguous(),
+                             B2.contiguous())
+        _LAUNCHES["cross_dot"] += 1
+    else:
+        out = ref.cross_dot(full_a_side(A1, B1), B1, full_a_side(A2, B2), B2)
+    return out[0] if squeeze else out
+
+
+def predictive_var(A: torch.Tensor, S: torch.Tensor, Sigma=None) -> torch.Tensor:
+    """GLM predictive variance [C, N]: A [N, R, a], S [C, N, R, b], with the
+    squared Jacobian weighted by ``Sigma`` [a, b] (a diagonal posterior) or
+    not (a Kronecker posterior's half-transformed inputs)."""
+    xs = (A, S) if Sigma is None else (A, S, Sigma)
+    if not _on_card("predictive_var", *xs):
+        return ref.predictive_var(A, S, Sigma)
+    out = predictive_var_cuda(A, S, Sigma)
+    _LAUNCHES["predictive_var"] += 1
     return out

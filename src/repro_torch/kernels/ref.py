@@ -45,6 +45,32 @@ def ggn_diag(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     return (t * t).sum(dim=(0, 1))
 
 
+def cross_dot(A1, B1, A2, B2) -> torch.Tensor:
+    """out[e,n,m] = ⟨G1[e,n], G2[e,m]⟩ for G = A_nᵀB_n — cross-block Gram.
+
+    A1/B1: [E, N1, R, a/b], A2/B2: [E, N2, R, a/b] → [E, N1, N2] float32.
+    The row-block × row-block generalisation of the BatchDot Gram: two row
+    sets, a leading group axis E (classes for the class-wise NTK).
+    """
+    g1 = torch.einsum("enra,enrb->enab", A1.float(), B1.float())
+    g2 = torch.einsum("emra,emrb->emab", A2.float(), B2.float())
+    return torch.einsum("enab,emab->enm", g1, g2)
+
+
+def predictive_var(A, S, Sigma=None) -> torch.Tensor:
+    """var[c,n] = Σ_ab (Σ_r A[n,r,a] S[c,n,r,b])² [· Sigma[a,b]].
+
+    A: [N, R, a], S: [C, N, R, b], Sigma: [a, b] → [C, N] float32: the GLM
+    predictive variance of one layer, with the per-sample Jacobian
+    J[c,n] = A_nᵀS_cn formed, squared, weighted and reduced.
+    """
+    t = torch.einsum("nra,cnrb->cnab", A.float(), S.float())
+    t2 = t * t
+    if Sigma is not None:
+        t2 = t2 * Sigma.float()
+    return t2.sum(dim=(2, 3))
+
+
 def fused_second_order(A, S, want_diag=True, want_kron=False,
                        want_trace=False) -> Dict[str, torch.Tensor]:
     """t[c,n] = A_nᵀ S_cn, reduced.

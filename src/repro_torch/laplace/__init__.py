@@ -1,0 +1,24 @@
+"""Curvature-backed uncertainty from one engine sweep: the Laplace
+posteriors (:class:`DiagLaplace`, :class:`KronLaplace`,
+:class:`LastLayerLaplace`), their evidence and its optimizer, and the GLM
+and MC predictives (the GLM variance through the ``predictive_var`` kernel).
+
+Port of ``src/repro/laplace``; the matrix-free evidence
+(``log_marglik_matfree``) waits for the SLQ lane.
+"""
+from .marglik import log_marglik, optimize_marglik
+from .posterior import (
+    DiagLaplace,
+    FitOptions,
+    KronLaplace,
+    LaplaceStructureError,
+    LastLayerLaplace,
+    fit_posterior,
+)
+from .predictive import glm_predictive, mc_predictive, probit_predictive
+
+__all__ = [
+    "DiagLaplace", "FitOptions", "KronLaplace", "LaplaceStructureError",
+    "LastLayerLaplace", "fit_posterior", "glm_predictive", "log_marglik",
+    "mc_predictive", "optimize_marglik", "probit_predictive",
+]

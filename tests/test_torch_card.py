@@ -117,6 +117,53 @@ def test_card_ggn_diag(cuda, layer, classes):
     _card_close({"out": ops.ggn_diag(A, S)}, {"out": ref.ggn_diag(A, S)})
 
 
+# (C, N, R, a, b) of the Gram family's cross_dot calls at the conv layers.
+GRAM_CONV = {k: (10,) + v for k, v in CONV.items() if k != "ragged"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["ntk", "ggn_gram", "two_row_sets"])
+@pytest.mark.parametrize("layer", sorted(GRAM_CONV))
+def test_card_cross_dot(cuda, layer, form):
+    """The NTK's E = C groups over one shared input, GGNGram's C·N
+    class-major rows (both one row set: the upper triangle), and two
+    different row sets (two halves of the batch), each against the plain
+    version on the explicit broadcast."""
+    c, n, r, a, b = GRAM_CONV[layer]
+    A = torch.randn(n, r, a, device="cuda", generator=cuda)
+    S = torch.randn(c, n, r, b, device="cuda", generator=cuda)
+    Afull = A[None].expand(c, n, r, a)
+    if form == "ntk":
+        got = ops.cross_dot(A[None], S, A[None], S)
+        want = ref.cross_dot(Afull, S, Afull, S)
+        torch.cuda.synchronize()
+        assert torch.equal(got, got.transpose(1, 2))
+    elif form == "ggn_gram":
+        rows = S.reshape(1, c * n, r, b)
+        got = ops.cross_dot(A[None], rows, A[None], rows)
+        flat = Afull.reshape(1, c * n, r, a)
+        want = ref.cross_dot(flat, rows, flat, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, got.transpose(1, 2))
+    else:
+        h = n // 2
+        A1, A2 = A[None, :h].contiguous(), A[None, h:].contiguous()
+        B1, B2 = S[:1, :h].contiguous(), S[:1, h:].contiguous()
+        got, want = ops.cross_dot(A1, B1, A2, B2), ref.cross_dot(A1, B1, A2, B2)
+    _card_close({"out": got}, {"out": want})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sigma", [True, False], ids=["diag", "kron"])
+@pytest.mark.parametrize("layer", sorted(CONV))
+def test_card_predictive_var(cuda, layer, sigma):
+    n, r, a, b = CONV[layer]
+    A = torch.randn(n, r, a, device="cuda", generator=cuda)
+    S = torch.randn(10, n, r, b, device="cuda", generator=cuda)
+    W = torch.rand(a, b, device="cuda", generator=cuda) if sigma else None
+    _card_close({"out": ops.predictive_var(A, S, W)}, {"out": ref.predictive_var(A, S, W)})
+
+
 def _c2d2(cuda):
     model = papernets.c2d2(img=16, device="cuda", generator=torch.Generator().manual_seed(0))
     x = torch.randn(16, 16, 16, 1, device="cuda", generator=cuda)
@@ -156,3 +203,32 @@ def test_card_train_step_matches_cpu(cuda, curvature, use_fused):
     assert abs(m_card["loss"].item() - m_cpu["loss"].item()) <= CARD_TOL * m_cpu["loss"].item()
     for a, b in zip(tree_leaves(card), tree_leaves(cpu), strict=True):
         assert ((a.cpu() - b).abs().max() / b.abs().max()).item() < CARD_TOL
+
+
+@pytest.mark.gpu
+def test_card_gram_and_laplace_paths_match_cpu(cuda):
+    """NTK, NTKClasswise and GGNGram, then a Kronecker Laplace fit and its
+    GLM predictive, on c2d2: card against CPU, each through its kernel."""
+    from repro_torch.laplace import fit_posterior, glm_predictive
+
+    model, x, y = _c2d2(cuda)
+    params = model.params()
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    exts = (by_name("ntk"), by_name("ntk_classwise"), by_name("ggn_gram"))
+    ops.reset_launch_counts()
+    card = run(model, params, x, y, CrossEntropyLoss(), extensions=exts)
+    assert ops.launch_counts()["cross_dot"] == 4
+    cpu = run(model, cpu_params, x.cpu(), y.cpu(), CrossEntropyLoss(), extensions=exts)
+    torch.cuda.synchronize()
+    for e in exts:
+        for a, b in zip(tree_leaves(card.ext[e.name]), tree_leaves(cpu.ext[e.name]), strict=True):
+            assert ((a.cpu() - b).abs().max() / b.abs().max()).item() < CARD_TOL, e.name
+    post = fit_posterior(model, params, x, y, CrossEntropyLoss(), structure="kron")
+    ops.reset_launch_counts()
+    mean, var = glm_predictive(model, params, post, x)
+    assert ops.launch_counts()["predictive_var"] == 2
+    cpu_post = fit_posterior(model, cpu_params, x.cpu(), y.cpu(), CrossEntropyLoss(),
+                             structure="kron")
+    _, cpu_var = glm_predictive(model, cpu_params, cpu_post, x.cpu())
+    torch.cuda.synchronize()
+    assert ((var.cpu() - cpu_var).abs().max() / cpu_var.abs().max()).item() < CARD_TOL

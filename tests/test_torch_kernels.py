@@ -149,6 +149,8 @@ def test_cpu_dispatch_takes_plain_version_and_counts_no_launch():
     ops.per_sample_moment(A, B)
     ops.batch_l2(A, B)
     ops.ggn_diag(A, B[None])
+    ops.cross_dot(A, B, A, B)
+    ops.predictive_var(A, B[None], torch.ones(5, 6))
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 

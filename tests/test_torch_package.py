@@ -41,6 +41,34 @@ def test_port_imports_no_jax(path):
     assert not _imported(path) & {"jax", "jaxlib", "repro", "triton"}
 
 
+def test_boundary_covers_every_subpackage():
+    for pkg in ("repro_torch.core", "repro_torch.kernels", "repro_torch.laplace",
+                "repro_torch.curv", "repro_torch.optim", "repro_torch.train"):
+        assert pkg in MODULES
+
+
+@pytest.mark.parametrize("name", ["fused_first_order", "fused_second_order", "sq_matmul",
+                                  "per_sample_moment", "batch_l2", "ggn_diag", "cross_dot",
+                                  "predictive_var"])
+def test_every_kernel_is_wired(name):
+    """Each of the eight kernels: a dispatch entry with its own launch
+    counter, a plain version, a wrapper module naming its CUDA source (built
+    by ``_build``) and the Pallas kernel it replaces, and no JAX import."""
+    import importlib
+
+    from repro_torch.kernels import _build, ops, ref
+
+    assert name in ops.KERNELS and name in ops.launch_counts()
+    assert callable(getattr(ops, name)) and callable(getattr(ref, name))
+    wrapper = importlib.import_module(f"repro_torch.kernels.{name}")
+    assert (ROOT / wrapper.SOURCE).is_file() and name in _build.SOURCES
+    path, line = wrapper.REPLACES.split(":")
+    assert "pl.pallas_call" in (ROOT / path).read_text()
+    assert "def " in (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert not _imported(ROOT / "src" / "repro_torch" / "kernels" / f"{name}.py") & {
+        "jax", "jaxlib", "repro", "triton"}
+
+
 def test_port_imports_without_nvcc_or_triton(tmp_path):
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
