@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the eight Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
+Builds the ten Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all at once) and holds each against its plain PyTorch
-version at the shapes BackPACK's paths give it on 3C3D at batch 128.  Then it
-drives five paths through the entry points a user calls, on 3C3D (CIFAR-10
-shapes, full width, random weights from a seed), each with the launch counts
-set to 0 just before and read just after:
+version at the shapes its path gives it: BackPACK's on 3C3D at batch 128, and
+Hymba-1.5B's serving shapes for flash_attention and wkv.  Then it drives six
+paths through the entry points a user calls, five on 3C3D (CIFAR-10 shapes,
+full width, random weights from a seed) and one on Hymba-1.5B, each with the
+launch counts set to 0 just before and read just after:
 
 * the main path, ``repro_torch.core.run`` with the ten first-order,
   exact-GGN and MC extensions on the fused route (the default), which must
@@ -35,7 +36,15 @@ set to 0 just before and read just after:
   training batch, ``glm_predictive`` on a held-out batch of 128 (3
   predictive_var launches for each full-network posterior, none for the
   last-layer closed form), card against CPU, ``probit_predictive`` rows
-  summing to 1, a finite ``log_marglik`` that ``optimize_marglik`` raises.
+  summing to 1, a finite ``log_marglik`` that ``optimize_marglik`` raises;
+* the serving path (``serve_phase``): Hymba-1.5B at full width in bfloat16,
+  ``make_prefill_step`` on 4 prompts of 2048 tokens (flash_attention and wkv
+  32 launches each, nothing else), greedy ``generate`` on 4 prompts of 32
+  tokens to 128 (each kernel 32 times a serve_step), timed decode steps and
+  one profiled; in a float32 copy of the weights the serve_step chain over
+  1040 tokens matches the full forward (the window-1024 rings wrap, limit
+  1e-3) and the card matches the CPU (batch 1, T 64, limit 1e-4); and
+  ``python -m repro_torch.launch.serve --arch hymba-1.5b --full`` exits 0.
 
 It also runs KFRA and DiagHessian on the 784-128-64-10 MLP, card against
 CPU.  Every phase prints a line; any failure exits non-zero.  The
@@ -43,12 +52,15 @@ second-to-last lines are the kernel table (JSON) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The full
 record goes to ``build/chip_smoke.json``.
 
-Float32 throughout, TF32 off for matmuls and cuDNN (the plain versions and
-the CPU comparison are exact float32).  Bounds use the H100 SXM's published
-peaks: 67 TFLOP/s float32 without tensor cores, 3.35 TB/s.
+Float32 throughout BackPACK's paths, TF32 off for matmuls and cuDNN (the
+plain versions and the CPU comparison are exact float32); the serving path
+runs in the config's bfloat16.  Bounds use the H100 SXM's published peaks:
+67 TFLOP/s float32 without tensor cores, 989 TFLOP/s bf16 with them (for
+bf16 queries / r), 3.35 TB/s.
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -56,9 +68,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = 67e12
+PEAK_BF16 = 989e12  # bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12
 N = 128          # DeepOBS batch for 3C3D on CIFAR-10
 TOL = 1e-4       # max |kernel − plain| / max |plain|: float32, other sum order
+# bfloat16 outputs: kernel and plain version round float32 results once; a
+# last-place float32 difference can flip that rounding by one bfloat16 step,
+# at most 2^-7 of the largest output.
+BF16_TOL = 1e-2
+# The serving path: Hymba-1.5B (32 layers, 3 global, 29 with a window of
+# 1024), 4 prompts of 2048 tokens for prefill, of 32 tokens to 128 for
+# generate; the decode-vs-forward check runs one sequence of 1040 tokens so
+# the window-1024 rings wrap.
+SERVE = dict(arch="hymba-1.5b", batch=4, prefill_len=2048, prompt_len=32, max_len=128,
+             chain_len=1040, cpu_len=64, layers=32, global_layers=3, window=1024)
+CHAIN_TOL = 1e-3  # decode chain vs full forward, float32 weights, 32 layers
+
 FIRST = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot")
 EXACT = ("diag_ggn", "kflr", "ggn_trace")
 MC = ("diag_ggn_mc", "kfac")
@@ -113,6 +138,269 @@ def profiled(call):
                      for e in top])
 
 
+def attention_mask(torch, t, s, window, q_positions=None, k_positions=None):
+    """[T, S] True where a causal, windowed attention sees the key."""
+    qp = torch.arange(t, device="cuda") if q_positions is None else q_positions.long()
+    kp = torch.arange(s, device="cuda") if k_positions is None else k_positions.long()
+    m = (kp[None, :] >= 0) & (qp[:, None] >= kp[None, :])
+    if window is not None:
+        m &= (qp[:, None] - kp[None, :]) < window
+    return m
+
+
+def seen_pairs(torch, *args):
+    """(query, key) pairs an attention computes: the work a bound counts."""
+    return int(attention_mask(torch, *args).sum().item())
+
+
+def lm_kernel_cases(torch, randn, gen):
+    """flash_attention and wkv at Hymba-1.5B's serving shapes (and wkv at the
+    Pallas kernel's own RWKV6-3B signature), in the path's dtypes and in
+    float32.  Per-call weights count launches per prefill call: 3 global and
+    29 windowed attentions, 32 SSD scans, in bfloat16 (decode rows give
+    their launches per serve_step and weigh 0).  Operations: 2·dh +
+    2·dv a seen (query, key) pair; WKV's recurrent form, 4·dk·dv a token and
+    head (+ 3·dk + 2·dv with the bonus u).  The peak is bf16's where the
+    queries / r are bfloat16."""
+    cases = []
+    i32 = dict(device="cuda", dtype=torch.int32)
+    n, t, h, kv, dh = SERVE["batch"], SERVE["prefill_len"], 25, 5, 64
+    for dtype, tag, peak, tol in ((torch.bfloat16, "bf16", PEAK_BF16, BF16_TOL),
+                                  (torch.float32, "fp32", PEAK_FLOPS, TOL)):
+        size = dtype.itemsize
+        q, k, v = (randn(n, t, x, dh).to(dtype) for x in (h, kv, kv))
+        for window, per_call in ((None, SERVE["global_layers"]),
+                                 (SERVE["window"], SERVE["layers"] - SERVE["global_layers"])):
+            weight = per_call if dtype == torch.bfloat16 else 0
+            cases.append(("flash_attention", f"prefill {tag} window={window} q[{n},{t},{h},{dh}] "
+                          f"kv[{n},{t},{kv},{dh}]", weight, weight, (q, k, v),
+                          dict(window=window), 4 * dh * n * h * seen_pairs(torch, t, t, window),
+                          size * 2 * n * t * (h + kv) * dh, tol, peak))
+        # decode at position 1500: a ring of 1024 that wrapped, a global cache of 2048
+        pos = 1500
+        ring = torch.arange(1024, **i32)
+        ring = torch.where(ring <= pos % 1024, ring + 1024, ring)
+        glob = torch.arange(2048, **i32)
+        glob[pos + 1:] = -1
+        qd = randn(n, 1, h, dh).to(dtype)
+        for label, s, window, kp, per_step in (
+                ("ring 1024", 1024, SERVE["window"], ring,
+                 SERVE["layers"] - SERVE["global_layers"]),
+                ("global 2048", 2048, None, glob, SERVE["global_layers"])):
+            kc, vc = randn(n, s, kv, dh), randn(n, s, kv, dh)  # the float32 cache
+            qp = torch.tensor([pos], **i32)
+            per_step = per_step if dtype == torch.bfloat16 else 0
+            cases.append(("flash_attention", f"decode {label} q {tag} [{n},1,{h},{dh}] fp32 "
+                          f"cache[{n},{s},{kv},{dh}] (per call: a serve_step)", per_step, 0,
+                          (qd, kc, vc),
+                          dict(window=window, q_positions=qp, k_positions=kp),
+                          4 * dh * n * h * seen_pairs(torch, 1, s, window, qp, kp),
+                          2 * size * n * h * dh + 4 * (2 * n * s * kv * dh + s + 1), tol, peak))
+        # Hymba's SSD: r = C, k = B [.., 16], v = xs [.., 64], a float32 decay per head
+        ds, dv = 16, 64
+        for label, tt, chunk in (("prefill", t, 16), ("decode", 1, 1)):
+            per_call = SERVE["layers"] if dtype == torch.bfloat16 else 0
+            weight = per_call if label == "prefill" else 0
+            r, kk = randn(n, tt, h, ds).to(dtype), randn(n, tt, h, ds).to(dtype)
+            xs = randn(n, tt, h, dv).to(dtype)
+            lw = -torch.nn.functional.softplus(randn(n, tt, h, 1))
+            s0 = randn(n, h, ds, dv)
+            cases.append(("wkv", f"hymba ssd {label} {tag} r,k[{n},{tt},{h},{ds}] "
+                          f"v[{n},{tt},{h},{dv}] decay[..,1] state0, chunk {chunk}", per_call,
+                          weight, (r, kk, xs, lw, None, s0), dict(chunk=chunk),
+                          4 * n * tt * h * ds * dv,
+                          size * n * tt * h * (2 * ds + 2 * dv) + 4 * n * tt * h
+                          + 4 * 2 * n * h * ds * dv, tol, peak))
+        # the Pallas kernel's own signature at RWKV6-3B widths
+        h6, d6 = 40, 64
+        r, kk, vv = (randn(n, t, h6, d6).to(dtype) for _ in range(3))
+        lw = -torch.nn.functional.softplus(randn(n, t, h6, d6))
+        u = randn(h6, d6)
+        cases.append(("wkv", f"rwkv6 {tag} r,k,v[{n},{t},{h6},{d6}] decay per channel, u, "
+                      "chunk 16", 0, 0, (r, kk, vv, lw, u, None), dict(chunk=16),
+                      n * t * h6 * (4 * d6 * d6 + 5 * d6),
+                      size * 4 * n * t * h6 * d6 + 4 * n * t * h6 * d6 + 4 * h6 * d6
+                      + 4 * n * h6 * d6 * d6, tol, peak))
+    return cases
+
+
+def library_attention(torch):
+    """One ``scaled_dot_product_attention`` call (GQA, causal or an explicit
+    mask) on the same inputs: timed as flash_attention's ``library_ms``, used
+    nowhere in the port.  Masks are built once per shape and kept; a float32
+    cache is cast to the queries' dtype."""
+    import torch.nn.functional as TF
+
+    masks = {}
+
+    def attend(q, k, v, *, causal=True, window=None, q_positions=None, k_positions=None):
+        t, s = q.shape[1], k.shape[1]
+        qt, kt, vt = (x.transpose(1, 2).to(q.dtype) for x in (q, k, v))
+        if window is None and q_positions is None and k_positions is None:
+            out = TF.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        else:
+            key = (t, s, window, None if q_positions is None else q_positions.data_ptr(),
+                   None if k_positions is None else k_positions.data_ptr())
+            if key not in masks:
+                masks[key] = attention_mask(torch, t, s, window, q_positions, k_positions)
+            out = TF.scaled_dot_product_attention(qt, kt, vt, attn_mask=masks[key],
+                                                  enable_gqa=True)
+        return out.transpose(1, 2)
+
+    return attend
+
+
+def serve_phase(torch, ops):
+    """Hymba-1.5B at full width (bfloat16, 32 layers, random weights from a
+    seed) through the serving entry points, with the launch counts reset
+    before each call and read after: ``make_prefill_step`` on 4 prompts of
+    2048 tokens (flash_attention and wkv 32 times each, nothing else);
+    greedy ``generate`` on 4 prompts of 32 tokens to 128 (each kernel 32
+    times a serve_step); decode steps timed and one profiled; then, in a
+    float32 copy of the weights, the serve_step chain over 1040 tokens
+    (past the window-1024 rings' wrap) against the full forward, the card
+    against the CPU at batch 1, T 64; and the launcher run once."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.nn.models import build_model
+    from repro_torch.serve import ServeConfig, generate, prefill
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    out = {}
+    cfg = get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    params = model.params()
+    torch.cuda.synchronize()
+    out["model"] = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+                        param_count=cfg.param_count(model), build_s=time.perf_counter() - t0,
+                        param_bytes=sum(p.numel() * p.element_size() for p in tree_leaves(params)))
+    say("serve_model", **out["model"])
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, t_pre = SERVE["batch"], SERVE["prefill_len"]
+    per_layer = {k: SERVE["layers"] if k in ("flash_attention", "wkv") else 0 for k in ops.KERNELS}
+
+    # -- prefill: one checked call, then three timed ----------------------------
+    prompts = torch.randint(0, cfg.vocab, (n, t_pre), device="cuda", generator=gen)
+    prefill_step = make_prefill_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    last = prefill_step(params, prompts)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches != per_layer:
+        fail(f"prefill must launch flash_attention and wkv 32 times each, got {launches}")
+    if tuple(last.shape) != (n, cfg.vocab) or not torch.isfinite(last.float()).all():
+        fail(f"prefill: logits {tuple(last.shape)} not finite [N, V]")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill_step(params, prompts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = medians_ms({"p": times})["p"]
+    out["prefill"] = dict(batch=n, prompt_len=t_pre, launches=launches, step_s=times, ms=ms,
+                          tokens_per_s=n * t_pre / ms * 1e3,
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
+    say("serve_prefill", **out["prefill"])
+    out["profile_prefill"] = profiled(lambda: prefill_step(params, prompts))
+    say("profile_serve_prefill", **out["profile_prefill"])
+
+    # -- generate: greedy, 32-token prompts to 128 ------------------------------
+    short = prompts[:, :SERVE["prompt_len"]].contiguous()
+    sc = ServeConfig(max_len=SERVE["max_len"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = generate(model, params, short, sc)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = ops.launch_counts()
+    if gen_launches != {k: v * sc.max_len for k, v in per_layer.items()}:
+        fail(f"generate must launch each kernel 32 times a serve_step ({sc.max_len} steps), "
+             f"got {gen_launches}")
+    if (tuple(toks.shape) != (n, sc.max_len) or not torch.equal(toks[:, :short.shape[1]], short.int())
+            or toks.min() < 0 or toks.max() >= cfg.vocab):
+        fail(f"generate: tokens {tuple(toks.shape)} are not the prompts and a continuation")
+    out["generate"] = dict(batch=n, prompt_len=short.shape[1], max_len=sc.max_len, s=gen_s,
+                           ms_per_serve_step=gen_s / sc.max_len * 1e3, launches=gen_launches,
+                           max_memory_allocated=torch.cuda.max_memory_allocated(),
+                           first_row=toks[0, short.shape[1]:short.shape[1] + 16].tolist())
+    say("serve_generate", **out["generate"])
+
+    # -- decode steps from a 32-token prefill, timed; one profiled ---------------
+    decode = make_decode_step(model)
+    caches = model.init_serve_cache(params, n, sc.max_len, torch.float32)
+    caches, logits = prefill(model, params, caches, short, short.shape[1])
+    step_s = []
+    for t in range(short.shape[1], short.shape[1] + 16):
+        tok = logits.argmax(-1).int()
+        t0 = time.perf_counter()
+        logits, caches = decode(params, caches, tok, t)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    tok = logits.argmax(-1).int()
+    prof = profiled(lambda: decode(params, caches, tok, short.shape[1] + 16))
+    prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+    out["decode"] = dict(batch=n, step_s=step_s, ms_per_token=medians_ms({"d": step_s})["d"],
+                         profile=prof)
+    say("serve_decode", **out["decode"])
+    del caches, logits, last
+
+    # -- agreement in a float32 copy of the same weights -------------------------
+    params32 = tree_map(lambda p: p.float(), params)
+    del params
+    seq = torch.randint(0, cfg.vocab, (1, SERVE["chain_len"]), device="cuda", generator=gen)
+    caches = model.init_serve_cache(params32, 1, SERVE["chain_len"], torch.float32)
+    chain = torch.empty((SERVE["chain_len"], cfg.vocab), device="cuda")
+    t0 = time.perf_counter()
+    for t in range(SERVE["chain_len"]):
+        step_logits, caches = model.serve_step(params32, caches, seq[:, t], t)
+        chain[t] = step_logits[0]
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    ring = caches[0][1]["pos"]  # the first window stack: [15, 1024] positions
+    if tuple(ring.shape) != (15, SERVE["window"]) or ring.max().item() != SERVE["chain_len"] - 1:
+        fail(f"the window-1024 rings did not wrap: positions {tuple(ring.shape)}, "
+             f"max {ring.max().item()}")
+    full = model.call(params32, seq)[0]
+    chain_err = ((chain - full).abs().max() / full.abs().max()).item()
+    del chain, caches
+    seq_cpu = seq[:, :SERVE["cpu_len"]]
+    card = model.call(params32, seq_cpu)
+    cpu_params = tree_map(lambda p: p.cpu(), params32)
+    cpu = model.call(cpu_params, seq_cpu.cpu())
+    cpu_err = ((card.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    del cpu_params, cpu, card, full, params32
+    out["agreement"] = dict(chain_len=SERVE["chain_len"], chain_s=chain_s,
+                            chain_vs_forward_rel_err=chain_err, chain_tol=CHAIN_TOL,
+                            cpu_len=SERVE["cpu_len"], card_vs_cpu_rel_err=cpu_err, cpu_tol=TOL)
+    say("serve_agreement", **out["agreement"])
+    if not chain_err <= CHAIN_TOL:
+        fail(f"decode chain vs full forward: {chain_err:.3e} above {CHAIN_TOL}")
+    if not cpu_err <= TOL:
+        fail(f"card vs CPU logits: {cpu_err:.3e} above {TOL}")
+
+    # -- the launcher, once ------------------------------------------------------
+    del model
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT / "src"), env.get("PYTHONPATH")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                           SERVE["arch"], "--full"], env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    out["launcher"] = dict(returncode=proc.returncode, s=time.perf_counter() - t0,
+                           stdout=proc.stdout.strip().splitlines()[:1])
+    say("serve_launcher", **out["launcher"])
+    if proc.returncode != 0:
+        fail(f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out["launches"] = {k: launches[k] + gen_launches[k] for k in ops.KERNELS}
+    return out
+
+
 def main():
     import torch
 
@@ -141,12 +429,14 @@ def main():
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import batch_l2 as l2_mod
     from repro_torch.kernels import cross_dot as cd_mod
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import fused_first_order as ffo_mod
     from repro_torch.kernels import fused_second_order as fso_mod
     from repro_torch.kernels import ggn_diag as gd_mod
     from repro_torch.kernels import per_sample_moment as psm_mod
     from repro_torch.kernels import predictive_var as pv_mod
     from repro_torch.kernels import sq_matmul as sq_mod
+    from repro_torch.kernels import wkv as wkv_mod
     from repro_torch.laplace import (
         fit_posterior,
         glm_predictive,
@@ -172,7 +462,8 @@ def main():
     libs = _build.build()
     modules = {"fused_first_order": ffo_mod, "fused_second_order": fso_mod,
                "sq_matmul": sq_mod, "per_sample_moment": psm_mod, "batch_l2": l2_mod,
-               "ggn_diag": gd_mod, "cross_dot": cd_mod, "predictive_var": pv_mod}
+               "ggn_diag": gd_mod, "cross_dot": cd_mod, "predictive_var": pv_mod,
+               "flash_attention": fa_mod, "wkv": wkv_mod}
     record["build_s"] = time.perf_counter() - t0
     say("kernels", build_s=record["build_s"],
         kernels=[dict(name=k, source=modules[k].SOURCE, replaces=modules[k].REPLACES,
@@ -195,8 +486,8 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / iters
 
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    def bound(flops, nbytes, peak=PEAK_FLOPS):
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
     conv = {"conv1": (1024, 75, 64), "conv2": (256, 576, 96), "conv3": (64, 864, 128)}
@@ -297,43 +588,51 @@ def main():
                           4 * (N * r * a + 10 * N * r * b + 10 * N
                                + (a * b if sigma is not None else 0))))
 
+    cases += lm_kernel_cases(torch, randn, gen)
+
     wrapper = {k: getattr(ops, k) for k in ops.KERNELS}
     plain = {k: getattr(ref, k) for k in ops.KERNELS}
     plain["fused_first_order"] = lambda A, B, **w: ref.fused_first_order(A[None], B[None], **w)
     plain["batch_l2"] = lambda A, B, form: ref.batch_l2(A, B)
     plain["cross_dot"] = lambda A1, B1, A2, B2: ref.cross_dot(
         ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2)
-    library = {"sq_matmul": lambda A, B: torch.matmul(A.square().T, B.square())}
+    library = {"sq_matmul": lambda A, B: torch.matmul(A.square().T, B.square()),
+               "flash_attention": library_attention(torch)}
     per_kernel = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops_ms=0.0,
                           bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, shapes=[])
                   for k in ops.KERNELS}
     record["checks"] = []
-    for kernel, label, per_call, weight, args, kw, flops, nbytes in cases:
+    for case in cases:
+        # (kernel, label, per_call, weight, args, kw, flops, bytes[, tol, peak])
+        kernel, label, per_call, weight, args, kw, flops, nbytes, *rest = case
+        tol, peak = rest or (TOL, PEAK_FLOPS)
         got = wrapper[kernel](*args, **kw)
         want = plain[kernel](*args, **kw)
         torch.cuda.synchronize()
+        if isinstance(got, tuple):  # wkv: (y, state)
+            got, want = dict(zip(("y", "state"), got)), dict(zip(("y", "state"), want))
         if not isinstance(got, dict):
             got, want = {"out": got}, {"out": want}
         abs_err = rel_err = 0.0
         for key in want:
-            g = got[key].reshape(want[key].shape)
+            g = got[key].reshape(want[key].shape).float()
             if not torch.isfinite(g).all():
                 fail(f"{kernel} {label}: non-finite {key}")
-            e = (g - want[key]).abs().max().item()
+            e = (g - want[key].float()).abs().max().item()
             abs_err = max(abs_err, e)
-            rel_err = max(rel_err, e / want[key].abs().max().item())
+            rel_err = max(rel_err, e / want[key].float().abs().max().item())
         ms = timed(lambda: wrapper[kernel](*args, **kw))
         plain_ms = timed(lambda: plain[kernel](*args, **kw))
-        lib_ms = timed(lambda: library[kernel](*args)) if kernel in library else None
-        b_ms, b_by = bound(flops, nbytes)
+        lib_ms = timed(lambda: library[kernel](*args, **kw)) if kernel in library else None
+        b_ms, b_by = bound(flops, nbytes, peak)
         row = dict(kernel=kernel, shape=label, launches_per_call=per_call, weight=weight,
-                   rel_err=rel_err,
+                   rel_err=rel_err, tol=tol, peak_tflops=peak / 1e12,
                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
         say("check", **row)
         record["checks"].append(row)
-        if not rel_err <= TOL:
-            fail(f"{kernel} {label}: relative error {rel_err:.3e} above {TOL}")
+        if not rel_err <= tol:
+            fail(f"{kernel} {label}: relative error {rel_err:.3e} above {tol}")
         agg = per_kernel[kernel]
         agg["shapes"].append(label)
         agg["max_abs_err"] = max(agg["max_abs_err"], abs_err)
@@ -341,7 +640,7 @@ def main():
         agg["ms"] += weight * ms
         agg["plain_ms"] += weight * plain_ms
         agg["bound_ms"] += weight * b_ms
-        agg["ops_ms"] += weight * flops / PEAK_FLOPS * 1e3
+        agg["ops_ms"] += weight * flops / peak * 1e3
         agg["bytes_ms"] += weight * nbytes / PEAK_BYTES * 1e3
         if lib_ms is not None:
             agg["library_ms"] += weight * lib_ms
@@ -664,14 +963,20 @@ def main():
         lambda: glm_predictive(model, map_params, kron_post, x_out))
     say("profile_laplace_predictive", **record["profile_laplace_predictive"])
 
-    # -- 11. the kernel table -------------------------------------------------
+    # -- 11. the serving path: Hymba-1.5B through prefill, generate, decode ----
+    record["serve"] = serve_phase(torch, ops)
+
+    # -- 12. the kernel table -------------------------------------------------
     # launches: each kernel's count on its path (the fused main path's three
     # run calls; the per-extension route's three for its own kernels; the
-    # gram path's one run call; the Laplace path's diag and kron predictives).
+    # gram path's one run call; the Laplace path's diag and kron predictives;
+    # the serving path's checked prefill call and its generate call).
     path_launches = dict(launches, per_sample_moment=pe_launches["per_sample_moment"],
                          batch_l2=pe_launches["batch_l2"],
                          cross_dot=gram_launches["cross_dot"],
-                         predictive_var=laplace_launches["predictive_var"])
+                         predictive_var=laplace_launches["predictive_var"],
+                         flash_attention=record["serve"]["launches"]["flash_attention"],
+                         wkv=record["serve"]["launches"]["wkv"])
     table = []
     for k in ops.KERNELS:
         agg = per_kernel[k]

@@ -42,6 +42,7 @@ from .extensions import (
     first_order_mask,
     second_order_mask,
 )
+from .tree import tree_leaves, tree_map, tree_map_with_path
 
 
 def _f32(x):
@@ -62,15 +63,26 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def normal_param(shape, scale, device, generator=None) -> nn.Parameter:
+def normal_param(shape, scale, device, generator=None,
+                 dtype=torch.float32) -> nn.Parameter:
     """A frozen parameter of N(0, scale²) entries drawn from ``generator``
-    (a CPU generator; the draws do not depend on ``device``)."""
+    (a CPU generator; the draws do not depend on ``device``), drawn in
+    float32 and cast to ``dtype`` as JAX's ``init`` does.  On the ``meta``
+    device nothing is drawn (shapes only: ``ModelConfig.param_count``)."""
+    device = resolve_device(device)
+    if device.type == "meta":
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
     w = torch.randn(shape, generator=generator) * scale
-    return nn.Parameter(w.to(resolve_device(device)), requires_grad=False)
+    return nn.Parameter(w.to(dtype).to(device), requires_grad=False)
 
 
-def zeros_param(shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, device=resolve_device(device)),
+def zeros_param(shape, device, dtype=torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=resolve_device(device)),
+                        requires_grad=False)
+
+
+def full_param(shape, value, device, dtype=torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=resolve_device(device)),
                         requires_grad=False)
 
 
@@ -411,6 +423,14 @@ class Module(nn.Module):
         raise UnsupportedSweep(
             f"DiagHessian unsupported for {type(self).__name__}")
 
+    # -- serving ----------------------------------------------------------------
+    def decode_step(self, params, x, cache):
+        """Single-token decode. Stateless modules apply as-is."""
+        return self.call(params, x), cache
+
+    def init_cache(self, params, batch, max_len, dtype):
+        return ()
+
 
 class Lambda(Module):
     """Wrap a parameter-free function (reshapes, masking...)."""
@@ -432,12 +452,13 @@ class Dense(Module):
     """y = x @ W (+ b), x: [N, ..., d_in]; ``w`` is ``[d_in, d_out]``."""
 
     def __init__(self, d_in, d_out, use_bias=True, init_scale=None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32):
         super().__init__()
         self.d_in, self.d_out, self.use_bias = d_in, d_out, use_bias
         scale = d_in ** -0.5 if init_scale is None else init_scale
-        self.w = normal_param((d_in, d_out), scale, device, generator)
-        self.b = zeros_param((d_out,), device) if use_bias else None
+        self.w = normal_param((d_in, d_out), scale, device, generator, dtype)
+        self.b = zeros_param((d_out,), device, dtype) if use_bias else None
 
     def params(self):
         p = {"w": self.w}
@@ -511,6 +532,48 @@ class Dense(Module):
         if self.use_bias:
             stats["diag_hessian"]["b"] = diag_b
         return g_in, new_factors, stats
+
+
+# ---------------------------------------------------------------------------
+# Embedding and RMSNorm (the language models' serving side; their BackPACK
+# sweeps come with BackPACK on language models)
+# ---------------------------------------------------------------------------
+
+
+class Embedding(Module):
+    """Token embedding lookup; input int tokens [N, T] -> [N, T, d]; ``w``
+    is ``[vocab, d]``, drawn at scale d^-1/2 unless ``scale`` is given."""
+
+    def __init__(self, vocab, d, dtype=torch.float32, scale=None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.vocab, self.d = vocab, d
+        self.scale = scale if scale is not None else d ** -0.5
+        self.w = normal_param((vocab, d), self.scale, device, generator, dtype)
+
+    def params(self):
+        return {"w": self.w}
+
+    def call(self, params, x):
+        return params["w"][x]
+
+
+class RMSNorm(Module):
+    """x / rms(x) · g, the mean square taken in float32 and the normalised x
+    cast back to x's dtype before the gain, as JAX's ``_norm`` does."""
+
+    def __init__(self, d, eps=1e-6, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.d, self.eps = d, eps
+        self.g = full_param((d,), 1.0, device, dtype)
+
+    def params(self):
+        return {"g": self.g}
+
+    def call(self, params, x):
+        xf = _f32(x)
+        r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + self.eps)
+        return (xf * r).to(x.dtype) * params["g"]
 
 
 # ---------------------------------------------------------------------------
@@ -667,3 +730,65 @@ class Sequential(Module):
             g, factors, stats[i] = self.mods[i].hess_backward(
                 params[i], tape[i], g, factors, exts, cfg)
         return g, factors, tuple(stats)
+
+    def decode_step(self, params, x, cache):
+        new_cache = list(cache)
+        for i, (m, p) in enumerate(zip(self.mods, params)):
+            x, new_cache[i] = m.decode_step(p, x, cache[i])
+        return x, tuple(new_cache)
+
+    def init_cache(self, params, batch, max_len, dtype):
+        return tuple(m.init_cache(p, batch, max_len, dtype)
+                     for m, p in zip(self.mods, params))
+
+
+def _layer(tree, i):
+    return tree_map(lambda t: t[i], tree)
+
+
+def _stack(trees):
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+class ScanStack(Module):
+    """L homogeneous blocks with their parameters and decode caches stacked
+    on a leading layer axis, as JAX's ``vmap``/``lax.scan`` give them (so a
+    ``[L, ...]`` leaf crosses the bridge as it is); the scan is a Python loop
+    over ``params[i]``.
+
+    ``make_block(device)`` builds one block; it is called L times on
+    ``device`` (each drawing its own weights, which are stacked) and once on
+    the ``meta`` device for the template whose ``call`` / ``decode_step`` /
+    ``init_cache`` every layer runs with its own slice of the stacked trees.
+    The BackPACK sweeps through a stack come with BackPACK on language models.
+    """
+
+    def __init__(self, make_block: Callable[[object], Module], n_layers: int,
+                 device="cuda"):
+        super().__init__()
+        self.L = n_layers
+        # not a registered child: its meta tensors are never moved or copied
+        self.__dict__["block"] = make_block("meta")
+        stacked = _stack([make_block(device).params() for _ in range(n_layers)])
+        self._names = tree_map_with_path(lambda path, _: "__".join(map(str, path)), stacked)
+        for name, leaf in zip(tree_leaves(self._names), tree_leaves(stacked)):
+            self.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
+
+    def params(self):
+        return tree_map(lambda name: getattr(self, name), self._names)
+
+    def call(self, params, x):
+        for i in range(self.L):
+            x = self.block.call(_layer(params, i), x)
+        return x
+
+    def decode_step(self, params, x, cache):
+        caches = []
+        for i in range(self.L):
+            x, c = self.block.decode_step(_layer(params, i), x, _layer(cache, i))
+            caches.append(c)
+        return x, _stack(caches)
+
+    def init_cache(self, params, batch, max_len, dtype):
+        return _stack([self.block.init_cache(_layer(params, i), batch, max_len, dtype)
+                       for i in range(self.L)])

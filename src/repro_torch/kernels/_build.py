@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_first_order", "fused_second_order", "sq_matmul",
            "per_sample_moment", "batch_l2", "ggn_diag", "cross_dot",
-           "predictive_var")
+           "predictive_var", "flash_attention", "wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,13 +85,15 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build((name,))[name]))
 
 
-def check_input(kernel: str, name: str, x: torch.Tensor, ndim: int) -> None:
-    """Raise unless ``x`` is a non-empty contiguous float32 CUDA tensor of
-    ``ndim`` dimensions — what every kernel here takes."""
+def check_input(kernel: str, name: str, x: torch.Tensor, ndim: int,
+                dtypes=(torch.float32,)) -> None:
+    """Raise unless ``x`` is a non-empty contiguous CUDA tensor of ``ndim``
+    dimensions and one of ``dtypes`` — what every kernel here takes (the
+    reductions float32 only; attention and WKV float32 or bfloat16)."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: {name} must lie on a CUDA device, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{kernel}: {name} must be float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{kernel}: {name} must be one of {dtypes}, got {x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{kernel}: {name} must have {ndim} dimensions, "
                          f"got shape {tuple(x.shape)}")

@@ -27,16 +27,18 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.batch_l2 import batch_l2_cuda
 from repro_torch.kernels.cross_dot import cross_dot_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_first_order import fused_first_order_cuda
 from repro_torch.kernels.fused_second_order import fused_second_order_cuda
 from repro_torch.kernels.ggn_diag import ggn_diag_cuda
 from repro_torch.kernels.per_sample_moment import per_sample_moment_cuda
 from repro_torch.kernels.predictive_var import predictive_var_cuda
 from repro_torch.kernels.sq_matmul import sq_matmul_cuda
+from repro_torch.kernels.wkv import wkv_cuda
 
 KERNELS = ("fused_first_order", "fused_second_order", "sq_matmul",
            "per_sample_moment", "batch_l2", "ggn_diag", "cross_dot",
-           "predictive_var")
+           "predictive_var", "flash_attention", "wkv")
 _LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -173,4 +175,33 @@ def predictive_var(A: torch.Tensor, S: torch.Tensor, Sigma=None) -> torch.Tensor
         return ref.predictive_var(A, S, Sigma)
     out = predictive_var_cuda(A, S, Sigma)
     _LAUNCHES["predictive_var"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
+                    k_positions=None, scale=None) -> torch.Tensor:
+    """Causal, sliding-window GQA attention (``nn/functional.sdpa``): q
+    [N, T, H, dh], k/v [N, S, KV, dh] → [N, T, H, dh] in q's dtype, with
+    optional positions q_positions [T] / k_positions [S] (slots < 0 empty)."""
+    kw = dict(causal=causal, window=window, q_positions=q_positions,
+              k_positions=k_positions, scale=scale)
+    xs = [x for x in (q, k, v, q_positions, k_positions) if x is not None]
+    if not _on_card("flash_attention", *xs):
+        return ref.flash_attention(q, k, v, **kw)
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    _LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def wkv(r, k, v, log_w, u=None, state0=None, chunk=16):
+    """The chunked WKV recurrence (``nn/functional.wkv_chunked`` with a
+    ``chunk`` that divides T): r, k [N, T, H, dk], v [N, T, H, dv], log_w
+    [N, T, H, dk or 1], u [H, dk] or None, state0 [N, H, dk, dv] or None →
+    (y in r's dtype, state float32)."""
+    xs = [x for x in (r, k, v, log_w, u, state0) if x is not None]
+    if not _on_card("wkv", *xs):
+        return ref.wkv(r, k, v, log_w, u, state0, chunk)
+    out = wkv_cuda(r.contiguous(), k.contiguous(), v.contiguous(), log_w.contiguous(), u,
+                   None if state0 is None else state0.contiguous(), chunk)
+    _LAUNCHES["wkv"] += 1
     return out

@@ -111,3 +111,86 @@ def fused_first_order(A, B, want_l2=True, want_moment=False,
         gf = g.reshape(g.shape[0], g.shape[1], -1)
         out["dot"] = gf @ gf.transpose(1, 2)
     return out
+
+
+NEG_INF = -1e30  # the masked logit of src/repro/nn/functional.py
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
+                    k_positions=None, scale=None) -> torch.Tensor:
+    """Causal, optionally sliding-window GQA attention: what ``sdpa`` computes.
+
+    q: [N, T, H, dh], k/v: [N, S, KV, dh(v)] with H % KV == 0 → [N, T, H, dhv]
+    in q's dtype.  The key s is seen by the query t when qp[t] ≥ kp[s]
+    (``causal``), qp[t] − kp[s] < ``window`` and kp[s] ≥ 0 (ring slots not
+    yet written); positions default to ``arange``.  Masked logits are
+    −1e30, so a query with no key seen takes the uniform average of all S
+    values, as ``jax.nn.softmax`` gives it.  Float32 throughout.
+    """
+    n, t, h, dh = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else dh ** -0.5
+    qp = q_positions if q_positions is not None else torch.arange(t, device=q.device)
+    kp = k_positions if k_positions is not None else torch.arange(s, device=q.device)
+    qg = q.reshape(n, t, kv, g, dh)
+    logits = torch.einsum("ntkgd,nskd->nkgts", qg.float(), k.float()) * scale
+    qp, kp = qp.long(), kp.long()
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp[:, None] >= kp[None, :]
+    if window is not None:
+        mask &= (qp[:, None] - kp[None, :]) < window
+    mask &= kp[None, :] >= 0
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("nkgts,nskd->ntkgd", p, v.float())
+    return out.reshape(n, t, h, v.shape[-1]).to(q.dtype)
+
+
+def wkv(r, k, v, log_w, u=None, state0=None, chunk=16):
+    """The chunked RWKV6 / SSD recurrence, chunk by chunk:
+
+        S_t = diag(w_t) S_{t-1} + k_t v_tᵀ ;   y_t = r_tᵀ S_{t-1} + (r·u·k)_t v_t
+
+    r, k: [N, T, H, dk]; v: [N, T, H, dv]; log_w: [N, T, H, dk] or
+    [N, T, H, 1] (a scalar decay per head), clipped to [−60, −1e−6]; u:
+    [H, dk] or None; state0: [N, H, dk, dv] float32 or None; ``chunk``
+    divides T.  Returns (y [N, T, H, dv] in r's dtype, state [N, H, dk, dv]
+    float32), with ``wkv_chunked``'s algebra (``src/repro/nn/functional.py``):
+    within a chunk the decays are cumulative sums P, r̃ = r·exp(P − log_w),
+    k̃ = k·exp(−P).
+    """
+    n, t, h, dk = r.shape
+    dv = v.shape[-1]
+    if t % chunk:
+        raise ValueError(f"wkv: chunk {chunk} does not divide T = {t}")
+    nc = t // chunk
+    rs = r.reshape(n, nc, chunk, h, dk).float()
+    ks = k.reshape(n, nc, chunk, h, dk).float()
+    vs = v.reshape(n, nc, chunk, h, dv).float()
+    lw = log_w.reshape(n, nc, chunk, h, -1).float().clamp(-60.0, -1e-6)
+    lw = lw.expand(n, nc, chunk, h, dk)
+    S = (torch.zeros((n, h, dk, dv), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    strict = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32, device=r.device),
+                        diagonal=-1)
+    ys = []
+    for c in range(nc):
+        rc, kc, vc, lwc = rs[:, c], ks[:, c], vs[:, c], lw[:, c]
+        P = torch.cumsum(lwc, dim=1)
+        E = P - lwc
+        r_t = rc * torch.exp(E)
+        k_t = kc * torch.exp(-P)
+        A = torch.einsum("nthd,nshd->nhts", r_t, k_t) * strict
+        y = torch.einsum("nhts,nshd->nthd", A, vc)
+        if u is not None:
+            diag = torch.einsum("nthd,hd,nthd->nth", rc, u.float(), kc)
+            y = y + diag[..., None] * vc
+        y = y + torch.einsum("nthd,nhde->nthe", r_t, S)
+        decay_end = torch.exp(P[:, -1])
+        k_end = kc * torch.exp(P[:, -1][:, None] - P)
+        S = decay_end[..., None] * S + torch.einsum("nthd,nthe->nhde", k_end, vc)
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(n, t, h, dv)
+    return y.to(r.dtype), S

@@ -1,0 +1,197 @@
+"""Decoder blocks as ``Wired`` modules.
+
+Port of ``src/repro/nn/blocks.py``: ``AttnBlock`` (GQA attention with RoPE and
+a GLU feed-forward, RMSNorm) and ``HymbaBlock`` (parallel attention and SSD
+heads sharing one block), each with its full-sequence ``wire`` and its
+single-token ``wire_step`` against a KV cache (a ring of ``window`` slots in
+the sliding-window layers) and, for Hymba, the SSD state.  One block = one
+decoder layer, so a layer stack is a single homogeneous ``ScanStack``.
+
+Every parameter lives in a Dense / RMSNorm / Param child, in the JAX layout.
+Attention is ``functional.sdpa`` (``attn_impl="naive"``, the JAX default),
+which the card runs in the ``flash_attention`` kernel; the SSD scan is
+``functional.wkv_chunked``, which it runs in the ``wkv`` kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as TF
+
+from repro_torch.core.module import Dense, RMSNorm
+from repro_torch.nn import functional as F
+from repro_torch.nn.layers import Param
+from repro_torch.nn.wired import Wired
+
+ROADMAP_ITEM = "ROADMAP queue A item 13"
+
+
+def _norm(kind, d, dtype, device):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm={kind!r}: LayerNorm is still to port ({ROADMAP_ITEM})")
+    return RMSNorm(d, dtype=dtype, device=device)
+
+
+def _gelu(x):
+    return TF.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def _act(name):
+    return {"silu": TF.silu, "gelu": _gelu, "relu": TF.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# dense attention + GLU FFN decoder layer
+# ---------------------------------------------------------------------------
+
+
+class AttnBlock(Wired):
+    def __init__(self, d, n_heads, kv_heads, d_ff, *, head_dim=None,
+                 causal=True, window=None, norm="rmsnorm", act="silu",
+                 glu=True, rope_theta=10000.0, rope_pct=1.0, qkv_bias=False,
+                 attn_impl="naive", dtype=torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if rope_pct != 1.0 or qkv_bias or not glu:
+            raise NotImplementedError("partial RoPE, qkv bias and non-GLU feed-forwards are "
+                                      f"still to port ({ROADMAP_ITEM})")
+        if attn_impl != "naive":
+            raise NotImplementedError(f"attn_impl={attn_impl!r}: sdpa_chunked comes with "
+                                      f"training on language models ({ROADMAP_ITEM})")
+        self.h, self.kv = n_heads, kv_heads
+        self.dh = dh = head_dim or d // n_heads
+        self.causal, self.window = causal, window
+        self.act = _act(act)
+        self.rope_theta = rope_theta
+        kw = dict(use_bias=False, dtype=dtype, device=device, generator=generator)
+        self.set_children({
+            "ln1": _norm(norm, d, dtype, device),
+            "wq": Dense(d, n_heads * dh, **kw),
+            "wk": Dense(d, kv_heads * dh, **kw),
+            "wv": Dense(d, kv_heads * dh, **kw),
+            "wo": Dense(n_heads * dh, d, **kw),
+            "ln2": _norm(norm, d, dtype, device),
+            "w_gate": Dense(d, d_ff, **kw),
+            "w_up": Dense(d, d_ff, **kw),
+            "w_down": Dense(d_ff, d, **kw),
+        })
+
+    def _attend(self, call, x, positions):
+        n, t = x.shape[:2]
+        q = call("wq", x).reshape(n, t, self.h, self.dh)
+        k = call("wk", x).reshape(n, t, self.kv, self.dh)
+        v = call("wv", x).reshape(n, t, self.kv, self.dh)
+        q = F.apply_rope(q, positions, self.rope_theta)
+        k = F.apply_rope(k, positions, self.rope_theta)
+        return q, k, v
+
+    def _ffn(self, call, x):
+        h = call("ln2", x)
+        y = self.act(call("w_gate", h)) * call("w_up", h)
+        return x + call("w_down", y)
+
+    def _sdpa(self, q, k, v):
+        return F.sdpa(q, k, v, causal=self.causal, window=self.window)
+
+    def wire(self, call, params, x):
+        n, t = x.shape[:2]
+        h = call("ln1", x)
+        q, k, v = self._attend(call, h, torch.arange(t, device=x.device))
+        a = self._sdpa(q, k, v)
+        x = x + call("wo", a.reshape(n, t, self.h * self.dh))
+        return self._ffn(call, x)
+
+    # -- decode -----------------------------------------------------------------
+    def init_cache(self, params, batch, max_len, dtype):
+        S = max_len if self.window is None else min(self.window, max_len)
+        device = params["wk"]["w"].device
+        return {
+            "k": torch.zeros((batch, S, self.kv, self.dh), dtype=dtype, device=device),
+            "v": torch.zeros((batch, S, self.kv, self.dh), dtype=dtype, device=device),
+            "pos": torch.full((S,), -1, dtype=torch.int32, device=device),
+        }
+
+    def _cached_attention(self, q, k, v, pos, cache):
+        ck, cv, pbuf = F.cache_update(cache["k"], cache["v"], cache["pos"], k, v, pos,
+                                      ring=self.window is not None)
+        a = F.sdpa(q, ck, cv, causal=True, window=self.window,
+                   q_positions=pos.reshape(1), k_positions=pbuf)
+        return a, {"k": ck, "v": cv, "pos": pbuf}
+
+    def wire_step(self, call, params, xp, cache):
+        x, pos = xp  # x: [N, 1, d], pos: a 0-dimensional integer tensor
+        n = x.shape[0]
+        h = call("ln1", x)
+        q, k, v = self._attend(call, h, pos)
+        a, cache = self._cached_attention(q, k, v, pos, cache)
+        x = x + call("wo", a.reshape(n, 1, self.h * self.dh))
+        x = self._ffn(call, x)
+        return (x, pos), cache
+
+
+# ---------------------------------------------------------------------------
+# Hymba: parallel attention + SSD heads sharing one block
+# ---------------------------------------------------------------------------
+
+
+class HymbaBlock(AttnBlock):
+    def __init__(self, d, n_heads, kv_heads, d_ff, *, head_dim=None,
+                 ssm_state=16, window=None, act="silu", rope_theta=10000.0,
+                 attn_impl="naive", dtype=torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(d, n_heads, kv_heads, d_ff, head_dim=head_dim,
+                         window=window, act=act, rope_theta=rope_theta,
+                         attn_impl=attn_impl, dtype=dtype, device=device,
+                         generator=generator)
+        self.ds = ssm_state
+        kw = dict(use_bias=False, dtype=dtype, device=device, generator=generator)
+        self.children_map.update({
+            "w_xs": Dense(d, self.h * self.dh, **kw),
+            "w_B": Dense(d, self.h * self.ds, **kw),
+            "w_C": Dense(d, self.h * self.ds, **kw),
+            "w_dt": Dense(d, self.h, use_bias=True, dtype=dtype, device=device,
+                          generator=generator),
+            "a_log": Param((self.h,), init=0.0, dtype=torch.float32, device=device),
+            "norm_attn": RMSNorm(self.h * self.dh, dtype=dtype, device=device),
+            "norm_ssm": RMSNorm(self.h * self.dh, dtype=dtype, device=device),
+        })
+
+    def _ssd(self, call, h, state0=None):
+        n, t = h.shape[:2]
+        xs = call("w_xs", h).reshape(n, t, self.h, self.dh)
+        B = call("w_B", h).reshape(n, t, self.h, self.ds)
+        C = call("w_C", h).reshape(n, t, self.h, self.ds)
+        dt = TF.softplus(call("w_dt", h).float())
+        log_a = (-dt * torch.exp(call("a_log", None)))[..., None]  # [N,T,H,1]
+        y, state = F.wkv_chunked(C, B, xs, log_a, u=None, state0=state0)
+        return y.reshape(n, t, self.h * self.dh), state
+
+    def wire(self, call, params, x):
+        n, t = x.shape[:2]
+        h = call("ln1", x)
+        q, k, v = self._attend(call, h, torch.arange(t, device=x.device))
+        ao = self._sdpa(q, k, v).reshape(n, t, self.h * self.dh)
+        so, _ = self._ssd(call, h)
+        y = 0.5 * (call("norm_attn", ao) + call("norm_ssm", so))
+        x = x + call("wo", y)
+        return self._ffn(call, x)
+
+    def init_cache(self, params, batch, max_len, dtype):
+        c = super().init_cache(params, batch, max_len, dtype)
+        c["ssm"] = torch.zeros((batch, self.h, self.ds, self.dh), dtype=torch.float32,
+                               device=c["k"].device)
+        return c
+
+    def wire_step(self, call, params, xp, cache):
+        x, pos = xp
+        n = x.shape[0]
+        h = call("ln1", x)
+        q, k, v = self._attend(call, h, pos)
+        ao, kv_cache = self._cached_attention(q, k, v, pos, cache)
+        ao = ao.reshape(n, 1, self.h * self.dh)
+        so, sstate = self._ssd(call, h, state0=cache["ssm"])
+        y = 0.5 * (call("norm_attn", ao) + call("norm_ssm", so))
+        x = x + call("wo", y)
+        x = self._ffn(call, x)
+        return (x, pos), dict(kv_cache, ssm=sstate)

@@ -1,4 +1,4 @@
-"""Conv2d, MaxPool2d and Flatten in the BackPACK module protocol.
+"""Conv2d, MaxPool2d, Flatten and Param in the BackPACK module protocol.
 
 Port of ``src/repro/nn/layers.py:158-251``.  Activations stay NHWC between
 layers, as in JAX, so ``Flatten`` orders features the same way and Dense
@@ -26,6 +26,7 @@ from repro_torch.core.module import (
     _f32,
     dense_curv_stats,
     dense_first_order_stats,
+    full_param,
     normal_param,
     zeros_param,
 )
@@ -186,3 +187,20 @@ class Flatten(Module):
 
     def jac_t_mat(self, params, tape, M):
         return M.reshape((M.shape[0],) + tape)
+
+
+class Param(Module):
+    """Raw learnable tensor; ``call`` ignores x and returns the tensor
+    (Hymba's ``a_log``), filled with the constant ``init`` (JAX's callable
+    initialisers come with the modules that use them)."""
+
+    def __init__(self, shape, init=0.0, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.shape = tuple(shape)
+        self.v = full_param(self.shape, init, device, dtype)
+
+    def params(self):
+        return {"v": self.v}
+
+    def call(self, params, x):
+        return params["v"]

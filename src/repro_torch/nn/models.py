@@ -1,0 +1,126 @@
+"""Model assemblies: ``CausalLM`` and ``build_model`` for the language-model
+zoo.
+
+Port of ``src/repro/nn/models.py`` (``TokenEmbed``, ``CausalLM``,
+``_expand_segments``, ``make_stacks``, ``build_model``).  The same module tree
+serves the full-sequence forward (``call``, the prefill step) and decode
+(``serve_step`` with per-block caches).  Hymba is built; the other kinds
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from repro_torch.core.module import Dense, Embedding, Module, RMSNorm, ScanStack, Sequential
+from repro_torch.nn.blocks import HymbaBlock
+from repro_torch.nn.wired import Wired
+
+_STILL_TO_PORT = {
+    "dense": "the dense AttnBlock variants (LayerNorm, partial RoPE, qkv bias, non-GLU) "
+             "and the VLM prefix: ROADMAP queue A item 13",
+    "moe_gqa": "BatchedDense / MoE: ROADMAP queue A item 13",
+    "moe_mla": "MLA and BatchedDense / MoE: ROADMAP queue A item 13",
+    "rwkv": "RWKV6Block with GroupRMSNorm and token_shift: ROADMAP queue A item 13",
+    "encdec": "Whisper (encoder-decoder, LayerNorm): ROADMAP queue A item 13",
+}
+
+
+class TokenEmbed(Wired):
+    def __init__(self, vocab, d, dtype=torch.float32, device="cuda", generator=None):
+        super().__init__()
+        self.set_children({"emb": Embedding(vocab, d, dtype=dtype, device=device,
+                                            generator=generator)})
+
+    def wire(self, call, params, x):
+        return call("emb", x)
+
+    def embed_tokens(self, params, tokens):
+        return self.children_map["emb"].call(params["emb"], tokens)
+
+
+class CausalLM(Sequential):
+    """[embed, *stacks, norm, head] with a single-token decode path."""
+
+    def __init__(self, embed, stacks: List[Module], norm, head):
+        super().__init__([embed] + stacks + [norm, head])
+        self.n_stacks = len(stacks)
+
+    @property
+    def stacks(self):
+        return self.mods[1: 1 + self.n_stacks]
+
+    def init_serve_cache(self, params, batch, max_len, dtype):
+        return tuple(
+            s.init_cache(p, batch, max_len, dtype)
+            for s, p in zip(self.stacks, params[1: 1 + self.n_stacks])
+        )
+
+    def serve_step(self, params, caches, tokens, pos):
+        """tokens: [N] int; pos: int or 0-dimensional tensor → (logits [N,V],
+        caches)."""
+        emb = self.mods[0]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+        h = emb.embed_tokens(params[0], tokens[:, None])
+        x = (h, pos)
+        new_caches = []
+        for i, stack in enumerate(self.stacks):
+            x, c = stack.decode_step(params[1 + i], x, caches[i])
+            new_caches.append(c)
+        h = self.mods[-2].call(params[-2], x[0])
+        logits = self.mods[-1].call(params[-1], h)
+        return logits[:, 0], tuple(new_caches)
+
+
+def _expand_segments(cfg):
+    """cfg.window_segments: list[(window_or_None, count)], cfg.pattern_repeat."""
+    segs = cfg.window_segments or [(None, cfg.n_layers)]
+    repeat = cfg.pattern_repeat or 1
+    total = sum(c for _, c in segs) * repeat
+    if total != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: the window segments give {total} layers, "
+                         f"not {cfg.n_layers}")
+    return segs, repeat
+
+
+def make_stacks(mk_block, segments, repeat, device="cuda"):
+    """``mk_block(window, device)`` builds one block; a segment of c > 1
+    blocks is a ``ScanStack``, the segments of one pattern a ``Sequential``,
+    and a pattern repeated r > 1 times a ``ScanStack`` of the pattern."""
+    def unit(dev):
+        segs = [ScanStack(lambda d, w=w: mk_block(w, d), c, device=dev) if c > 1
+                else mk_block(w, dev) for (w, c) in segments]
+        return Sequential(segs) if len(segs) > 1 else segs[0]
+
+    if repeat > 1:
+        return [ScanStack(unit, repeat, device=device)]
+    return [unit(device)]
+
+
+def build_model(cfg, attn_impl="naive", device="cuda",
+                generator: Optional[torch.Generator] = None):
+    """The root module of ``cfg`` on ``device`` (the card unless the caller
+    asks for the CPU), in ``cfg.dtype``, with weights drawn from
+    ``generator`` (a CPU ``torch.Generator``).  JAX's ``remat`` and
+    ``seq_constraint`` come with training on language models and the sharded
+    lane; its ``wkv_chunk`` with RWKV6 (Hymba scans with chunks of 16)."""
+    if cfg.kind != "hymba":
+        raise NotImplementedError(f"{cfg.name} (kind {cfg.kind!r}) needs "
+                                  f"{_STILL_TO_PORT.get(cfg.kind, 'ROADMAP queue A item 13')}")
+    dtype = getattr(torch, cfg.dtype)
+    d = cfg.d_model
+
+    def mk(w, dev):
+        return HymbaBlock(d, cfg.n_heads, cfg.kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
+                          ssm_state=cfg.ssm_state, window=w, act=cfg.act,
+                          attn_impl=attn_impl, rope_theta=cfg.rope_theta, dtype=dtype,
+                          device=dev, generator=generator)
+
+    segments, repeat = _expand_segments(cfg)
+    stacks = make_stacks(mk, segments, repeat, device=device)
+    embed = TokenEmbed(cfg.vocab, d, dtype=dtype, device=device, generator=generator)
+    norm = RMSNorm(d, dtype=dtype, device=device)
+    head = Dense(d, cfg.vocab, use_bias=False, dtype=dtype, device=device,
+                 generator=generator)
+    return CausalLM(embed, stacks, norm, head)

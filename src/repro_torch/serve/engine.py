@@ -1,0 +1,74 @@
+"""Batched serving engine: prefill → decode with KV caches + sampling.
+
+Port of ``src/repro/serve/engine.py``.  ``generate`` runs a static-batch
+decode loop with greedy/temperature sampling and per-sequence EOS tracking
+(finished slots keep decoding token 0: the static-shape analogue of
+continuous batching's slot reuse).  Where JAX scans, the port loops in
+Python, one ``serve_step`` a position.  The ``obs`` spans and gauges wait for
+the observability layer (ROADMAP queue A item 11); ``generate_whisper`` for
+the encoder-decoder (item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 256
+    temperature: float = 0.0  # 0 = greedy
+    eos_id: int = -1          # -1: never stop early
+    cache_dtype: str = "float32"
+
+
+def _vocab_of(model):
+    head = model.mods[-1] if hasattr(model, "mods") else model.children_map["head"]
+    return head.d_out
+
+
+def prefill(model, params, caches, prompts, prompt_len):
+    """Feed prompt tokens one position at a time (cache-filling).
+
+    prompts: [N, P] int.  Returns (caches, last_logits).
+    """
+    logits = torch.zeros((prompts.shape[0], _vocab_of(model)), dtype=torch.float32,
+                         device=prompts.device)
+    for t in range(prompt_len):
+        logits, caches = model.serve_step(params, caches, prompts[:, t], t)
+    return caches, logits
+
+
+def generate(model, params, prompts, cfg: ServeConfig,
+             rng: Optional[torch.Generator] = None):
+    """prompts: [N, P] → tokens [N, max_len] (prompt + continuation), int32.
+
+    ``rng`` (a ``torch.Generator`` on the prompts' device, seeded 0 if None)
+    draws the temperature samples; greedy decoding draws nothing.
+    """
+    n, p = prompts.shape
+    prompts = prompts.to(torch.int32)
+    caches = model.init_serve_cache(params, n, cfg.max_len, getattr(torch, cfg.cache_dtype))
+    caches, logits = prefill(model, params, caches, prompts, p)
+    if rng is None:
+        rng = torch.Generator(device=prompts.device).manual_seed(0)
+
+    def sample(logits):
+        if cfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax((logits / cfg.temperature).float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=rng)[:, 0].to(torch.int32)
+
+    done = torch.zeros((n,), dtype=torch.bool, device=prompts.device)
+    toks = []
+    for t in range(p, cfg.max_len):
+        tok = sample(logits)
+        tok = torch.where(done, torch.zeros_like(tok), tok)
+        done = done | (tok == cfg.eos_id)
+        logits, caches = model.serve_step(params, caches, tok, t)
+        toks.append(tok)
+    if not toks:
+        return prompts
+    return torch.cat([prompts, torch.stack(toks, dim=1)], dim=1)

@@ -13,7 +13,8 @@ Port of ``src/repro/train/step.py``.  Options:
   * ``remat``      — recompute the forward pass in the backward pass
     (``torch.utils.checkpoint``).
 A step takes and returns parameter trees; it never changes the tensors it is
-given.  The prefill and decode steps wait for the language-model zoo.
+given.  ``make_prefill_step`` and ``make_decode_step`` are the serving
+steps of a language model (:mod:`repro_torch.serve.engine` drives them).
 """
 from __future__ import annotations
 
@@ -131,3 +132,22 @@ def make_extended_train_step(model, loss, opt, extensions,
         return apply_updates(params, ups), new_opt, metrics
 
     return step
+
+
+def make_prefill_step(model):
+    """``prefill(params, inputs)``: the full-sequence forward, the logits of
+    the last position [N, V]."""
+    def prefill(params, inputs):
+        z = model.call(params, inputs)
+        return z[:, -1, :]
+
+    return prefill
+
+
+def make_decode_step(model):
+    """``decode(params, caches, tokens, pos)``: one token a sequence through
+    ``model.serve_step`` → (logits [N, V], caches)."""
+    def decode(params, caches, tokens, pos):
+        return model.serve_step(params, caches, tokens, pos)
+
+    return decode

@@ -9,7 +9,11 @@ Each kernel is called through its dispatch wrapper on CUDA tensors at the
 shapes the 3C3D main path gives it at batch 128 (and at ragged shapes, for
 every output mask), and held against its plain version on the same tensors.
 A default ``run`` on CUDA tensors launches the kernels, and one
-curvature-preconditioned training step agrees card against CPU.
+curvature-preconditioned training step agrees card against CPU.  The
+language models' two kernels, ``flash_attention`` and ``wkv``, are held in
+float32 and bfloat16, with a fully masked row, T = 1 decode against ring and
+global caches, ragged tiles and chunks, and Hymba's [N, T, H, 1] decay; the
+reduced Hymba serves on the card as on the CPU.
 """
 import itertools
 
@@ -232,3 +236,131 @@ def test_card_gram_and_laplace_paths_match_cpu(cuda):
     _, cpu_var = glm_predictive(model, cpu_params, cpu_post, x.cpu())
     torch.cuda.synchronize()
     assert ((var.cpu() - cpu_var).abs().max() / cpu_var.abs().max()).item() < CARD_TOL
+
+
+# -- attention and WKV (the language models' serving path) --------------------
+# bf16 in and out: the kernel and the plain version both compute in float32
+# and round once to bfloat16; a float32 difference in the last place can flip
+# that rounding, so the limit is one bfloat16 step of the largest output (2^-7).
+BF16_TOL = 1e-2
+ATTN = {  # (N, T, S, H, KV, dh, window, positions)
+    "prefill_g5": (2, 130, 130, 10, 2, 64, None, None),
+    "window_ragged": (2, 77, 77, 6, 3, 16, 20, None),
+    "noncausal": (1, 33, 70, 4, 4, 32, None, "noncausal"),
+    "decode_ring": (3, 1, 64, 10, 2, 64, 64, "ring"),
+    "decode_global": (3, 1, 100, 10, 2, 64, None, "global"),
+    "all_masked": (2, 3, 40, 4, 2, 16, None, "empty"),
+    "all_masked_many_rows": (1, 40, 40, 4, 2, 16, None, "empty"),
+}
+
+
+def _attn_inputs(case, dtype, gen):
+    n, t, s, h, kv, dh, window, pos = ATTN[case]
+    q = torch.randn(n, t, h, dh, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(n, s, kv, dh, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(n, s, kv, dh, device="cuda", generator=gen).to(dtype)
+    kw = dict(window=window)
+    i32 = dict(device="cuda", dtype=torch.int32)
+    if pos == "noncausal":
+        kw["causal"] = False
+    elif pos == "ring":  # position 150 in a ring of 64: wrapped twice, one slot empty
+        kp = torch.arange(s, **i32) + 128
+        kp[s - 41:] -= 64
+        kp[5] = -1
+        kw.update(q_positions=torch.tensor([150], **i32), k_positions=kp)
+    elif pos == "global":  # a cache of 100 holding positions 0..60
+        kp = torch.arange(s, **i32)
+        kp[61:] = -1
+        kw.update(q_positions=torch.tensor([60], **i32), k_positions=kp)
+    elif pos == "empty":  # no slot written: the uniform average of all values
+        kw.update(q_positions=torch.arange(t, **i32), k_positions=torch.full((s,), -1, **i32))
+    return q, k, v, kw
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(ATTN))
+def test_card_flash_attention(cuda, case, dtype):
+    """Rows of T·g < 64 split their keys over 32 threads (decode, the first
+    all-masked case), others take one thread a row."""
+    q, k, v, kw = _attn_inputs(case, dtype, cuda)
+    want = ref.flash_attention(q, k, v, **kw)
+    tol = CARD_TOL if dtype == torch.float32 else BF16_TOL
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _rel(got, want) < tol
+    if kw.get("k_positions") is not None and (kw["k_positions"] < 0).all():
+        mean = v.float().mean(1, keepdim=True).repeat_interleave(q.shape[2] // k.shape[2], 2)
+        assert _rel(got, mean.expand_as(got)) < tol
+
+
+@pytest.mark.gpu
+def test_card_flash_attention_bf16_queries_fp32_cache(cuda):
+    """Decode reads a float32 KV cache with the bfloat16 model's queries."""
+    q, k, v, kw = _attn_inputs("decode_ring", torch.float32, cuda)
+    q = q.to(torch.bfloat16)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == 1 and got.dtype == torch.bfloat16
+    assert _rel(got, ref.flash_attention(q, k, v, **kw)) < BF16_TOL
+
+
+WKV = {  # (N, T, H, dk, dv, per-channel decay, u, state0, chunk)
+    "hymba_ssd": (2, 64, 5, 16, 64, False, False, True, 16),
+    "rwkv6": (2, 64, 4, 64, 64, True, True, False, 16),
+    "ragged_chunk10": (2, 20, 3, 8, 16, True, True, True, 10),
+    "decode_t1": (3, 1, 5, 16, 64, False, False, True, 1),
+    "chunk64": (1, 128, 2, 64, 64, True, True, True, 64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(WKV))
+def test_card_wkv(cuda, case, dtype):
+    n, t, h, dk, dv, per_channel, has_u, has_s0, chunk = WKV[case]
+    r, k = (torch.randn(n, t, h, dk, device="cuda", generator=cuda).to(dtype) for _ in range(2))
+    v = torch.randn(n, t, h, dv, device="cuda", generator=cuda).to(dtype)
+    lw = -torch.nn.functional.softplus(
+        torch.randn(n, t, h, dk if per_channel else 1, device="cuda", generator=cuda))
+    u = torch.randn(h, dk, device="cuda", generator=cuda) if has_u else None
+    s0 = torch.randn(n, h, dk, dv, device="cuda", generator=cuda) if has_s0 else None
+    ops.reset_launch_counts()
+    y, s = ops.wkv(r, k, v, lw, u, s0, chunk)
+    assert ops.launch_counts()["wkv"] == 1
+    y_want, s_want = ref.wkv(r, k, v, lw, u, s0, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert _rel(y, y_want) < (CARD_TOL if dtype == torch.float32 else BF16_TOL)
+    assert _rel(s, s_want) < CARD_TOL
+
+
+@pytest.mark.gpu
+def test_card_reduced_hymba_serves_like_cpu(cuda):
+    """The reduced Hymba: logits card against CPU, a serve_step chain past the
+    window-8 ring against the full forward, and one launch of each kernel a
+    layer a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.models import build_model
+
+    cfg = get_config("hymba-1.5b").reduced()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    params = model.params()
+    toks = torch.randint(0, cfg.vocab, (2, 12), device="cuda", generator=cuda)
+    full = model.call(params, toks)
+    cpu = model.call(tree_map(lambda p: p.cpu(), params), toks.cpu())
+    assert _rel(full.cpu(), cpu) < CARD_TOL
+    caches = model.init_serve_cache(params, 2, 12, torch.float32)
+    for t in range(12):
+        ops.reset_launch_counts()
+        logits, caches = model.serve_step(params, caches, toks[:, t], t)
+        assert ops.launch_counts() == {k: 2 if k in ("flash_attention", "wkv") else 0
+                                       for k in ops.KERNELS}
+        assert _rel(logits, full[:, t]) < CARD_TOL

@@ -203,7 +203,7 @@ def test_per_extension_route_calls_its_kernels(monkeypatch):
     # 2 dense layers (the rank-1 moment and both diagonals through sq_matmul).
     assert calls == {"fused_first_order": 0, "fused_second_order": 0, "sq_matmul": 6,
                      "per_sample_moment": 6, "batch_l2": 2, "ggn_diag": 0, "cross_dot": 0,
-                     "predictive_var": 0}
+                     "predictive_var": 0, "flash_attention": 0, "wkv": 0}
 
 
 def test_mc_seed_draws_are_deterministic():

@@ -6,7 +6,8 @@
   triton: kernels are built and loaded only when they launch.
 * A CUDA request without a card raises; nothing carries on on the CPU.
 * ``chip_smoke.py`` fails without a card, and outside a checkout.
-* The examples run with ``--device cpu``, and ask for the card by default.
+* The examples and the serving launcher run with ``--device cpu``, and ask
+  for the card by default.
 """
 import ast
 import os
@@ -43,15 +44,37 @@ def test_port_imports_no_jax(path):
 
 def test_boundary_covers_every_subpackage():
     for pkg in ("repro_torch.core", "repro_torch.kernels", "repro_torch.laplace",
-                "repro_torch.curv", "repro_torch.optim", "repro_torch.train"):
+                "repro_torch.curv", "repro_torch.optim", "repro_torch.train",
+                "repro_torch.nn", "repro_torch.serve", "repro_torch.launch",
+                "repro_torch.configs"):
         assert pkg in MODULES
+    for mod in ("repro_torch.nn.functional", "repro_torch.nn.blocks", "repro_torch.nn.wired",
+                "repro_torch.nn.models", "repro_torch.serve.engine", "repro_torch.launch.serve",
+                "repro_torch.configs.hymba_1_5b", "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.wkv"):
+        assert mod in MODULES
 
 
-@pytest.mark.parametrize("name", ["fused_first_order", "fused_second_order", "sq_matmul",
-                                  "per_sample_moment", "batch_l2", "ggn_diag", "cross_dot",
-                                  "predictive_var"])
+KERNEL_NAMES = ["fused_first_order", "fused_second_order", "sq_matmul", "per_sample_moment",
+                "batch_l2", "ggn_diag", "cross_dot", "predictive_var", "flash_attention", "wkv"]
+
+
+def test_kernel_table_and_counters_agree():
+    """Ten kernels, one per Pallas function of the JAX package: the dispatch
+    table, the build list and the launch counters name the same ten."""
+    from repro_torch.kernels import _build, ops
+
+    assert list(ops.KERNELS) == KERNEL_NAMES
+    assert tuple(_build.SOURCES) == ops.KERNELS
+    assert set(ops.launch_counts()) == set(KERNEL_NAMES)
+    pallas = sorted(p.stem for p in (ROOT / "src" / "repro" / "kernels").glob("*.py")
+                    if "pl.pallas_call(" in p.read_text())
+    assert pallas == sorted(KERNEL_NAMES)
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_every_kernel_is_wired(name):
-    """Each of the eight kernels: a dispatch entry with its own launch
+    """Each of the ten kernels: a dispatch entry with its own launch
     counter, a plain version, a wrapper module naming its CUDA source (built
     by ``_build``) and the Pallas kernel it replaces, and no JAX import."""
     import importlib
@@ -137,3 +160,22 @@ def test_example_asks_for_the_card_by_default():
                           env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "CUDA device was requested" in proc.stderr
+
+
+def test_serve_launcher_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                           "hymba-1.5b", "--device", "cpu", "--max-len", "24"],
+                          env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "generated (4, 24) tokens on cpu" in proc.stdout
+
+
+def test_serve_launcher_asks_for_the_card_by_default(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device was requested"):
+        serve.main(["--arch", "hymba-1.5b"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 13"):
+        serve.main(["--arch", "hymba-1.5b", "--device", "cpu", "--uncertainty"])
