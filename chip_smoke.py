@@ -46,6 +46,12 @@ launch counts set to 0 just before and read just after:
   1e-3) and the card matches the CPU (batch 1, T 64, limit 1e-4); and
   ``python -m repro_torch.launch.serve --arch hymba-1.5b --full`` exits 0.
 
+The two kernels with a library counterpart (sq_matmul: ``torch.matmul`` of
+the squares; flash_attention: SDPA) are timed in turns with it (kernel,
+library, library, kernel) and each gets its device time a call from a
+profiler window; flash_attention's rows name the design that ran
+(``flash_attention.design``: "wgmma" for bf16 prefill, "simt" else).
+
 It also runs KFRA and DiagHessian on the 784-128-64-10 MLP, card against
 CPU.  Every phase prints a line; any failure exits non-zero.  The
 second-to-last lines are the kernel table (JSON) and the card's name and
@@ -76,6 +82,14 @@ TOL = 1e-4       # max |kernel − plain| / max |plain|: float32, other sum orde
 # last-place float32 difference can flip that rounding by one bfloat16 step,
 # at most 2^-7 of the largest output.
 BF16_TOL = 1e-2
+# ...and row by row for bf16 attention: max |kernel − plain| / max |plain|
+# within each output row (one query head's dv values).  The first rows see
+# few keys and set the whole tensor's max |plain| (≈ 4); a late row's outputs
+# are about 0.05, so a kernel wrong there by a whole output still passes
+# BF16_TOL.  One bfloat16 step at a row's largest output is 2^-7; the limit
+# is two steps and a half (PERF.md: the readings, and planted faults'
+# readings from tools/flash_attention_fault.py).
+ROW_TOL = 2e-2
 # The serving path: Hymba-1.5B (32 layers, 3 global, 29 with a window of
 # 1024), 4 prompts of 2048 tokens for prefill, of 32 tokens to 128 for
 # generate; the decode-vs-forward check runs one sequence of 1040 tokens so
@@ -108,6 +122,13 @@ def fail(msg):
     sys.exit(1)
 
 
+def row_rel_err(got, want):
+    """The largest, over rows (all but the last dimension), of max |got −
+    want| / max |want| within the row."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    return ((g - w).abs().amax(-1) / w.abs().amax(-1)).max().item()
+
+
 def medians_ms(samples):
     return {k: sorted(v)[len(v) // 2] * 1e3 for k, v in samples.items()}
 
@@ -124,18 +145,41 @@ def profiled(call):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def device_us(e):  # the attribute's name changed across PyTorch versions
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
-    # Kernels only (events on the device): an operator's device time (aten::,
-    # autograd's backward nodes) is its kernels' again.
-    events = [e for e in prof.key_averages() if device_us(e) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith(("Memcpy", "Memset"))]
+    events = kernel_events(torch, prof)
     top = sorted(events, key=lambda e: -device_us(e))[:12]
     return dict(wall_ms=wall * 1e3, device_ms=sum(device_us(e) for e in events) / 1e3,
                 top=[dict(name=e.key[:80], ms=device_us(e) / 1e3, calls=e.count)
                      for e in top])
+
+
+def device_us(e):  # the attribute's name changed across PyTorch versions
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+
+def kernel_events(torch, prof):
+    """Kernels only (events on the device): an operator's device time
+    (aten::, autograd's backward nodes) is its kernels' again."""
+    return [e for e in prof.key_averages() if device_us(e) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+
+
+def device_per_call(torch, fn, iters=10):
+    """Device ms a call of ``fn`` (the sum of its kernels' times in one
+    torch.profiler window of ``iters`` calls, after one warm-up call), and
+    each kernel's share by name: where a call is short, CUDA events time the
+    host that issues it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = kernel_events(torch, prof)
+    return (sum(device_us(e) for e in events) / 1e3 / iters,
+            {e.key[:80]: device_us(e) / 1e3 / iters for e in events})
 
 
 def attention_mask(torch, t, s, window, q_positions=None, k_positions=None):
@@ -156,8 +200,9 @@ def seen_pairs(torch, *args):
 def lm_kernel_cases(torch, randn, gen):
     """flash_attention and wkv at Hymba-1.5B's serving shapes (and wkv at the
     Pallas kernel's own RWKV6-3B signature), in the path's dtypes and in
-    float32.  Per-call weights count launches per prefill call: 3 global and
-    29 windowed attentions, 32 SSD scans, in bfloat16 (decode rows give
+    float32, and flash_attention at CodeQwen1.5-7B's dh 128 in bfloat16
+    (weight 0).  Per-call weights count launches per prefill call: 3 global
+    and 29 windowed attentions, 32 SSD scans, in bfloat16 (decode rows give
     their launches per serve_step and weigh 0).  Operations: 2·dh +
     2·dv a seen (query, key) pair; WKV's recurrent form, 4·dk·dv a token and
     head (+ 3·dk + 2·dv with the bonus u).  The peak is bf16's where the
@@ -176,6 +221,14 @@ def lm_kernel_cases(torch, randn, gen):
                           f"kv[{n},{t},{kv},{dh}]", weight, weight, (q, k, v),
                           dict(window=window), 4 * dh * n * h * seen_pairs(torch, t, t, window),
                           size * 2 * n * t * (h + kv) * dh, tol, peak))
+        if dtype == torch.bfloat16:
+            # CodeQwen1.5-7B's widths (32 heads of 128, no GQA): the wgmma
+            # design at dh 128, off the serving path (weight 0)
+            q, k, v = (randn(n, t, 32, 128).to(dtype) for _ in range(3))
+            cases.append(("flash_attention", f"prefill {tag} dh128 (codeqwen1.5-7b) "
+                          f"q,k,v[{n},{t},32,128]", 0, 0, (q, k, v), dict(window=None),
+                          4 * 128 * n * 32 * seen_pairs(torch, t, t, None),
+                          size * 4 * n * t * 32 * 128, tol, peak))
         # decode at position 1500: a ring of 1024 that wrapped, a global cache of 2048
         pos = 1500
         ring = torch.arange(1024, **i32)
@@ -621,18 +674,45 @@ def main():
             e = (g - want[key].float()).abs().max().item()
             abs_err = max(abs_err, e)
             rel_err = max(rel_err, e / want[key].float().abs().max().item())
-        ms = timed(lambda: wrapper[kernel](*args, **kw))
+        extra = {}
+
+        def run_kernel():
+            return wrapper[kernel](*args, **kw)
+
+        def run_library():
+            return library[kernel](*args, **kw)
+
+        if kernel in library:
+            # In turns (kernel, library, library, kernel), then each one's
+            # device time a call from a profiler window.
+            turns = [timed(f) for f in (run_kernel, run_library, run_library, run_kernel)]
+            ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            extra["device_ms"], _ = device_per_call(torch, run_kernel)
+            extra["library_device_ms"], extra["library_kernels"] = device_per_call(
+                torch, run_library)
+            extra["turns_ms"] = turns
+        else:
+            ms, lib_ms = timed(run_kernel), None
         plain_ms = timed(lambda: plain[kernel](*args, **kw))
-        lib_ms = timed(lambda: library[kernel](*args, **kw)) if kernel in library else None
+        if kernel == "flash_attention":
+            extra["design"] = fa_mod.design(*args, kw.get("window"), kw.get("q_positions"),
+                                            kw.get("k_positions"))
+            extra["row_rel_err"] = row_rel_err(got["out"], want["out"])
         b_ms, b_by = bound(flops, nbytes, peak)
         row = dict(kernel=kernel, shape=label, launches_per_call=per_call, weight=weight,
                    rel_err=rel_err, tol=tol, peak_tflops=peak / 1e12,
                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9)
+                   bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9, **extra)
         say("check", **row)
         record["checks"].append(row)
         if not rel_err <= tol:
             fail(f"{kernel} {label}: relative error {rel_err:.3e} above {tol}")
+        if kernel == "flash_attention" and tol == BF16_TOL and not extra["row_rel_err"] <= ROW_TOL:
+            fail(f"flash_attention {label}: row error {extra['row_rel_err']:.3e} above {ROW_TOL}")
+        # bf16 prefill takes the tensor cores; decode and float32 the CUDA cores
+        want_design = "wgmma" if label.startswith("prefill bf16") else "simt"
+        if kernel == "flash_attention" and extra["design"] != want_design:
+            fail(f"flash_attention {label}: design {extra['design']}, not {want_design}")
         agg = per_kernel[kernel]
         agg["shapes"].append(label)
         agg["max_abs_err"] = max(agg["max_abs_err"], abs_err)

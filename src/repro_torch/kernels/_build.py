@@ -7,8 +7,8 @@ rebuilt and a stale library is never loaded.  The sources expose a plain C
 interface (pointers, sizes and the CUDA stream as integers): no PyTorch
 headers, so a build takes seconds.  :func:`build` starts one nvcc per source
 at once and waits for all of them; a failed build raises with nvcc's output.
-:func:`check_input` and :func:`check_status` are the checks every kernel
-wrapper makes around its launch.
+:func:`check_input`, :func:`check_devices` and :func:`check_status` are the
+checks every kernel wrapper makes around its launch.
 """
 from __future__ import annotations
 
@@ -87,11 +87,11 @@ def load(name: str) -> ctypes.CDLL:
 
 def check_input(kernel: str, name: str, x: torch.Tensor, ndim: int,
                 dtypes=(torch.float32,)) -> None:
-    """Raise unless ``x`` is a non-empty contiguous CUDA tensor of ``ndim``
+    """Raise unless ``x`` is a non-empty contiguous tensor of ``ndim``
     dimensions and one of ``dtypes`` — what every kernel here takes (the
-    reductions float32 only; attention and WKV float32 or bfloat16)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{kernel}: {name} must lie on a CUDA device, got {x.device}")
+    reductions float32 only; attention and WKV float32 or bfloat16).  The
+    device is :func:`check_devices`'s, made after the wrapper has paired its
+    inputs' shapes, so every other refusal holds for CPU tensors too."""
     if x.dtype not in dtypes:
         raise TypeError(f"{kernel}: {name} must be one of {dtypes}, got {x.dtype}")
     if x.dim() != ndim:
@@ -101,6 +101,16 @@ def check_input(kernel: str, name: str, x: torch.Tensor, ndim: int,
         raise ValueError(f"{kernel}: {name} must be contiguous")
     if x.numel() == 0:
         raise ValueError(f"{kernel}: {name} is empty")
+
+
+def check_devices(kernel: str, **tensors) -> torch.device:
+    """The one CUDA device all the named tensors lie on (None skipped);
+    raise unless there is one."""
+    devices = {x.device for x in tensors.values() if x is not None}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{kernel}: {', '.join(tensors)} must lie on one CUDA device, "
+                         f"got {sorted(map(str, devices))}")
+    return next(iter(devices))
 
 
 def check_status(kernel: str, code: int) -> None:

@@ -54,14 +54,14 @@ def batch_l2_cuda(A: torch.Tensor, B: torch.Tensor,
     (``"gram"`` or ``"g"``) overrides :func:`batch_l2_form`."""
     _build.check_input("batch_l2", "A", A, 3)
     _build.check_input("batch_l2", "B", B, 3)
-    if A.shape[:2] != B.shape[:2] or A.device != B.device:
-        raise ValueError(f"batch_l2: A {tuple(A.shape)} on {A.device} and "
-                         f"B {tuple(B.shape)} on {B.device} do not pair")
+    if A.shape[:2] != B.shape[:2]:
+        raise ValueError(f"batch_l2: A {tuple(A.shape)} and B {tuple(B.shape)} do not pair")
     n, r, a = A.shape
     b = B.shape[-1]
     form = batch_l2_form(r, a, b) if form is None else form
     if form not in FORMS:
         raise ValueError(f"batch_l2: form must be one of {FORMS}, got {form!r}")
+    _build.check_devices("batch_l2", A=A, B=B)
     code_form = FORMS.index(form)
     lib = _lib()
     with torch.cuda.device(A.device):

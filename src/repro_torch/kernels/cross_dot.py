@@ -39,9 +39,9 @@ def _a_layout(name: str, A: torch.Tensor, B: torch.Tensor):
     """(a_per_group, a_rows) of an A side [E_A, N_A, R, a] against B [E, N, R, b]."""
     e, n, r = B.shape[:3]
     ea, na, ra = A.shape[:3]
-    if ea not in (1, e) or ra != r or na == 0 or n % na or A.device != B.device:
-        raise ValueError(f"cross_dot: {name} {tuple(A.shape)} on {A.device} does not "
-                         f"pair with {tuple(B.shape)} on {B.device}")
+    if ea not in (1, e) or ra != r or na == 0 or n % na:
+        raise ValueError(f"cross_dot: {name} {tuple(A.shape)} does not pair with "
+                         f"{tuple(B.shape)}")
     return int(ea == e and e > 1), na
 
 
@@ -58,6 +58,7 @@ def cross_dot_cuda(A1: torch.Tensor, B1: torch.Tensor, A2: torch.Tensor,
                          f"B2 {tuple(B2.shape)} do not pair")
     g1, rows1 = _a_layout("A1", A1, B1)
     g2, rows2 = _a_layout("A2", A2, B2)
+    _build.check_devices("cross_dot", A1=A1, B1=B1, A2=A2, B2=B2)
     sym = int(A1.data_ptr() == A2.data_ptr() and A1.shape == A2.shape
               and B1.data_ptr() == B2.data_ptr() and B1.shape == B2.shape)
     lib = _lib()

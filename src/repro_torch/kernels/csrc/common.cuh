@@ -4,9 +4,8 @@
 // Y, 4x4 outputs a thread, rows staged through shared memory 16 at a time
 // with the next 16 fetched into registers while the current ones are used,
 // and float4 shared-memory reads.  Three kernels are built on it:
-//   * atb_kernel: f(X)ᵀf(Y) over a long row axis, split over blocks when the
-//     output alone has too few tiles to fill the card (sq_matmul, the kron
-//     factor);
+//   * atb_kernel: XᵀY over a long row axis, split over blocks when the
+//     output alone has too few tiles to fill the card (the kron factor);
 //   * sq_stats_kernel: per-sample products t = X_nᵀY_cn squared and reduced
 //     in registers, Σ_cn t² per element and Σ_c,elements t² per sample, so t
 //     never reaches device memory (the fused second-order kernel's diag and
@@ -52,11 +51,10 @@ struct Stage {
   float y[BK][BT];
 };
 
-// acc[i][j] += Σ_r f(X[r, x0+4·ty+i]) · f(Y[r, y0+4·tx+j]) over r < R, for the
+// acc[i][j] += Σ_r X[r, x0+4·ty+i] · Y[r, y0+4·tx+j] over r < R, for the
 // calling thread's (ty, tx) = (threadIdx.x / 16, threadIdx.x % 16).  X is
-// [R, nx] and Y is [R, ny], row-major; columns past nx / ny read as zero; f
-// squares when SQUARE.  Every thread of the block must call it.
-template <bool SQUARE>
+// [R, nx] and Y is [R, ny], row-major; columns past nx / ny read as zero.
+// Every thread of the block must call it.
 __device__ __forceinline__ void tile64(const float* __restrict__ X, int nx, int x0,
                                        const float* __restrict__ Y, int ny, int y0, long long R,
                                        Stage& st, float acc[4][4]) {
@@ -69,10 +67,6 @@ __device__ __forceinline__ void tile64(const float* __restrict__ X, int nx, int 
       const long long r = r0 + e / BT;
       px[q] = (r < R && x0 + c < nx) ? X[r * nx + x0 + c] : 0.f;
       py[q] = (r < R && y0 + c < ny) ? Y[r * ny + y0 + c] : 0.f;
-      if (SQUARE) {
-        px[q] *= px[q];
-        py[q] *= py[q];
-      }
     }
   };
   fetch(0);
@@ -163,12 +157,11 @@ inline void launch_sum_partials(const float* part, float* out, int E, int P, lon
 }
 
 // ---------------------------------------------------------------------------
-// atb: out [M, N] = f(X)ᵀ f(Y) for X [K, M], Y [K, N]
+// atb: out [M, N] = XᵀY for X [K, M], Y [K, N]
 // ---------------------------------------------------------------------------
 
 // Block z sums rows [z·kchunk, (z+1)·kchunk) into partial z of out, laid out
 // as [gridDim.z, M, N].
-template <bool SQUARE>
 __global__ void __launch_bounds__(THREADS)
 atb_kernel(const float* __restrict__ X, const float* __restrict__ Y, long long K, int M, int N,
            long long kchunk, float* __restrict__ out) {
@@ -178,7 +171,7 @@ atb_kernel(const float* __restrict__ X, const float* __restrict__ Y, long long K
   const long long rows = (kb + kchunk < K ? kb + kchunk : K) - kb;
   float acc[4][4];
   zero(acc);
-  tile64<SQUARE>(X + kb * M, M, m0, Y + kb * N, N, n0, rows, st, acc);
+  tile64(X + kb * M, M, m0, Y + kb * N, N, n0, rows, st, acc);
   store_tile(out + (size_t)blockIdx.z * M * N, M, N, m0, n0, acc);
 }
 
@@ -200,13 +193,11 @@ inline long long atb_scratch_floats(long long K, int M, int N) {
   return p.splits > 1 ? (long long)p.splits * M * N : 0;
 }
 
-template <bool SQUARE>
 inline void atb_launch(const float* X, const float* Y, long long K, int M, int N, float* out,
                        float* scratch, cudaStream_t stream) {
   const AtbPlan p = atb_plan(K, M, N);
   dim3 grid((unsigned)cdiv(N, BT), (unsigned)cdiv(M, BT), (unsigned)p.splits);
-  atb_kernel<SQUARE><<<grid, THREADS, 0, stream>>>(X, Y, K, M, N, p.chunk,
-                                                   p.splits > 1 ? scratch : out);
+  atb_kernel<<<grid, THREADS, 0, stream>>>(X, Y, K, M, N, p.chunk, p.splits > 1 ? scratch : out);
   if (p.splits > 1) launch_sum_partials(scratch, out, 1, p.splits, (long long)M * N, stream);
 }
 
@@ -254,7 +245,7 @@ sq_stats_kernel(const float* __restrict__ X, const float* __restrict__ Y, int C,
       const float* Yn = Y + (((size_t)e * C + c) * N + n) * R * b;
       float acc[4][4];
       zero(acc);
-      tile64<false>(Xn, a, a0, Yn, b, b0, R, st, acc);
+      tile64(Xn, a, a0, Yn, b, b0, R, st, acc);
       float vs = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)

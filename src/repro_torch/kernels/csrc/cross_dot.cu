@@ -97,7 +97,7 @@ form_g_kernel(const float* __restrict__ A, const float* __restrict__ B, int E, i
     const float* Y = B + z * R * b;
     float acc[4][4];
     bp::zero(acc);
-    bp::tile64<false>(X, a, a0, Y, b, b0, R, st, acc);
+    bp::tile64(X, a, a0, Y, b, b0, R, st, acc);
     float* g = G + z * K;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

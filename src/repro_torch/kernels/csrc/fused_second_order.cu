@@ -45,6 +45,6 @@ extern "C" int fused_second_order_launch(const float* A, const float* S, int C, 
     if (err != cudaSuccess) return (int)err;
     kron_scratch += bp::sq_stats_scratch_floats(1, N, a, b, want_diag, want_trace);
   }
-  if (want_kron) bp::atb_launch<false>(S, S, (long long)C * N * R, b, b, kron, kron_scratch, stream);
+  if (want_kron) bp::atb_launch(S, S, (long long)C * N * R, b, b, kron, kron_scratch, stream);
   return (int)cudaGetLastError();
 }

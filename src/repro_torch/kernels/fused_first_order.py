@@ -43,9 +43,10 @@ def fused_first_order_cuda(A: torch.Tensor, B: torch.Tensor, want_l2=True,
         raise ValueError("fused_first_order: empty extension mask")
     _build.check_input("fused_first_order", "A", A, 4)
     _build.check_input("fused_first_order", "B", B, 4)
-    if A.shape[:3] != B.shape[:3] or A.device != B.device:
-        raise ValueError(f"fused_first_order: A {tuple(A.shape)} on {A.device} "
-                         f"and B {tuple(B.shape)} on {B.device} do not pair")
+    if A.shape[:3] != B.shape[:3]:
+        raise ValueError(f"fused_first_order: A {tuple(A.shape)} and B {tuple(B.shape)} "
+                         "do not pair")
+    _build.check_devices("fused_first_order", A=A, B=B)
     e, n, r, a = A.shape
     b = B.shape[-1]
     lib = _lib()

@@ -44,9 +44,10 @@ def fused_second_order_cuda(A: torch.Tensor, S: torch.Tensor, want_diag=True,
         raise ValueError("fused_second_order: empty extension mask")
     _build.check_input("fused_second_order", "A", A, 3)
     _build.check_input("fused_second_order", "S", S, 4)
-    if A.shape[:2] != S.shape[1:3] or A.device != S.device:
-        raise ValueError(f"fused_second_order: A {tuple(A.shape)} on {A.device} "
-                         f"and S {tuple(S.shape)} on {S.device} do not pair")
+    if A.shape[:2] != S.shape[1:3]:
+        raise ValueError(f"fused_second_order: A {tuple(A.shape)} and S {tuple(S.shape)} "
+                         "do not pair")
+    _build.check_devices("fused_second_order", A=A, S=S)
     c, n, r, b = S.shape
     a = A.shape[-1]
     lib = _lib()

@@ -35,9 +35,9 @@ def ggn_diag_cuda(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     """A [N, R, a], S [C, N, R, b] (float32, contiguous, CUDA) → [a, b]."""
     _build.check_input("ggn_diag", "A", A, 3)
     _build.check_input("ggn_diag", "S", S, 4)
-    if A.shape[:2] != S.shape[1:3] or A.device != S.device:
-        raise ValueError(f"ggn_diag: A {tuple(A.shape)} on {A.device} and "
-                         f"S {tuple(S.shape)} on {S.device} do not pair")
+    if A.shape[:2] != S.shape[1:3]:
+        raise ValueError(f"ggn_diag: A {tuple(A.shape)} and S {tuple(S.shape)} do not pair")
+    _build.check_devices("ggn_diag", A=A, S=S)
     c, n, r, b = S.shape
     a = A.shape[-1]
     lib = _lib()

@@ -37,9 +37,9 @@ def per_sample_moment_cuda(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """A [N, R, a], B [N, R, b] (float32, contiguous, CUDA) → [a, b]."""
     _build.check_input("per_sample_moment", "A", A, 3)
     _build.check_input("per_sample_moment", "B", B, 3)
-    if A.shape[:2] != B.shape[:2] or A.device != B.device:
-        raise ValueError(f"per_sample_moment: A {tuple(A.shape)} on {A.device} "
-                         f"and B {tuple(B.shape)} on {B.device} do not pair")
+    if A.shape[:2] != B.shape[:2]:
+        raise ValueError(f"per_sample_moment: A {tuple(A.shape)} and B {tuple(B.shape)} do not pair")
+    _build.check_devices("per_sample_moment", A=A, B=B)
     n, r, a = A.shape
     b = B.shape[-1]
     lib = _lib()

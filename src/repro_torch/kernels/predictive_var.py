@@ -42,14 +42,14 @@ def predictive_var_cuda(A: torch.Tensor, S: torch.Tensor,
     _build.check_input("predictive_var", "S", S, 4)
     c, n, r, b = S.shape
     a = A.shape[-1]
-    if A.shape[:2] != (n, r) or A.device != S.device:
-        raise ValueError(f"predictive_var: A {tuple(A.shape)} on {A.device} and "
-                         f"S {tuple(S.shape)} on {S.device} do not pair")
+    if A.shape[:2] != (n, r):
+        raise ValueError(f"predictive_var: A {tuple(A.shape)} and S {tuple(S.shape)} "
+                         "do not pair")
     if Sigma is not None:
         _build.check_input("predictive_var", "Sigma", Sigma, 2)
-        if tuple(Sigma.shape) != (a, b) or Sigma.device != A.device:
-            raise ValueError(f"predictive_var: Sigma {tuple(Sigma.shape)} on {Sigma.device}, "
-                             f"expected ({a}, {b}) on {A.device}")
+        if tuple(Sigma.shape) != (a, b):
+            raise ValueError(f"predictive_var: Sigma {tuple(Sigma.shape)}, expected ({a}, {b})")
+    _build.check_devices("predictive_var", A=A, S=S, Sigma=Sigma)
     lib = _lib()
     with torch.cuda.device(A.device):
         out = torch.empty((c, n), device=A.device, dtype=torch.float32)

@@ -47,22 +47,23 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_w: torch.Ten
     n, t, h, dk = r.shape
     dv, dw = v.shape[-1], log_w.shape[-1]
     if (k.shape != r.shape or v.shape[:3] != r.shape[:3] or log_w.shape[:3] != r.shape[:3]
-            or dw not in (1, dk) or k.dtype != r.dtype or v.dtype != r.dtype
-            or len({r.device, k.device, v.device, log_w.device}) != 1):
+            or dw not in (1, dk) or k.dtype != r.dtype or v.dtype != r.dtype):
         raise ValueError(f"wkv: r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"log_w {tuple(log_w.shape)} ({r.dtype}, {k.dtype}, {v.dtype}) "
                          "do not pair")
     if chunk <= 0 or t % chunk:
         raise ValueError(f"wkv: chunk {chunk} does not divide T = {t}")
     if u is not None:
-        if tuple(u.shape) != (h, dk) or u.device != r.device:
-            raise ValueError(f"wkv: u must be [{h}, {dk}] on {r.device}, got {tuple(u.shape)}")
-        u = u.float().contiguous()
+        if tuple(u.shape) != (h, dk):
+            raise ValueError(f"wkv: u must be [{h}, {dk}], got {tuple(u.shape)}")
     if state0 is not None:
         _build.check_input("wkv", "state0", state0, 4)
-        if tuple(state0.shape) != (n, h, dk, dv) or state0.device != r.device:
-            raise ValueError(f"wkv: state0 must be [{n}, {h}, {dk}, {dv}] on {r.device}, "
+        if tuple(state0.shape) != (n, h, dk, dv):
+            raise ValueError(f"wkv: state0 must be [{n}, {h}, {dk}, {dv}], "
                              f"got {tuple(state0.shape)}")
+    _build.check_devices("wkv", r=r, k=k, v=v, log_w=log_w, u=u, state0=state0)
+    if u is not None:
+        u = u.float().contiguous()
     lib = _lib()
     if lib.wkv_smem_bytes(chunk, dk, dv, dw) > MAX_SMEM:
         raise ValueError(f"wkv: chunk {chunk} at dk {dk}, dv {dv} needs more shared memory "

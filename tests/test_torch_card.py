@@ -12,8 +12,11 @@ A default ``run`` on CUDA tensors launches the kernels, and one
 curvature-preconditioned training step agrees card against CPU.  The
 language models' two kernels, ``flash_attention`` and ``wkv``, are held in
 float32 and bfloat16, with a fully masked row, T = 1 decode against ring and
-global caches, ragged tiles and chunks, and Hymba's [N, T, H, 1] decay; the
-reduced Hymba serves on the card as on the CPU.
+global caches, ragged tiles and chunks, and Hymba's [N, T, H, 1] decay;
+flash_attention's tensor-core design ("wgmma") at g = 5 and 1, dh 64 and
+128, with and without a causal mask and a window; sq_matmul's one launch
+gives the same bits from call to call; the reduced Hymba serves on the card
+as on the CPU.
 """
 import itertools
 
@@ -281,6 +284,17 @@ def _rel(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
+# Row by row for bf16 attention: the whole tensor's max |b| comes from the
+# first rows (few keys seen), ~10× a late row's outputs; this limit is two
+# and a half bfloat16 steps of each row's largest output (as chip_smoke.py).
+ROW_TOL = 2e-2
+
+
+def _row_rel(a, b):
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    return ((a - b).abs().amax(-1) / b.abs().amax(-1)).max().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", sorted(ATTN))
@@ -310,6 +324,63 @@ def test_card_flash_attention_bf16_queries_fp32_cache(cuda):
     got = ops.flash_attention(q, k, v, **kw)
     assert ops.launch_counts()["flash_attention"] == 1 and got.dtype == torch.bfloat16
     assert _rel(got, ref.flash_attention(q, k, v, **kw)) < BF16_TOL
+
+
+# The "wgmma" design (bf16 prefill on the tensor cores): GQA (g = 5) and
+# none (g = 1), dh 64 and 128, causal with no window and with 1024, not
+# causal with and without a window, T·g and T not multiples of the tiles.
+TC_ATTN = {  # (N, T, S, H, KV, dh, causal, window)
+    "g5_dh64_causal": (2, 200, 200, 10, 2, 64, True, None),
+    "g5_dh64_window1024": (1, 1100, 1100, 10, 2, 64, True, 1024),
+    "g1_dh64_causal": (2, 130, 130, 4, 4, 64, True, None),
+    "g5_dh128_causal": (1, 150, 150, 10, 2, 128, True, None),
+    "g1_dh128_window1024": (1, 1090, 1090, 2, 2, 128, True, 1024),
+    "g5_dh64_noncausal": (1, 70, 90, 10, 2, 64, False, None),
+    "g1_dh128_noncausal_window": (1, 70, 90, 4, 4, 128, False, 30),
+    "g5_dh64_ragged_window": (2, 77, 77, 10, 2, 64, True, 20),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(TC_ATTN))
+def test_card_flash_attention_wgmma(cuda, case):
+    from repro_torch.kernels.flash_attention import design
+
+    n, t, s, h, kv, dh, causal, window = TC_ATTN[case]
+    q = torch.randn(n, t, h, dh, device="cuda", generator=cuda).bfloat16()
+    k = torch.randn(n, s, kv, dh, device="cuda", generator=cuda).bfloat16()
+    v = torch.randn(n, s, kv, dh, device="cuda", generator=cuda).bfloat16()
+    assert design(q, k, v, window) == "wgmma"
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel(got, want) < BF16_TOL
+    assert _row_rel(got, want) < ROW_TOL
+
+
+# sq_matmul in one launch: M and N off the 128x64 tile (and off 4, the
+# 16-byte copies' width), K = 1280 split over a cluster.
+SQ_ONE_LAUNCH = {"k128": (128, 300, 100), "k1280": (1280, 300, 100),
+                 "k1280_odd_widths": (1280, 131, 67)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(SQ_ONE_LAUNCH))
+def test_card_sq_matmul_one_launch_same_bits(cuda, shape):
+    """Repeated calls give the same bits: the cluster adds its partial tiles
+    in rank order."""
+    n, a, b = SQ_ONE_LAUNCH[shape]
+    A = torch.randn(n, a, device="cuda", generator=cuda)
+    B = torch.randn(n, b, device="cuda", generator=cuda)
+    ops.reset_launch_counts()
+    first = ops.sq_matmul(A, B)
+    assert ops.launch_counts()["sq_matmul"] == 1
+    _card_close({"out": first}, {"out": ref.sq_matmul(A, B)})
+    if n == 1280:
+        assert torch.equal(first, ops.sq_matmul(A, B))
 
 
 WKV = {  # (N, T, H, dk, dv, per-channel decay, u, state0, chunk)
