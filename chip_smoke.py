@@ -48,9 +48,12 @@ launch counts set to 0 just before and read just after:
 
 The two kernels with a library counterpart (sq_matmul: ``torch.matmul`` of
 the squares; flash_attention: SDPA) are timed in turns with it (kernel,
-library, library, kernel) and each gets its device time a call from a
-profiler window; flash_attention's rows name the design that ran
-(``flash_attention.design``: "wgmma" for bf16 prefill, "simt" else).
+library, library, kernel); they and wkv get their device time a call from
+a profiler window, taken after every row's event times so that no event
+time follows a profiler window; flash_attention's rows name the design
+that ran (``flash_attention.design``: "wgmma" for bf16 prefill at dh = dv ∈
+{64, 128}, "simt" else, the other configs' wider heads included).  bf16
+attention and wkv outputs are also held row by row (``ROW_TOL``).
 
 It also runs KFRA and DiagHessian on the 784-128-64-10 MLP, card against
 CPU.  Every phase prints a line; any failure exits non-zero.  The
@@ -82,14 +85,16 @@ TOL = 1e-4       # max |kernel − plain| / max |plain|: float32, other sum orde
 # last-place float32 difference can flip that rounding by one bfloat16 step,
 # at most 2^-7 of the largest output.
 BF16_TOL = 1e-2
-# ...and row by row for bf16 attention: max |kernel − plain| / max |plain|
-# within each output row (one query head's dv values).  The first rows see
-# few keys and set the whole tensor's max |plain| (≈ 4); a late row's outputs
-# are about 0.05, so a kernel wrong there by a whole output still passes
-# BF16_TOL.  One bfloat16 step at a row's largest output is 2^-7; the limit
-# is two steps and a half (PERF.md: the readings, and planted faults'
-# readings from tools/flash_attention_fault.py).
+# ...and row by row for bf16 attention and WKV: max |kernel − plain| / max
+# |plain| within each output row (one query head's, or one (n, t, h)'s, dv
+# values).  The first attention rows see few keys and set the whole tensor's
+# max |plain| (≈ 4); a late row's outputs are about 0.05, so a kernel wrong
+# there by a whole output still passes BF16_TOL.  One bfloat16 step at a
+# row's largest output is 2^-7; the limit is two steps and a half (PERF.md:
+# the readings, and planted faults' readings from
+# tools/flash_attention_fault.py and tools/wkv_fault.py).
 ROW_TOL = 2e-2
+ROW_CHECKED = ("flash_attention", "wkv")  # their y / out rows, enforced on bf16
 # The serving path: Hymba-1.5B (32 layers, 3 global, 29 with a window of
 # 1024), 4 prompts of 2048 tokens for prefill, of 32 tokens to 128 for
 # generate; the decode-vs-forward check runs one sequence of 1040 tokens so
@@ -201,7 +206,8 @@ def lm_kernel_cases(torch, randn, gen):
     """flash_attention and wkv at Hymba-1.5B's serving shapes (and wkv at the
     Pallas kernel's own RWKV6-3B signature), in the path's dtypes and in
     float32, and flash_attention at CodeQwen1.5-7B's dh 128 in bfloat16
-    (weight 0).  Per-call weights count launches per prefill call: 3 global
+    and at the other configs' wider heads (``wide_attention_cases``; weight
+    0).  Per-call weights count launches per prefill call: 3 global
     and 29 windowed attentions, 32 SSD scans, in bfloat16 (decode rows give
     their launches per serve_step and weigh 0).  Operations: 2·dh +
     2·dv a seen (query, key) pair; WKV's recurrent form, 4·dk·dv a token and
@@ -235,6 +241,8 @@ def lm_kernel_cases(torch, randn, gen):
         ring = torch.where(ring <= pos % 1024, ring + 1024, ring)
         glob = torch.arange(2048, **i32)
         glob[pos + 1:] = -1
+        if dtype == torch.bfloat16:
+            cases += wide_attention_cases(torch, randn, pos, ring, glob)
         qd = randn(n, 1, h, dh).to(dtype)
         for label, s, window, kp, per_step in (
                 ("ring 1024", 1024, SERVE["window"], ring,
@@ -249,31 +257,72 @@ def lm_kernel_cases(torch, randn, gen):
                           dict(window=window, q_positions=qp, k_positions=kp),
                           4 * dh * n * h * seen_pairs(torch, 1, s, window, qp, kp),
                           2 * size * n * h * dh + 4 * (2 * n * s * kv * dh + s + 1), tol, peak))
-        # Hymba's SSD: r = C, k = B [.., 16], v = xs [.., 64], a float32 decay per head
-        ds, dv = 16, 64
-        for label, tt, chunk in (("prefill", t, 16), ("decode", 1, 1)):
-            per_call = SERVE["layers"] if dtype == torch.bfloat16 else 0
-            weight = per_call if label == "prefill" else 0
-            r, kk = randn(n, tt, h, ds).to(dtype), randn(n, tt, h, ds).to(dtype)
-            xs = randn(n, tt, h, dv).to(dtype)
-            lw = -torch.nn.functional.softplus(randn(n, tt, h, 1))
-            s0 = randn(n, h, ds, dv)
-            cases.append(("wkv", f"hymba ssd {label} {tag} r,k[{n},{tt},{h},{ds}] "
-                          f"v[{n},{tt},{h},{dv}] decay[..,1] state0, chunk {chunk}", per_call,
-                          weight, (r, kk, xs, lw, None, s0), dict(chunk=chunk),
-                          4 * n * tt * h * ds * dv,
-                          size * n * tt * h * (2 * ds + 2 * dv) + 4 * n * tt * h
-                          + 4 * 2 * n * h * ds * dv, tol, peak))
-        # the Pallas kernel's own signature at RWKV6-3B widths
-        h6, d6 = 40, 64
-        r, kk, vv = (randn(n, t, h6, d6).to(dtype) for _ in range(3))
-        lw = -torch.nn.functional.softplus(randn(n, t, h6, d6))
-        u = randn(h6, d6)
-        cases.append(("wkv", f"rwkv6 {tag} r,k,v[{n},{t},{h6},{d6}] decay per channel, u, "
-                      "chunk 16", 0, 0, (r, kk, vv, lw, u, None), dict(chunk=16),
-                      n * t * h6 * (4 * d6 * d6 + 5 * d6),
-                      size * 4 * n * t * h6 * d6 + 4 * n * t * h6 * d6 + 4 * h6 * d6
-                      + 4 * n * h6 * d6 * d6, tol, peak))
+        cases += wkv_cases(torch, randn, dtype, tag, tol, peak)
+    return cases
+
+
+def wkv_cases(torch, randn, dtype, tag, tol, peak):
+    """wkv's rows in one dtype (``lm_kernel_cases``): Hymba-1.5B's SSD in
+    prefill (chunk 16) and decode (T = 1, chunk 1), and the Pallas kernel's
+    own signature at RWKV6-3B widths (weight 0)."""
+    cases = []
+    n, t, h, size = SERVE["batch"], SERVE["prefill_len"], 25, dtype.itemsize
+    # Hymba's SSD: r = C, k = B [.., 16], v = xs [.., 64], a float32 decay per head
+    ds, dv = 16, 64
+    for label, tt, chunk in (("prefill", t, 16), ("decode", 1, 1)):
+        per_call = SERVE["layers"] if dtype == torch.bfloat16 else 0
+        weight = per_call if label == "prefill" else 0
+        r, kk = randn(n, tt, h, ds).to(dtype), randn(n, tt, h, ds).to(dtype)
+        xs = randn(n, tt, h, dv).to(dtype)
+        lw = -torch.nn.functional.softplus(randn(n, tt, h, 1))
+        s0 = randn(n, h, ds, dv)
+        cases.append(("wkv", f"hymba ssd {label} {tag} r,k[{n},{tt},{h},{ds}] "
+                      f"v[{n},{tt},{h},{dv}] decay[..,1] state0, chunk {chunk}", per_call,
+                      weight, (r, kk, xs, lw, None, s0), dict(chunk=chunk),
+                      4 * n * tt * h * ds * dv,
+                      size * n * tt * h * (2 * ds + 2 * dv) + 4 * n * tt * h
+                      + 4 * 2 * n * h * ds * dv, tol, peak))
+    # the Pallas kernel's own signature at RWKV6-3B widths
+    h6, d6 = 40, 64
+    r, kk, vv = (randn(n, t, h6, d6).to(dtype) for _ in range(3))
+    lw = -torch.nn.functional.softplus(randn(n, t, h6, d6))
+    u = randn(h6, d6)
+    cases.append(("wkv", f"rwkv6 {tag} r,k,v[{n},{t},{h6},{d6}] decay per channel, u, "
+                  "chunk 16", 0, 0, (r, kk, vv, lw, u, None), dict(chunk=16),
+                  n * t * h6 * (4 * d6 * d6 + 5 * d6),
+                  size * 4 * n * t * h6 * d6 + 4 * n * t * h6 * d6 + 4 * h6 * d6
+                  + 4 * n * h6 * d6 * d6, tol, peak))
+    return cases
+
+
+def wide_attention_cases(torch, randn, pos, ring, glob):
+    """flash_attention's "simt" design at the head widths of the other
+    configs, off the serving path (weight 0), bf16 queries: h2o-danube3-4b's
+    dh 120 (32 heads over 8, window 8192), deepseek-v2-lite's MLA (dh 192,
+    dv 128, 16 heads) and gemma3-12b's dh 240 (16 heads over 8, window 1024)
+    in prefill of 4×2048; CodeQwen1.5-7B's dh 128 (32 heads, no GQA) and
+    gemma3-12b in decode at position 1500 against float32 caches (a global
+    cache of 2048, a ring of 1024)."""
+    cases = []
+    n, t, bf = SERVE["batch"], SERVE["prefill_len"], torch.bfloat16
+    for name, h, kv, dh, dv, window in (("h2o-danube3-4b", 32, 8, 120, 120, 8192),
+                                        ("deepseek-v2-lite mla", 16, 16, 192, 128, None),
+                                        ("gemma3-12b", 16, 8, 240, 240, 1024)):
+        q, k, v = randn(n, t, h, dh).to(bf), randn(n, t, kv, dh).to(bf), randn(n, t, kv, dv).to(bf)
+        cases.append(("flash_attention", f"wide prefill bf16 dh{dh} dv{dv} ({name}) "
+                      f"q[{n},{t},{h},{dh}] kv[{n},{t},{kv},..] window={window}", 0, 0,
+                      (q, k, v), dict(window=window),
+                      2 * (dh + dv) * n * h * seen_pairs(torch, t, t, window),
+                      2 * n * t * (h * (dh + dv) + kv * (dh + dv)), BF16_TOL, PEAK_BF16))
+    qp = torch.tensor([pos], device="cuda", dtype=torch.int32)
+    for name, h, kv, dh, s, window, kp in (("codeqwen1.5-7b", 32, 32, 128, 2048, None, glob),
+                                           ("gemma3-12b", 16, 8, 240, 1024, 1024, ring)):
+        q, kc, vc = randn(n, 1, h, dh).to(bf), randn(n, s, kv, dh), randn(n, s, kv, dh)
+        cases.append(("flash_attention", f"wide decode bf16 dh{dh} ({name}) q[{n},1,{h},{dh}] "
+                      f"fp32 cache[{n},{s},{kv},{dh}] window={window}", 0, 0, (q, kc, vc),
+                      dict(window=window, q_positions=qp, k_positions=kp),
+                      4 * dh * n * h * seen_pairs(torch, 1, s, window, qp, kp),
+                      2 * 2 * n * h * dh + 4 * (2 * n * s * kv * dh + s + 1), BF16_TOL, PEAK_BF16))
     return cases
 
 
@@ -655,6 +704,7 @@ def main():
                           bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, shapes=[])
                   for k in ops.KERNELS}
     record["checks"] = []
+    profiled_rows = []  # (row, args, kw): device times after every row's event times
     for case in cases:
         # (kernel, label, per_call, weight, args, kw, flops, bytes[, tol, peak])
         kernel, label, per_call, weight, args, kw, flops, nbytes, *rest = case
@@ -682,14 +732,9 @@ def main():
         def run_library():
             return library[kernel](*args, **kw)
 
-        if kernel in library:
-            # In turns (kernel, library, library, kernel), then each one's
-            # device time a call from a profiler window.
+        if kernel in library:  # in turns: kernel, library, library, kernel
             turns = [timed(f) for f in (run_kernel, run_library, run_library, run_kernel)]
             ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-            extra["device_ms"], _ = device_per_call(torch, run_kernel)
-            extra["library_device_ms"], extra["library_kernels"] = device_per_call(
-                torch, run_library)
             extra["turns_ms"] = turns
         else:
             ms, lib_ms = timed(run_kernel), None
@@ -697,7 +742,9 @@ def main():
         if kernel == "flash_attention":
             extra["design"] = fa_mod.design(*args, kw.get("window"), kw.get("q_positions"),
                                             kw.get("k_positions"))
-            extra["row_rel_err"] = row_rel_err(got["out"], want["out"])
+        if kernel in ROW_CHECKED:
+            out_key = "y" if kernel == "wkv" else "out"
+            extra["row_rel_err"] = row_rel_err(got[out_key], want[out_key])
         b_ms, b_by = bound(flops, nbytes, peak)
         row = dict(kernel=kernel, shape=label, launches_per_call=per_call, weight=weight,
                    rel_err=rel_err, tol=tol, peak_tflops=peak / 1e12,
@@ -705,11 +752,14 @@ def main():
                    bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9, **extra)
         say("check", **row)
         record["checks"].append(row)
+        if kernel in library or kernel == "wkv":  # wkv: decode's event time is the host's
+            profiled_rows.append((row, args, kw))
         if not rel_err <= tol:
             fail(f"{kernel} {label}: relative error {rel_err:.3e} above {tol}")
-        if kernel == "flash_attention" and tol == BF16_TOL and not extra["row_rel_err"] <= ROW_TOL:
-            fail(f"flash_attention {label}: row error {extra['row_rel_err']:.3e} above {ROW_TOL}")
-        # bf16 prefill takes the tensor cores; decode and float32 the CUDA cores
+        if kernel in ROW_CHECKED and tol == BF16_TOL and not extra["row_rel_err"] <= ROW_TOL:
+            fail(f"{kernel} {label}: row error {extra['row_rel_err']:.3e} above {ROW_TOL}")
+        # bf16 prefill at dh = dv ∈ {64, 128} takes the tensor cores; decode,
+        # float32 and the wider heads the CUDA cores
         want_design = "wgmma" if label.startswith("prefill bf16") else "simt"
         if kernel == "flash_attention" and extra["design"] != want_design:
             fail(f"flash_attention {label}: design {extra['design']}, not {want_design}")
@@ -724,7 +774,16 @@ def main():
         agg["bytes_ms"] += weight * nbytes / PEAK_BYTES * 1e3
         if lib_ms is not None:
             agg["library_ms"] += weight * lib_ms
-    del cases  # free the check inputs before the main path
+    # Device time a call, each from a profiler window of its own.
+    for row, args, kw in profiled_rows:
+        kernel = row["kernel"]
+        extra = dict(device_ms=device_per_call(torch, lambda: wrapper[kernel](*args, **kw))[0])
+        if kernel in library:
+            extra["library_device_ms"], extra["library_kernels"] = device_per_call(
+                torch, lambda: library[kernel](*args, **kw))
+        row.update(extra)
+        say("device", kernel=row["kernel"], shape=row["shape"], **extra)
+    del cases, profiled_rows  # free the check inputs before the main path
 
     # -- 4. the main path: 3C3D at full width, batch 128, three run calls ----
     model = papernets.c3d3(device="cuda", generator=torch.Generator().manual_seed(0))

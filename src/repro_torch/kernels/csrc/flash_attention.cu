@@ -41,16 +41,20 @@
 //     read from shared memory in the transposed (MN-major) form; O stays in
 //     float32 registers and is written as bf16 once.
 // "simt" — everything else (float32, bf16 queries against the float32
-// cache, given positions (decode), fully masked rows, dh ≤ 64), on CUDA
-// cores, all arithmetic float32:
-//   * one block per (n, kv head, tile of 128 query rows), the rows taken as
+// cache, given positions (decode), fully masked rows, any dh and dv that are
+// multiples of 4 up to 256, dh ≠ dv allowed), on CUDA cores, all arithmetic
+// float32:
+//   * one block per (n, kv head, tile of query rows), the rows taken as
 //     (t, j) for the g = H/KV query heads j of that KV head, so the g heads
 //     share each K/V tile, as the Pallas kernel's [bq, g, dh] block does;
 //   * unlike the TPU kernel, which takes the whole [S, dh] K and V of a head
-//     into VMEM, K/V stream through shared memory 64 keys at a time (4096
-//     floats each, rows padded by 4 floats: float4 reads conflict-free);
+//     into VMEM, K/V stream through shared memory 4096/DM keys at a time
+//     (4096 floats each, rows padded by 4 floats: float4 reads
+//     conflict-free); instances DM = 64, 128 and 256 take dh, dv up to DM;
 //   * each row keeps its query, its running max m, sum l and accumulator
-//     acc[dv] in registers, and rescales once per 16 keys;
+//     acc[dv] in registers, and rescales once per 16 keys; above DM = 64 a
+//     row's dims are split over DM/32 lanes (32 each), which add their q·k
+//     partials by warp shuffle;
 //   * with default key positions the block visits only the tiles its rows
 //     can see (causal end, window start); with given key positions it visits
 //     all S keys and masks each;
@@ -69,6 +73,7 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int SIMT_MAX_DIM = 256;  // the widest "simt" instance
 
 __device__ __forceinline__ float ld(const float* p, long long i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
@@ -88,35 +93,48 @@ struct Tiles {
   int kp[BK];
 };
 
-// Grid (row tiles, N·KV); rows r = t·g + j of one (n, kv head), THREADS/TPR
-// of them a block.  DM ≥ dh, dv: the one instance is DM = 64 (wider heads
-// would spill the 2·DM registers of q and acc; they come with the archs that
-// have them).
-template <int DM, typename TQ, typename TKV>
-__global__ void __launch_bounds__(THREADS)
+// Grid (row tiles, N·KV); rows r = t·g + j of one (n, kv head), THREADS/tpr
+// of them a block.  DM ≥ dh, dv, padded with zeros: instances DM = 64, 128
+// and 256.  A row's tpr threads are DS dimension lanes (the low bits of the
+// lane) times tpr/DS key lanes.  Each thread keeps DPT = DM/DS dims of q and
+// of acc in registers, four at a time (dims 4·(dl + DS·i) .. +3 for dimension
+// lane dl), and the DS lanes sum their q·k partials by warp shuffle: DS = 1
+// at DM = 64 (64 dims a thread), DPT = 32 at the wider instances, which
+// would spill 2·DM registers of q and acc a thread.  The launch bounds ask
+// for three blocks an SM at the wider instances (168 registers, no spill;
+// with no count ptxas holds them to 128 and spills, with one it takes 180
+// and two blocks fit), for one at DM = 64 (255 registers, as before).
+template <int DM, int DS, typename TQ, typename TKV>
+__global__ void __launch_bounds__(THREADS, DM == 64 ? 1 : 3)
 flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
              TQ* __restrict__ out, const int* __restrict__ qpos, const int* __restrict__ kpos,
              int T, int S, int H, int KV, int dh, int dv, int causal, int has_window,
              long long window, float scale, int tpr) {
   using Tl = Tiles<DM>;
   constexpr int BK = Tl::BK;
+  constexpr int DPT = DM / DS;
   __shared__ __align__(16) Tl tl;
   __shared__ int q_lo, q_hi;
   const int g = H / KV;
   const int n = blockIdx.y / KV, kvh = blockIdx.y % KV;
   const int rows_per_block = THREADS / tpr;
   const int lane = threadIdx.x % tpr;
+  const int kl = lane / DS, dl = lane % DS, kls = tpr / DS;  // key lane, dim lane, key lanes
+  // The DS lanes of one key lane, for their shuffles (aligned, inside a warp).
+  static_assert(DS < 32 && (DS & (DS - 1)) == 0, "DS: a power of two below 32");
+  const unsigned dmask = ((1u << DS) - 1) << ((threadIdx.x & 31) & ~(DS - 1));
   const long long row = (long long)blockIdx.x * rows_per_block + threadIdx.x / tpr;
   const bool valid = row < (long long)T * g;
   const int t = valid ? (int)(row / g) : 0, j = valid ? (int)(row % g) : 0;
   const long long qoff = (((long long)n * T + t) * H + (long long)kvh * g + j);
   const long long qp = qpos ? (long long)qpos[t] : (long long)t;
 
-  float qr[DM], acc[DM];
+  float qr[DPT], acc[DPT];
 #pragma unroll
-  for (int d = 0; d < DM; ++d) {
-    qr[d] = (valid && d < dh) ? ld(q, qoff * dh + d) : 0.f;
-    acc[d] = 0.f;
+  for (int i = 0; i < DPT; ++i) {
+    const int d = 4 * (dl + DS * (i / 4)) + i % 4;
+    qr[i] = (valid && d < dh) ? ld(q, qoff * dh + d) : 0.f;
+    acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
 
@@ -161,25 +179,27 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
     load_tile(s0, len, true);
     __syncthreads();
     if (!valid) continue;
-    // 16 keys a step (every tpr-th key of the tile from this lane): their
-    // logits, one rescale, their values.
-    for (int base = lane; base < len; base += 16 * tpr) {
+    // 16 keys a step (every kls-th key of the tile from this key lane):
+    // their logits, one rescale, their values.
+    for (int base = kl; base < len; base += 16 * kls) {
       float sc[16];
       float mx = m;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        const int s = base + i * tpr;
+        const int s = base + i * kls;
         sc[i] = -INFINITY;
-        if (s < len && seen(tl.kp[s])) {
+        if (s < len && seen(tl.kp[s])) {  // the same for the DS lanes of a key lane
           float dot = 0.f;
 #pragma unroll
-          for (int d = 0; d < DM; d += 4) {
-            const float4 kk = *reinterpret_cast<const float4*>(&tl.k[s][d]);
-            dot = fmaf(qr[d], kk.x, dot);
-            dot = fmaf(qr[d + 1], kk.y, dot);
-            dot = fmaf(qr[d + 2], kk.z, dot);
-            dot = fmaf(qr[d + 3], kk.w, dot);
+          for (int c = 0; c < DPT; c += 4) {
+            const float4 kk = *reinterpret_cast<const float4*>(&tl.k[s][4 * (dl + DS * (c / 4))]);
+            dot = fmaf(qr[c], kk.x, dot);
+            dot = fmaf(qr[c + 1], kk.y, dot);
+            dot = fmaf(qr[c + 2], kk.z, dot);
+            dot = fmaf(qr[c + 3], kk.w, dot);
           }
+#pragma unroll
+          for (int off = DS / 2; off > 0; off /= 2) dot += __shfl_xor_sync(dmask, dot, off);
           sc[i] = dot * scale;
           mx = fmaxf(mx, sc[i]);
         }
@@ -188,28 +208,29 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
       const float corr = expf(m - mx);  // 0 when m = −inf
       l *= corr;
 #pragma unroll
-      for (int d = 0; d < DM; ++d) acc[d] *= corr;
+      for (int c = 0; c < DPT; ++c) acc[c] *= corr;
       m = mx;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         if (sc[i] == -INFINITY) continue;
-        const int s = base + i * tpr;
+        const int s = base + i * kls;
         const float p = expf(sc[i] - m);
         l += p;
 #pragma unroll
-        for (int d = 0; d < DM; d += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(&tl.v[s][d]);
-          acc[d] = fmaf(p, vv.x, acc[d]);
-          acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+        for (int c = 0; c < DPT; c += 4) {
+          const float4 vv = *reinterpret_cast<const float4*>(&tl.v[s][4 * (dl + DS * (c / 4))]);
+          acc[c] = fmaf(p, vv.x, acc[c]);
+          acc[c + 1] = fmaf(p, vv.y, acc[c + 1]);
+          acc[c + 2] = fmaf(p, vv.z, acc[c + 2]);
+          acc[c + 3] = fmaf(p, vv.w, acc[c + 3]);
         }
       }
     }
   }
 
-  // Merge the tpr lanes of a row (aligned groups inside one warp).
-  for (int off = tpr / 2; off > 0; off /= 2) {
+  // Merge the key lanes of a row (aligned groups inside one warp; the lanes
+  // DS·2^i apart hold the same dims).
+  for (int off = tpr / 2; off >= DS; off /= 2) {
     const float mo = __shfl_xor_sync(0xffffffffu, m, off);
     const float lo = __shfl_xor_sync(0xffffffffu, l, off);
     const float mn = fmaxf(m, mo);
@@ -217,9 +238,9 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
     const float c2 = mn == -INFINITY ? 0.f : expf(mo - mn);
     l = l * c1 + lo * c2;
 #pragma unroll
-    for (int d = 0; d < DM; ++d) {
-      const float ao = __shfl_xor_sync(0xffffffffu, acc[d], off);
-      acc[d] = acc[d] * c1 + ao * c2;
+    for (int c = 0; c < DPT; ++c) {
+      const float ao = __shfl_xor_sync(0xffffffffu, acc[c], off);
+      acc[c] = acc[c] * c1 + ao * c2;
     }
     m = mn;
   }
@@ -228,48 +249,51 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
   const bool none = valid && m == -INFINITY;
   if (__syncthreads_or(none)) {
 #pragma unroll
-    for (int d = 0; d < DM; ++d) acc[d] = 0.f;
+    for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
     for (long long s0 = 0; s0 < S; s0 += BK) {
       const int len = (int)min((long long)BK, (long long)S - s0);
       __syncthreads();
       load_tile(s0, len, false);
       __syncthreads();
       if (!none) continue;
-      for (int s = lane; s < len; s += tpr) {
+      for (int s = kl; s < len; s += kls) {
 #pragma unroll
-        for (int d = 0; d < DM; ++d) acc[d] += tl.v[s][d];
+        for (int c = 0; c < DPT; ++c) acc[c] += tl.v[s][4 * (dl + DS * (c / 4)) + c % 4];
       }
     }
-    for (int off = tpr / 2; off > 0; off /= 2) {
+    for (int off = tpr / 2; off >= DS; off /= 2) {
 #pragma unroll
-      for (int d = 0; d < DM; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], off);
+      for (int c = 0; c < DPT; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
     }
     if (none) l = (float)S;
   }
 
-  if (valid && lane == 0) {
+  if (valid && kl == 0) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < dv) st(out, qoff * dv + d, acc[d] * inv);
+    for (int c = 0; c < DPT; ++c) {
+      const int d = 4 * (dl + DS * (c / 4)) + c % 4;
+      if (d < dv) st(out, qoff * dv + d, acc[c] * inv);
+    }
   }
 }
 
-template <int DM, typename TQ, typename TKV>
+template <int DM, int DS, typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* out, const int* qpos,
            const int* kpos, int N, int T, int S, int H, int KV, int dh, int dv, int causal,
            int has_window, long long window, float scale, int tpr, cudaStream_t stream) {
+  if (tpr < DS) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)T * (H / KV);
   const long long blocks = (rows + THREADS / tpr - 1) / (THREADS / tpr);
   dim3 grid((unsigned)blocks, (unsigned)(N * KV));
-  flash_kernel<DM, TQ, TKV><<<grid, THREADS, 0, stream>>>(
+  flash_kernel<DM, DS, TQ, TKV><<<grid, THREADS, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
       static_cast<TQ*>(out), qpos, kpos, T, S, H, KV, dh, dv, causal, has_window, window, scale,
       tpr);
   return (int)cudaGetLastError();
 }
 
-template <int DM>
+template <int DM, int DS>
 int dispatch(int q_bf16, int kv_bf16, const void* q, const void* k, const void* v, void* out,
              const int* qpos, const int* kpos, int N, int T, int S, int H, int KV, int dh,
              int dv, int causal, int has_window, long long window, float scale, int tpr,
@@ -277,13 +301,12 @@ int dispatch(int q_bf16, int kv_bf16, const void* q, const void* k, const void* 
   using BF = __nv_bfloat16;
 #define FA_ARGS q, k, v, out, qpos, kpos, N, T, S, H, KV, dh, dv, causal, has_window, window, \
                 scale, tpr, stream
-  if (q_bf16 && kv_bf16) return launch<DM, BF, BF>(FA_ARGS);
-  if (q_bf16) return launch<DM, BF, float>(FA_ARGS);
-  if (kv_bf16) return launch<DM, float, BF>(FA_ARGS);
-  return launch<DM, float, float>(FA_ARGS);
+  if (q_bf16 && kv_bf16) return launch<DM, DS, BF, BF>(FA_ARGS);
+  if (q_bf16) return launch<DM, DS, BF, float>(FA_ARGS);
+  if (kv_bf16) return launch<DM, DS, float, BF>(FA_ARGS);
+  return launch<DM, DS, float, float>(FA_ARGS);
 #undef FA_ARGS
 }
-
 // ---------------------------------------------------------------------------
 // "wgmma": bf16 prefill on the tensor cores
 // ---------------------------------------------------------------------------
@@ -693,7 +716,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int N, int
 
 }  // namespace
 
-// tpr: threads a query row, a power of two ≤ 32.  window ≤ 0 with
+// The "simt" design: dh, dv multiples of 4, at most SIMT_MAX_DIM.  tpr:
+// threads a query row, a power of two ≤ 32, raised to the instance's
+// dimension lanes (4 above dh, dv = 64, 8 above 128).  window ≤ 0 with
 // has_window set masks every key.  Returns a cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       const int* qpos, const int* kpos, int N, int T, int S,
@@ -703,9 +728,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (KV <= 0 || H % KV || tpr <= 0 || tpr > 32 || (tpr & (tpr - 1)) || N * KV > 65535 ||
       dh % 4 || dv % 4)
     return (int)cudaErrorInvalidValue;
-  if (dh > 64 || dv > 64) return (int)cudaErrorInvalidValue;
-  return dispatch<64>(q_bf16, kv_bf16, q, k, v, out, qpos, kpos, N, T, S, H, KV, dh, dv, causal,
-                      has_window, window, scale, tpr, stream);
+  if (dh > SIMT_MAX_DIM || dv > SIMT_MAX_DIM) return (int)cudaErrorInvalidValue;
+#define FA_ARGS q_bf16, kv_bf16, q, k, v, out, qpos, kpos, N, T, S, H, KV, dh, dv, causal, \
+                has_window, window, scale
+  const int dm = dh > dv ? dh : dv;
+  if (dm <= 64) return dispatch<64, 1>(FA_ARGS, tpr, stream);
+  if (dm <= 128) return dispatch<128, 4>(FA_ARGS, tpr < 4 ? 4 : tpr, stream);
+  return dispatch<256, 8>(FA_ARGS, tpr < 8 ? 8 : tpr, stream);
+#undef FA_ARGS
 }
 
 // The "wgmma" design: q, k, v, out bf16 [N,T,H,dh], [N,S,KV,dh] (twice),

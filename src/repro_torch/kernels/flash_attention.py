@@ -7,11 +7,13 @@ Replaces the Pallas kernel ``flash_attention_pallas``
 H % KV == 0, causal or not, an optional window, and optional int32 positions
 ``q_positions`` [T] / ``k_positions`` [S] (the decode path's ring cache;
 slots at −1 are empty).  q and k/v are each float32 or bfloat16; the output
-is in q's dtype.  The source holds two designs and :func:`design` picks one:
-``"wgmma"`` (bf16 prefill on the tensor cores, TMA-fed) or ``"simt"``
-(everything else, float32 on CUDA cores).  The source note in the ``.cu``
-file says what bounds each on the H100; the plain version is
-:func:`repro_torch.kernels.ref.flash_attention`.
+is in q's dtype.  The head widths dh (q, k) and dv (v) are multiples of 4,
+at most ``SIMT_MAX_HEAD_DIM`` = 256, and may differ.  The source holds two
+designs and :func:`design` picks one: ``"wgmma"`` (bf16 prefill with dh = dv
+∈ {64, 128}, on the tensor cores, TMA-fed) or ``"simt"`` (everything else,
+float32 on CUDA cores, instances for widths up to 64, 128 and 256).  The
+source note in the ``.cu`` file says what bounds each on the H100; the plain
+version is :func:`repro_torch.kernels.ref.flash_attention`.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:78"
 DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (64, 128)  # head widths of the "wgmma" design
-SIMT_MAX_HEAD_DIM = 64    # the "simt" design keeps q and acc[dv] in registers
+SIMT_MAX_HEAD_DIM = 256   # the widest "simt" instance (q and acc split over lanes above 64)
 
 
 @functools.cache
@@ -44,7 +46,8 @@ def _lib() -> ctypes.CDLL:
 def threads_per_row(t: int, g: int) -> int:
     """Threads the "simt" design gives one query row: 1 when the T·g rows of
     a KV head fill blocks of 128, else 32 (decode's g rows split their keys
-    32 ways)."""
+    32 ways).  Above a head width of 64 the kernel raises it to the lanes
+    that split a row's dims (4 up to 128, 8 up to 256)."""
     return 1 if t * g >= 64 else 32
 
 
@@ -81,8 +84,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          k_positions: Optional[torch.Tensor] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
     """q [N, T, H, dh], k [N, S, KV, dh], v [N, S, KV, dv] (contiguous,
-    CUDA; q and k/v each float32 or bfloat16, k and v alike) → [N, T, H, dv]
-    in q's dtype."""
+    CUDA; q and k/v each float32 or bfloat16, k and v alike; dh and dv
+    multiples of 4 up to 256) → [N, T, H, dv] in q's dtype."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         _build.check_input("flash_attention", name, x, 4, DTYPES)
     n, t, h, dh = q.shape
@@ -93,11 +96,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v {tuple(v.shape)} ({q.dtype}, {k.dtype}, {v.dtype}) do not pair")
     if dh % 4 or dv % 4:
         raise ValueError(f"flash_attention: head widths {dh}, {dv} must be multiples of 4")
+    if max(dh, dv) > SIMT_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head widths {dh}, {dv} above the kernel's limit "
+                         f"of {SIMT_MAX_HEAD_DIM}")
     which = design(q, k, v, window, q_positions, k_positions)
-    if which == "simt" and max(dh, dv) > SIMT_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head widths {dh}, {dv} above "
-                         f"{SIMT_MAX_HEAD_DIM} need the wgmma design (bf16 q, k, v, no "
-                         f"positions, dh = dv in {TC_HEAD_DIMS}, T ≤ S, T·g ≥ 64)")
     _build.check_devices("flash_attention", q=q, k=k, v=v)
     qp = _positions("q_positions", q_positions, t, q.device)
     kp = _positions("k_positions", k_positions, s, q.device)

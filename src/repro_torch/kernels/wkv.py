@@ -7,8 +7,12 @@ r, k [N, T, H, dk], v [N, T, H, dv], ``log_w`` [N, T, H, dk] or
 optional float32 ``state0`` [N, H, dk, dv]; it returns y in r's dtype and
 the final float32 state.  With ``state0=None``, ``u`` given and the state
 discarded it is ``wkv_pallas``.  r/k/v are float32 or bfloat16, ``log_w``
-likewise on its own.  The source note in the ``.cu`` file says what bounds it
-on the H100; the plain version is :func:`repro_torch.kernels.ref.wkv`.
+likewise on its own.  The kernel works on many chunks at once (a warp a
+chunk, a block a head's columns) and keeps only the state's update from one
+chunk to the next sequential; decode's single token is a call of one chunk.
+Every sum is taken in the chunk-by-chunk order, so two calls give the same
+bits.  The source note in the ``.cu`` file says what bounds it on the H100;
+the plain version is :func:`repro_torch.kernels.ref.wkv`.
 """
 from __future__ import annotations
 

@@ -14,9 +14,11 @@ language models' two kernels, ``flash_attention`` and ``wkv``, are held in
 float32 and bfloat16, with a fully masked row, T = 1 decode against ring and
 global caches, ragged tiles and chunks, and Hymba's [N, T, H, 1] decay;
 flash_attention's tensor-core design ("wgmma") at g = 5 and 1, dh 64 and
-128, with and without a causal mask and a window; sq_matmul's one launch
-gives the same bits from call to call; the reduced Hymba serves on the card
-as on the CPU.
+128, with and without a causal mask and a window, and its CUDA-core design
+at the configs' wider heads (120, 128, 192 with dv 128, 240); wkv also at
+Hymba's full prefill width and at a dv off its column slice, held row by
+row in bf16; sq_matmul's and wkv's calls give the same bits from call to
+call; the reduced Hymba serves on the card as on the CPU.
 """
 import itertools
 
@@ -361,6 +363,47 @@ def test_card_flash_attention_wgmma(cuda, case):
     assert _row_rel(got, want) < ROW_TOL
 
 
+# The "simt" design at the head widths of the configs: dh 120 with a window
+# (h2o-danube3), 128 (codeqwen1.5, internvl2), 192 with dv 128 (MLA), 240
+# with GQA (gemma3); prefill with rows off the block, and decode against a
+# cache with positions (bf16 queries against a float32 cache).
+WIDE_ATTN = {  # (H, KV, dh, dv, window)
+    "dh120_window": (8, 2, 120, 120, 16),
+    "dh128": (8, 2, 128, 128, None),
+    "dh192_dv128": (4, 4, 192, 128, None),
+    "dh240_gqa": (8, 4, 240, 240, 32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["prefill", "decode"])
+@pytest.mark.parametrize("width", sorted(WIDE_ATTN))
+def test_card_flash_attention_wide(cuda, width, mode, dtype):
+    h, kv, dh, dv, window = WIDE_ATTN[width]
+    n, s = 2, 150
+    t = s if mode == "prefill" else 1
+    cache = dtype if mode == "prefill" else torch.float32
+    q = torch.randn(n, t, h, dh, device="cuda", generator=cuda).to(dtype)
+    k = torch.randn(n, s, kv, dh, device="cuda", generator=cuda).to(cache)
+    v = torch.randn(n, s, kv, dv, device="cuda", generator=cuda).to(cache)
+    kw = dict(window=window)
+    if mode == "decode":  # a cache of 150 holding positions 0..120
+        kp = torch.arange(s, device="cuda", dtype=torch.int32)
+        kp[121:] = -1
+        kw.update(q_positions=torch.tensor([120], device="cuda", dtype=torch.int32),
+                  k_positions=kp)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape == (n, t, h, dv)
+    assert _rel(got, want) < (CARD_TOL if dtype == torch.float32 else BF16_TOL)
+    if dtype == torch.bfloat16:
+        assert _row_rel(got, want) < ROW_TOL
+
+
 # sq_matmul in one launch: M and N off the 128x64 tile (and off 4, the
 # 16-byte copies' width), K = 1280 split over a cluster.
 SQ_ONE_LAUNCH = {"k128": (128, 300, 100), "k1280": (1280, 300, 100),
@@ -385,32 +428,57 @@ def test_card_sq_matmul_one_launch_same_bits(cuda, shape):
 
 WKV = {  # (N, T, H, dk, dv, per-channel decay, u, state0, chunk)
     "hymba_ssd": (2, 64, 5, 16, 64, False, False, True, 16),
+    "hymba_ssd_full_prefill": (4, 2048, 25, 16, 64, False, False, True, 16),
     "rwkv6": (2, 64, 4, 64, 64, True, True, False, 16),
     "ragged_chunk10": (2, 20, 3, 8, 16, True, True, True, 10),
+    "dv40_ragged_columns": (2, 96, 3, 16, 40, False, True, True, 16),
     "decode_t1": (3, 1, 5, 16, 64, False, False, True, 1),
+    "short_prompt_chunk1": (2, 8, 5, 16, 64, False, False, True, 1),
     "chunk64": (1, 128, 2, 64, 64, True, True, True, 64),
 }
+
+
+def _wkv_inputs(case, dtype, gen):
+    n, t, h, dk, dv, per_channel, has_u, has_s0, chunk = WKV[case]
+    r, k = (torch.randn(n, t, h, dk, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    v = torch.randn(n, t, h, dv, device="cuda", generator=gen).to(dtype)
+    lw = -torch.nn.functional.softplus(
+        torch.randn(n, t, h, dk if per_channel else 1, device="cuda", generator=gen))
+    u = torch.randn(h, dk, device="cuda", generator=gen) if has_u else None
+    s0 = torch.randn(n, h, dk, dv, device="cuda", generator=gen) if has_s0 else None
+    return r, k, v, lw, u, s0, chunk
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", sorted(WKV))
 def test_card_wkv(cuda, case, dtype):
-    n, t, h, dk, dv, per_channel, has_u, has_s0, chunk = WKV[case]
-    r, k = (torch.randn(n, t, h, dk, device="cuda", generator=cuda).to(dtype) for _ in range(2))
-    v = torch.randn(n, t, h, dv, device="cuda", generator=cuda).to(dtype)
-    lw = -torch.nn.functional.softplus(
-        torch.randn(n, t, h, dk if per_channel else 1, device="cuda", generator=cuda))
-    u = torch.randn(h, dk, device="cuda", generator=cuda) if has_u else None
-    s0 = torch.randn(n, h, dk, dv, device="cuda", generator=cuda) if has_s0 else None
+    """y is also held row by row in bf16: one row is the dv outputs of one
+    (n, t, h)."""
+    xs = _wkv_inputs(case, dtype, cuda)
     ops.reset_launch_counts()
-    y, s = ops.wkv(r, k, v, lw, u, s0, chunk)
+    y, s = ops.wkv(*xs)
     assert ops.launch_counts()["wkv"] == 1
-    y_want, s_want = ref.wkv(r, k, v, lw, u, s0, chunk)
+    y_want, s_want = ref.wkv(*xs)
     torch.cuda.synchronize()
     assert y.dtype == dtype and s.dtype == torch.float32
     assert _rel(y, y_want) < (CARD_TOL if dtype == torch.float32 else BF16_TOL)
+    if dtype == torch.bfloat16:
+        assert _row_rel(y, y_want) < ROW_TOL
     assert _rel(s, s_want) < CARD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hymba_ssd_full_prefill", "rwkv6", "dv40_ragged_columns",
+                                  "decode_t1"])
+def test_card_wkv_same_bits(cuda, case):
+    """Two calls on the same inputs give the same bits: every sum is taken
+    in a fixed order, with no atomics."""
+    xs = _wkv_inputs(case, torch.bfloat16, cuda)
+    y1, s1 = ops.wkv(*xs)
+    y2, s2 = ops.wkv(*xs)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.gpu

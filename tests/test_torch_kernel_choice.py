@@ -4,10 +4,10 @@ touches a card.
 
 ``flash_attention.design`` is pure (shapes, dtypes, positions, window,
 alignment): bf16 prefill goes to the tensor-core design ("wgmma"), the rest
-to the CUDA-core one ("simt").  The wrappers check dtypes, dimensions and
-the pairing of shapes before the device (``_build.check_input``, then
-``_build.check_devices``), so CPU tensors reach those checks; a CPU tensor
-of a good shape is refused for its device.  No JAX here: the kernels'
+to the CUDA-core one ("simt").  The wrappers check dtypes, dimensions and the pairing of shapes before the device
+(``_build.check_input``, then ``_build.check_devices``), so CPU tensors
+reach those checks; a CPU tensor of a good shape is refused for its
+device.  No JAX here: the kernels'
 arithmetic is held against JAX in ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_lm.py`` through their plain versions, and on the card in
 ``tests/test_torch_card.py``.
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import wkv as wkv_mod
 from repro_torch.kernels.flash_attention import design, flash_attention_cuda
 from repro_torch.kernels.sq_matmul import sq_matmul_cuda
 
@@ -77,6 +78,31 @@ def test_flash_attention_design_needs_16_byte_alignment():
     assert design(flat[8:8 + q.numel()].view(q.shape), k, v) == "wgmma"  # 16 bytes off
 
 
+def _wkv(t=4, dk=3, dw=1, k_dtype=F32):
+    """r, k, v, log w on the CPU: N 1, H 2, dv 5."""
+    return (torch.zeros(1, t, 2, dk), torch.zeros(1, t, 2, dk, dtype=k_dtype),
+            torch.zeros(1, t, 2, 5), torch.zeros(1, t, 2, dw))
+
+
+# wkv's own refusals, before the device's: (r, k, v, log w), kwargs, message.
+WKV_REFUSALS = {
+    "chunk_not_dividing_t": (_wkv(t=6), dict(chunk=4), "chunk 4 does not divide T = 6"),
+    "chunk_zero": (_wkv(), dict(chunk=0), "does not divide"),
+    "decay_neither_per_head_nor_per_channel": (_wkv(dw=2), dict(chunk=2), "do not pair"),
+    "k_dtype_differs": (_wkv(k_dtype=BF), dict(chunk=2), "do not pair"),
+    "u_wrong_shape": (_wkv(), dict(chunk=2, u=torch.zeros(2, 4)), r"u must be \[2, 3\]"),
+    "state0_wrong_shape": (_wkv(), dict(chunk=2, state0=torch.zeros(1, 2, 5, 3)),
+                           r"state0 must be \[1, 2, 3, 5\]"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WKV_REFUSALS))
+def test_wkv_wrapper_refuses(case):
+    args, kw, msg = WKV_REFUSALS[case]
+    with pytest.raises(ValueError, match=msg):
+        wkv_mod.wkv_cuda(*args, **kw)
+
+
 # Refusals before any device check: (q, k, v, kwargs, error, message).
 FA_REFUSALS = {
     "float16": (*_qkv(t=8, dtypes=(torch.float16, BF, BF)), {}, TypeError, "must be one of"),
@@ -87,11 +113,15 @@ FA_REFUSALS = {
     "k_v_lengths_differ": (_qkv(t=8)[0], _qkv(t=8)[1], _qkv(t=8, s=9)[2], {}, ValueError,
                            "do not pair"),
     "dh_not_multiple_of_4": (*_qkv(t=8, dh=66), {}, ValueError, "multiples of 4"),
+    "dh264_too_wide": (*_qkv(t=8, dh=264), {}, ValueError, "limit of 256"),
+    # widths the "simt" design takes pass every shape check and meet the
+    # device's
     "dh128_float32": (*_qkv(t=128, dh=128, dtypes=(F32, F32, F32)), {}, ValueError,
-                      "need the wgmma design"),
+                      "CUDA device"),
     "dh128_decode": (*_qkv(t=1, s=64, dh=128), dict(q_positions=torch.tensor([3]),
                                                     k_positions=torch.arange(64)),
-                     ValueError, "need the wgmma design"),
+                     ValueError, "CUDA device"),
+    "dh192_dv128": (*_qkv(t=16, h=16, kv=16, dh=192, dv=128), {}, ValueError, "CUDA device"),
     "cpu_tensors": (*_qkv(t=128), {}, ValueError, "CUDA device"),
 }
 

@@ -5,7 +5,8 @@ The same numpy inputs (made from a seed) and the same parameters (JAX's
 through the JAX function and the port's:
 
 * the mixing functions: ``apply_rope``, ``sdpa`` (GQA g ∈ {1, 2}, windows,
-  explicit positions with empty ring slots), ``cache_update``,
+  explicit positions with empty ring slots, head widths 16 to 240 with dv ≠
+  dh), ``cache_update``,
   ``wkv_chunked`` (T not a multiple of the chunk, u and state0 given or not,
   per-channel and scalar decay) and ``wkv_step``;
 * the plain versions of the two kernels, ``ref.flash_attention`` and
@@ -92,14 +93,20 @@ SDPA_CASES = {
     "g2_ring": dict(t=1, s=8, kv=2, g=2, window=8, ring=True),
     "g2_positions": dict(t=4, s=10, kv=2, g=2, window=6, positions=True),
     "g1_all_masked": dict(t=2, s=6, kv=3, g=1, all_masked=True),
+    # the head widths of the configs (h2o-danube3 120, codeqwen1.5 and
+    # internvl2 128 in decode, deepseek-v2-lite's MLA 192 / 128, gemma3 240)
+    "dh120_window": dict(t=11, s=11, kv=2, g=2, window=4, dh=120),
+    "dh128_ring": dict(t=1, s=8, kv=2, g=2, window=8, ring=True, dh=128),
+    "dh192_dv128": dict(t=9, s=9, kv=2, g=1, dh=192, dv=128),
+    "dh240_gqa": dict(t=9, s=9, kv=1, g=2, dh=240),
 }
 
 
 def _sdpa_inputs(case):
     c = SDPA_CASES[case]
-    n, dh = 2, 16
+    n, dh = 2, c.get("dh", 16)
     q = _rand(1, n, c["t"], c["kv"] * c["g"], dh)
-    k, v = _rand(2, n, c["s"], c["kv"], dh), _rand(3, n, c["s"], c["kv"], dh)
+    k, v = _rand(2, n, c["s"], c["kv"], dh), _rand(3, n, c["s"], c["kv"], c.get("dv", dh))
     kw = dict(causal=c.get("causal", True), window=c.get("window"))
     if c.get("ring"):  # a ring of 8 at position 13: it wrapped at 8, slots 6, 7 hold 6, 7
         kw["q_positions"] = np.array([13], np.int32)
