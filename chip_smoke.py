@@ -55,6 +55,14 @@ that ran (``flash_attention.design``: "wgmma" for bf16 prefill at dh = dv ∈
 {64, 128}, "simt" else, the other configs' wider heads included).  bf16
 attention and wkv outputs are also held row by row (``ROW_TOL``).
 
+cross_dot and fused_second_order (3xTF32 on the tensor cores) are also held
+to their formula evaluated in float64 on the card, whole-tensor
+(``F64_TOL``) and entry by entry (``ENTRY_TOL``); sq_matmul's float64
+readings are printed.  cross_dot's one-row-set rows must be symmetric bit
+for bit.  Every float32 row also carries a second bound, 3 × its matrix
+products' operations at the TF32 rate (``bound_tf32_ms``), and its share of
+it.
+
 It also runs KFRA and DiagHessian on the 784-128-64-10 MLP, card against
 CPU.  Every phase prints a line; any failure exits non-zero.  The
 second-to-last lines are the kernel table (JSON) and the card's name and
@@ -64,8 +72,8 @@ record goes to ``build/chip_smoke.json``.
 Float32 throughout BackPACK's paths, TF32 off for matmuls and cuDNN (the
 plain versions and the CPU comparison are exact float32); the serving path
 runs in the config's bfloat16.  Bounds use the H100 SXM's published peaks:
-67 TFLOP/s float32 without tensor cores, 989 TFLOP/s bf16 with them (for
-bf16 queries / r), 3.35 TB/s.
+67 TFLOP/s float32 without tensor cores, 495 TFLOP/s TF32 and 989 TFLOP/s
+bf16 with them (for bf16 queries / r), 3.35 TB/s.
 """
 import json
 import math
@@ -78,6 +86,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = 67e12
 PEAK_BF16 = 989e12  # bf16 tensor cores, dense
+PEAK_TF32 = 495e12  # TF32 tensor cores, dense: 3xTF32 runs a float32 product as 3 of these
 PEAK_BYTES = 3.35e12
 N = 128          # DeepOBS batch for 3C3D on CIFAR-10
 TOL = 1e-4       # max |kernel − plain| / max |plain|: float32, other sum order
@@ -95,6 +104,30 @@ BF16_TOL = 1e-2
 # tools/flash_attention_fault.py and tools/wkv_fault.py).
 ROW_TOL = 2e-2
 ROW_CHECKED = ("flash_attention", "wkv")  # their y / out rows, enforced on bf16
+# The two redesigned 3xTF32 kernels are also held to the same formula in
+# float64 on the card (ref.* with dtype=float64): TOL against the float32
+# plain version cannot tell 3xTF32 from 1xTF32 (the hi parts alone, ≈ 3
+# decimal digits), which reads ≈ 3e-5 whole-tensor at cross_dot's conv3
+# depth, and most of what TOL sees there is the float32 plain version's own
+# sum order.  sq_matmul's readings are printed, not limited: it carries its
+# sums in the tensor cores' accumulator (tf32x3.cuh, promote), ≈ 7e-6 at
+# K = 1280.
+F64_CHECKED = ("cross_dot", "fused_second_order")
+F64_READ = F64_CHECKED + ("sq_matmul",)
+# max over outputs of max |kernel − f64| / max |f64|: float32 sums over up
+# to 110,592 terms read ≤ 9.4e-7 at 3C3D's shapes (H100, PERF.md), the float32
+# plain version 3e-5 where its order is long; the limit keeps 3x over the
+# kernels.  The planted faults' readings (tools/cross_dot_fault.py) are in
+# PERF.md.
+F64_TOL = 3e-6
+# ...and entry by entry: the median of |kernel − f64| / |f64| over cross_dot's
+# off-diagonal entries (sums with cancellation, where 1xTF32 loses ≈ 3e-5 of
+# an entry) and over the sums of squares (fused_second_order's diag, trace
+# and kron diagonal; sq_matmul's every entry).  The max is printed beside
+# it: a near-zero entry makes it large for any float32 sum.  The kernels
+# read ≤ 6.9e-7 (1xTF32, the split skipped, 1e-5 to 5e-4); the limit keeps
+# 3x over them.
+ENTRY_TOL = 2.5e-6
 # The serving path: Hymba-1.5B (32 layers, 3 global, 29 with a window of
 # 1024), 4 prompts of 2048 tokens for prefill, of 32 tokens to 128 for
 # generate; the decode-vs-forward check runs one sequence of 1040 tokens so
@@ -132,6 +165,27 @@ def row_rel_err(got, want):
     want| / max |want| within the row."""
     g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
     return ((g - w).abs().amax(-1) / w.abs().amax(-1)).max().item()
+
+
+def f64_readings(torch, kernel, got, want64):
+    """``rel64`` (max over outputs of max |got − want64| / max |want64|) and
+    the entry-wise median and max of |got − want64| / |want64| over the
+    entries ``ENTRY_TOL`` reads (``F64_TOL``'s comment)."""
+    rel, entries = 0.0, []
+    for key, w in want64.items():
+        g = got[key].reshape(w.shape).double()
+        rel = max(rel, ((g - w).abs().max() / w.abs().max()).item())
+        err = (g - w).abs() / w.abs()
+        if kernel == "cross_dot":  # off the diagonal of each [N1, N2] group
+            n1, n2 = w.shape[-2:]
+            eye = torch.eye(n1, n2, dtype=torch.bool, device=w.device).expand(w.shape)
+            entries.append(err[~eye])
+        elif key == "kron":
+            entries.append(torch.diagonal(err))
+        else:
+            entries.append(err.flatten())
+    e = torch.cat(entries)
+    return dict(rel64=rel, entry_median=e.median().item(), entry_max=e.max().item())
 
 
 def medians_ms(samples):
@@ -350,6 +404,116 @@ def library_attention(torch):
         return out.transpose(1, 2)
 
     return attend
+
+
+def backpack_cases(torch, randn, gen, l2_mod):
+    """The eight BackPACK kernels' rows at 3C3D's batch-128 shapes: (kernel,
+    shape label, launches per run call on its path, weight in the kernel's
+    per-call sums, inputs, kwargs, operations, bytes, tol, peak, product
+    operations).  Operations are the fewest the outputs need; the product
+    operations are their matrix products alone, what 3xTF32 runs on the
+    tensor cores (``bound_tf32``)."""
+    conv = {"conv1": (1024, 75, 64), "conv2": (256, 576, 96), "conv3": (64, 864, 128)}
+    dense = {"dense1": (2048, 512), "dense2": (512, 256), "dense3": (256, 10)}
+    cases = []
+
+    def add(kernel, label, per_call, weight, args, kw, flops, nbytes, prod):
+        cases.append((kernel, label, per_call, weight, args, kw, flops, nbytes, TOL, PEAK_FLOPS,
+                      prod))
+
+    # Operations are the fewest the outputs need: G_n = A_nᵀB_n (2·N·r·a·b),
+    # one square per G entry and one add each into l2 and moment (3·N·a·b),
+    # and dot's N(N−1)/2 off-diagonal pairs (2·a·b each; dot is symmetric
+    # and its diagonal is l2).
+    for name, (r, a, b) in conv.items():
+        A, B = randn(N, r, a), randn(N, r, b)
+        flops = 2 * N * r * a * b + 3 * N * a * b + N * (N - 1) * a * b
+        nbytes = 4 * (N * r * (a + b) + N + a * b + N * N)
+        add("fused_first_order", f"{name} A[{N},{r},{a}] B[{N},{r},{b}]", 1, 1, (A, B),
+            dict(want_l2=True, want_moment=True, want_dot=True), flops, nbytes,
+            2 * N * r * a * b + N * (N - 1) * a * b)
+        for c, wants, label in ((10, dict(want_diag=True, want_kron=True, want_trace=True),
+                                 "exact"),
+                                (1, dict(want_diag=True, want_kron=True), "mc")):
+            # t = A_nᵀS_cn (2·C·N·r·a·b); diag alone is one FMA per t entry,
+            # diag + trace a square and two adds; kron = SᵀS is symmetric,
+            # so b(b+1)/2 FMAs per row of S (C·N·r rows).
+            S = randn(c, N, r, b)
+            flops = (2 * c * N * r * a * b + (2 + wants.get("want_trace", 0)) * c * N * a * b
+                     + c * N * r * b * (b + 1))
+            nbytes = 4 * (N * r * a + c * N * r * b + a * b + b * b
+                          + (N if wants.get("want_trace") else 0))
+            add("fused_second_order", f"{name} {label} A[{N},{r},{a}] S[{c},{N},{r},{b}]", 1, 1,
+                (A, S), wants, flops, nbytes,
+                2 * c * N * r * a * b + c * N * r * b * (b + 1))
+        # The per-extension route: the moment of the first sweep and the MC
+        # diagonal (N rows), the exact diagonal on the broadcast input (C·N
+        # rows); G_n costs 2·r·a·b, its square and sum 2·a·b.
+        for rows, per_call, label in ((N, 2, "moment+mc"), (10 * N, 1, "exact diag")):
+            Ar = A if rows == N else A.repeat(10, 1, 1)
+            Br = B if rows == N else randn(rows, r, b)
+            add("per_sample_moment", f"{name} {label} A[{rows},{r},{a}] B[{rows},{r},{b}]",
+                per_call, per_call, (Ar, Br), {}, rows * (2 * r * a * b + 2 * a * b),
+                4 * (rows * r * (a + b) + a * b), rows * 2 * r * a * b)
+        # batch_l2 in both forms; the path takes the one with fewer
+        # operations, and the bound counts that one.
+        counts = l2_mod.batch_l2_ops(N, r, a, b)
+        taken = l2_mod.batch_l2_form(r, a, b)
+        prod = min(N * r * (r + 1) // 2 * (2 * a + 2 * b), N * 2 * r * a * b)
+        for form in l2_mod.FORMS:
+            on_path = int(form == taken)
+            add("batch_l2", f"{name} form={form}{' (path)' if on_path else ''} "
+                f"A[{N},{r},{a}] B[{N},{r},{b}]", on_path, on_path, (A, B), dict(form=form),
+                min(counts.values()), 4 * (N * r * (a + b) + N), prod)
+        # ggn_diag has no call site; it is held at the exact sweep's shapes,
+        # once each in its sums.
+        S = randn(10, N, r, b)
+        add("ggn_diag", f"{name} exact A[{N},{r},{a}] S[10,{N},{r},{b}]", 0, 1, (A, S), {},
+            10 * N * (2 * r * a * b + 2 * a * b), 4 * (N * r * a + 10 * N * r * b + a * b),
+            10 * N * 2 * r * a * b)
+    for name, (a, b) in dense.items():
+        for rows, per_call, label in ((N, 2, "moment+mc"), (10 * N, 1, "exact diag")):
+            A, B = randn(rows, a), randn(rows, b)
+            add("sq_matmul", f"{name} {label} A[{rows},{a}] B[{rows},{b}]", per_call, per_call,
+                (A, B), {}, 2 * rows * a * b + rows * (a + b), 4 * (rows * (a + b) + a * b),
+                2 * rows * a * b)
+
+    # The Gram family's cross_dot (per gram run call: the NTK's E = C groups
+    # over one shared input and GGNGram's C·N class-major rows, one row set
+    # each, so the kernel forms G once and the upper triangle of the Gram;
+    # and, off the path, two different row sets: the two halves of the
+    # batch) and the Laplace predictive's predictive_var (per glm_predictive
+    # call: with Sigma for a diagonal posterior, without for a Kronecker
+    # one), at the conv layers; the dense layers take closed forms.
+    # Operations: G = AᵀB (2·R·a·b a row), the Gram's pairs (2·a·b each,
+    # N(N+1)/2 of them on one row set), t = A_nᵀS_cn (2·C·N·R·a·b) and its
+    # square, weight and sum (3 or 2 per t entry).
+    for name, (r, a, b) in conv.items():
+        A, S = randn(N, r, a), randn(10, N, r, b)
+        rows = S.reshape(1, 10 * N, r, b)
+        for label, args, e, n_rows in (
+                (f"{name} ntk A[{N},{r},{a}] S[10,{N},{r},{b}]", (A[None], S, A[None], S), 10, N),
+                (f"{name} ggn_gram A[{N},{r},{a}] rows[{10 * N},{r},{b}]",
+                 (A[None], rows, A[None], rows), 1, 10 * N)):
+            flops = 2 * e * n_rows * r * a * b + e * n_rows * (n_rows + 1) * a * b
+            nbytes = 4 * (N * r * a + e * n_rows * r * b + e * n_rows * n_rows)
+            add("cross_dot", label, 1, 1, args, {}, flops, nbytes, flops)
+        if name == "conv2":
+            h = N // 2
+            args = (A[None, :h].contiguous(), S[:1, :h].contiguous(),
+                    A[None, h:].contiguous(), S[:1, h:].contiguous())
+            flops = 2 * N * r * a * b + 2 * h * h * a * b
+            add("cross_dot", f"{name} two row sets A[2x{h},{r},{a}] B[2x{h},{r},{b}]", 0, 0,
+                args, {}, flops, 4 * (N * r * (a + b) + h * h), flops)
+        W = torch.rand(a, b, device="cuda", generator=gen)
+        for sigma in (W, None):
+            label = "diag Sigma" if sigma is not None else "kron"
+            add("predictive_var", f"{name} {label} A[{N},{r},{a}] S[10,{N},{r},{b}]", 1,
+                int(sigma is not None), (A, S, sigma), {},
+                2 * 10 * N * r * a * b + (2 + (sigma is not None)) * 10 * N * a * b,
+                4 * (N * r * a + 10 * N * r * b + 10 * N + (a * b if sigma is not None else 0)),
+                2 * 10 * N * r * a * b)
+    return cases
 
 
 def serve_phase(torch, ops):
@@ -592,123 +756,27 @@ def main():
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
-    conv = {"conv1": (1024, 75, 64), "conv2": (256, 576, 96), "conv3": (64, 864, 128)}
-    dense = {"dense1": (2048, 512), "dense2": (512, 256), "dense3": (256, 10)}
-    # (kernel, shape label, launches per run call on its path, weight in the
-    # kernel's per-call sums, inputs, kwargs, flops, bytes)
-    cases = []
-    # Operations are the fewest the outputs need: G_n = A_nᵀB_n (2·N·r·a·b),
-    # one square per G entry and one add each into l2 and moment (3·N·a·b),
-    # and dot's N(N−1)/2 off-diagonal pairs (2·a·b each; dot is symmetric
-    # and its diagonal is l2).
-    for name, (r, a, b) in conv.items():
-        A, B = randn(N, r, a), randn(N, r, b)
-        flops = 2 * N * r * a * b + 3 * N * a * b + N * (N - 1) * a * b
-        nbytes = 4 * (N * r * (a + b) + N + a * b + N * N)
-        cases.append(("fused_first_order", f"{name} A[{N},{r},{a}] B[{N},{r},{b}]", 1, 1,
-                      (A, B), dict(want_l2=True, want_moment=True, want_dot=True),
-                      flops, nbytes))
-        for c, wants, label in ((10, dict(want_diag=True, want_kron=True, want_trace=True),
-                                 "exact"),
-                                (1, dict(want_diag=True, want_kron=True), "mc")):
-            # t = A_nᵀS_cn (2·C·N·r·a·b); diag alone is one FMA per t entry,
-            # diag + trace a square and two adds; kron = SᵀS is symmetric,
-            # so b(b+1)/2 FMAs per row of S (C·N·r rows).
-            S = randn(c, N, r, b)
-            flops = (2 * c * N * r * a * b + (2 + wants.get("want_trace", 0)) * c * N * a * b
-                     + c * N * r * b * (b + 1))
-            nbytes = 4 * (N * r * a + c * N * r * b + a * b + b * b
-                          + (N if wants.get("want_trace") else 0))
-            cases.append(("fused_second_order",
-                          f"{name} {label} A[{N},{r},{a}] S[{c},{N},{r},{b}]", 1, 1,
-                          (A, S), wants, flops, nbytes))
-        # The per-extension route: the moment of the first sweep and the MC
-        # diagonal (N rows), the exact diagonal on the broadcast input (C·N
-        # rows); G_n costs 2·r·a·b, its square and sum 2·a·b.
-        for rows, per_call, label in ((N, 2, "moment+mc"), (10 * N, 1, "exact diag")):
-            Ar = A if rows == N else A.repeat(10, 1, 1)
-            Br = B if rows == N else randn(rows, r, b)
-            cases.append(("per_sample_moment", f"{name} {label} A[{rows},{r},{a}] B[{rows},{r},{b}]",
-                          per_call, per_call, (Ar, Br), {}, rows * (2 * r * a * b + 2 * a * b),
-                          4 * (rows * r * (a + b) + a * b)))
-        # batch_l2 in both forms; the path takes the one with fewer
-        # operations, and the bound counts that one.
-        counts = l2_mod.batch_l2_ops(N, r, a, b)
-        taken = l2_mod.batch_l2_form(r, a, b)
-        for form in l2_mod.FORMS:
-            on_path = int(form == taken)
-            cases.append(("batch_l2", f"{name} form={form}{' (path)' if on_path else ''} "
-                          f"A[{N},{r},{a}] B[{N},{r},{b}]", on_path, on_path, (A, B),
-                          dict(form=form), min(counts.values()),
-                          4 * (N * r * (a + b) + N)))
-        # ggn_diag has no call site; it is held at the exact sweep's shapes,
-        # once each in its sums.
-        S = randn(10, N, r, b)
-        cases.append(("ggn_diag", f"{name} exact A[{N},{r},{a}] S[10,{N},{r},{b}]", 0, 1,
-                      (A, S), {}, 10 * N * (2 * r * a * b + 2 * a * b),
-                      4 * (N * r * a + 10 * N * r * b + a * b)))
-    for name, (a, b) in dense.items():
-        for rows, per_call, label in ((N, 2, "moment+mc"), (10 * N, 1, "exact diag")):
-            A, B = randn(rows, a), randn(rows, b)
-            cases.append(("sq_matmul", f"{name} {label} A[{rows},{a}] B[{rows},{b}]",
-                          per_call, per_call, (A, B), {}, 2 * rows * a * b + rows * (a + b),
-                          4 * (rows * (a + b) + a * b)))
-
-    # The Gram family's cross_dot (per gram run call: the NTK's E = C groups
-    # over one shared input and GGNGram's C·N class-major rows, one row set
-    # each, so the kernel forms G once and the upper triangle of the Gram;
-    # and, off the path, two different row sets: the two halves of the
-    # batch) and the Laplace predictive's predictive_var (per glm_predictive
-    # call: with Sigma for a diagonal posterior, without for a Kronecker
-    # one), at the conv layers; the dense layers take closed forms.
-    # Operations: G = AᵀB (2·R·a·b a row), the Gram's pairs (2·a·b each,
-    # N(N+1)/2 of them on one row set), t = A_nᵀS_cn (2·C·N·R·a·b) and its
-    # square, weight and sum (3 or 2 per t entry).
-    for name, (r, a, b) in conv.items():
-        A, S = randn(N, r, a), randn(10, N, r, b)
-        rows = S.reshape(1, 10 * N, r, b)
-        for label, args, e, n_rows in (
-                (f"{name} ntk A[{N},{r},{a}] S[10,{N},{r},{b}]", (A[None], S, A[None], S), 10, N),
-                (f"{name} ggn_gram A[{N},{r},{a}] rows[{10 * N},{r},{b}]",
-                 (A[None], rows, A[None], rows), 1, 10 * N)):
-            flops = 2 * e * n_rows * r * a * b + e * n_rows * (n_rows + 1) * a * b
-            nbytes = 4 * (N * r * a + e * n_rows * r * b + e * n_rows * n_rows)
-            cases.append(("cross_dot", label, 1, 1, args, {}, flops, nbytes))
-        if name == "conv2":
-            h = N // 2
-            args = (A[None, :h].contiguous(), S[:1, :h].contiguous(),
-                    A[None, h:].contiguous(), S[:1, h:].contiguous())
-            cases.append(("cross_dot", f"{name} two row sets A[2x{h},{r},{a}] B[2x{h},{r},{b}]",
-                          0, 0, args, {}, 2 * N * r * a * b + 2 * h * h * a * b,
-                          4 * (N * r * (a + b) + h * h)))
-        W = torch.rand(a, b, device="cuda", generator=gen)
-        for sigma in (W, None):
-            label = "diag Sigma" if sigma is not None else "kron"
-            cases.append(("predictive_var", f"{name} {label} A[{N},{r},{a}] S[10,{N},{r},{b}]",
-                          1, int(sigma is not None), (A, S, sigma), {},
-                          2 * 10 * N * r * a * b + (2 + (sigma is not None)) * 10 * N * a * b,
-                          4 * (N * r * a + 10 * N * r * b + 10 * N
-                               + (a * b if sigma is not None else 0))))
-
+    cases = backpack_cases(torch, randn, gen, l2_mod)
     cases += lm_kernel_cases(torch, randn, gen)
 
     wrapper = {k: getattr(ops, k) for k in ops.KERNELS}
     plain = {k: getattr(ref, k) for k in ops.KERNELS}
     plain["fused_first_order"] = lambda A, B, **w: ref.fused_first_order(A[None], B[None], **w)
     plain["batch_l2"] = lambda A, B, form: ref.batch_l2(A, B)
-    plain["cross_dot"] = lambda A1, B1, A2, B2: ref.cross_dot(
-        ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2)
+    plain["cross_dot"] = lambda A1, B1, A2, B2, **w: ref.cross_dot(
+        ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2, **w)
     library = {"sq_matmul": lambda A, B: torch.matmul(A.square().T, B.square()),
                "flash_attention": library_attention(torch)}
-    per_kernel = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops_ms=0.0,
-                          bytes_ms=0.0, max_abs_err=0.0, max_rel_err=0.0, shapes=[])
+    per_kernel = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_tf32_ms=0.0,
+                          library_ms=0.0, ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0,
+                          max_rel_err=0.0, shapes=[])
                   for k in ops.KERNELS}
     record["checks"] = []
     profiled_rows = []  # (row, args, kw): device times after every row's event times
     for case in cases:
-        # (kernel, label, per_call, weight, args, kw, flops, bytes[, tol, peak])
-        kernel, label, per_call, weight, args, kw, flops, nbytes, *rest = case
-        tol, peak = rest or (TOL, PEAK_FLOPS)
+        # (kernel, label, per_call, weight, args, kw, flops, bytes, tol, peak[,
+        # product flops])
+        kernel, label, per_call, weight, args, kw, flops, nbytes, tol, peak, *prod = case
         got = wrapper[kernel](*args, **kw)
         want = plain[kernel](*args, **kw)
         torch.cuda.synchronize()
@@ -725,6 +793,13 @@ def main():
             abs_err = max(abs_err, e)
             rel_err = max(rel_err, e / want[key].float().abs().max().item())
         extra = {}
+        if kernel in F64_READ:  # the formula in float64, and the plain version against it
+            want64 = plain[kernel](*args, **kw, dtype=torch.float64)
+            if not isinstance(want64, dict):
+                want64 = {"out": want64}
+            extra.update(f64_readings(torch, kernel, got, want64))
+            extra["plain"] = f64_readings(torch, kernel, want, want64)
+            del want64
 
         def run_kernel():
             return wrapper[kernel](*args, **kw)
@@ -746,16 +821,29 @@ def main():
             out_key = "y" if kernel == "wkv" else "out"
             extra["row_rel_err"] = row_rel_err(got[out_key], want[out_key])
         b_ms, b_by = bound(flops, nbytes, peak)
+        if prod:  # the float32 rows: 3 TF32 products for each float32 one
+            extra["bound_tf32_ms"] = bound(3 * prod[0], nbytes, PEAK_TF32)[0]
+            extra["share_tf32"] = extra["bound_tf32_ms"] / ms
         row = dict(kernel=kernel, shape=label, launches_per_call=per_call, weight=weight,
                    rel_err=rel_err, tol=tol, peak_tflops=peak / 1e12,
                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by, tflops=flops / ms / 1e9, **extra)
+                   bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, tflops=flops / ms / 1e9,
+                   **extra)
         say("check", **row)
         record["checks"].append(row)
-        if kernel in library or kernel == "wkv":  # wkv: decode's event time is the host's
+        # device times: wkv's decode event time is the host's; the library
+        # rows and the 3xTF32 kernels are read against their bounds
+        if kernel in library or kernel == "wkv" or kernel in F64_CHECKED:
             profiled_rows.append((row, args, kw))
         if not rel_err <= tol:
             fail(f"{kernel} {label}: relative error {rel_err:.3e} above {tol}")
+        if kernel in F64_CHECKED and not (extra["rel64"] <= F64_TOL
+                                          and extra["entry_median"] <= ENTRY_TOL):
+            fail(f"{kernel} {label}: against float64 {extra['rel64']:.3e} (limit {F64_TOL}), "
+                 f"entry median {extra['entry_median']:.3e} (limit {ENTRY_TOL})")
+        if kernel == "cross_dot" and "two row sets" not in label and not torch.equal(
+                got["out"], got["out"].transpose(1, 2)):
+            fail(f"cross_dot {label}: one row set, but not symmetric bit for bit")
         if kernel in ROW_CHECKED and tol == BF16_TOL and not extra["row_rel_err"] <= ROW_TOL:
             fail(f"{kernel} {label}: row error {extra['row_rel_err']:.3e} above {ROW_TOL}")
         # bf16 prefill at dh = dv ∈ {64, 128} takes the tensor cores; decode,
@@ -770,6 +858,7 @@ def main():
         agg["ms"] += weight * ms
         agg["plain_ms"] += weight * plain_ms
         agg["bound_ms"] += weight * b_ms
+        agg["bound_tf32_ms"] += weight * extra.get("bound_tf32_ms", 0.0)
         agg["ops_ms"] += weight * flops / peak * 1e3
         agg["bytes_ms"] += weight * nbytes / PEAK_BYTES * 1e3
         if lib_ms is not None:
@@ -996,6 +1085,8 @@ def main():
                 shapes=dict(ntk=list(ntk.shape), ntk_classwise=list(
                     ntk_total(res_g.ext["ntk_classwise"]).shape), ggn_gram=list(K.shape)),
                 ntk_asymmetry=(ntk - ntk.T).abs().max().item() / scale,
+                ggn_gram_asymmetry=(lambda k: (k - k.T).abs().max().item() / k.abs().max().item())(
+                    K.permute(0, 2, 1, 3).reshape(10 * N, 10 * N)),
                 ntk_min_diagonal=torch.diagonal(ntk).min().item(),
                 classwise_sum_err=(ntk_total(res_g.ext["ntk_classwise"]).sum(-1) - ntk)
                 .abs().max().item() / scale)
@@ -1007,7 +1098,7 @@ def main():
         fail(f"gram: wrong shapes {gram['shapes']}")
     if not (torch.isfinite(ntk).all() and torch.isfinite(K).all()):
         fail("gram: non-finite kernel")
-    if not (gram["ntk_asymmetry"] <= 1e-6 and gram["ntk_min_diagonal"] >= 0
+    if not (gram["ntk_asymmetry"] == 0.0 and gram["ntk_min_diagonal"] >= 0
             and gram["classwise_sum_err"] <= TOL):
         fail(f"gram: the NTK is not a symmetric PSD-diagonal kernel summing its classes: {gram}")
     record["compare_gram"] = compare("c3d3 gram card vs cpu", model, params, x, y, gram_exts,
@@ -1125,6 +1216,7 @@ def main():
             max_rel_err=agg["max_rel_err"], ms=agg["ms"],
             plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
             bound_by="operations" if agg["ops_ms"] >= agg["bytes_ms"] else "bytes",
+            bound_tf32_ms=agg["bound_tf32_ms"] if k not in ROW_CHECKED else None,
             library_ms=agg["library_ms"] if k in library else None,
             shapes=agg["shapes"]))
     record["kernels"] = table

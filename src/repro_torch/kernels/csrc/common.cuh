@@ -3,13 +3,11 @@
 // tile64 is the one contraction: a 64x64 tile of XᵀY over the rows of X and
 // Y, 4x4 outputs a thread, rows staged through shared memory 16 at a time
 // with the next 16 fetched into registers while the current ones are used,
-// and float4 shared-memory reads.  Three kernels are built on it:
-//   * atb_kernel: XᵀY over a long row axis, split over blocks when the
-//     output alone has too few tiles to fill the card (the kron factor);
+// and float4 shared-memory reads.  One kernel is built on it:
 //   * sq_stats_kernel: per-sample products t = X_nᵀY_cn squared and reduced
 //     in registers, Σ_cn t² per element and Σ_c,elements t² per sample, so t
-//     never reaches device memory (the fused second-order kernel's diag and
-//     trace; the fused first-order kernel's moment and l2 when no dot is
+//     never reaches device memory (per_sample_moment, ggn_diag, batch_l2's
+//     G form, the fused first-order kernel's moment and l2 when no dot is
 //     asked for); or, in its variance mode, Σ_elements t² [· Σ] per (c, n)
 //     (the GLM predictive variance).
 // Sums across blocks never use atomics: each block writes its own partial and
@@ -44,6 +42,23 @@ inline long long fill_splits(long long tiles, long long most) {
   long long s = cdiv(2LL * num_sms(), tiles);
   if (s > most) s = most;
   return s < 1 ? 1 : s;
+}
+
+// Items per block: the count whose blocks finish soonest, waves × (items ×
+// per_item + overhead), a block's ring fill and epilogue costing `overhead`
+// stages and an item `per_item` (the larger count on a tie).  Without the
+// overhead a block of one item looks best, and a 64-row item never fills
+// its ring.
+inline int wave_chunk(long long items, long long others, int slots, long long per_item,
+                      long long overhead) {
+  int best = 1;
+  long long best_cost = -1;
+  for (long long c = 1; c <= items; ++c) {
+    if (c > 1 && bp::cdiv(items, c) == bp::cdiv(items, c - 1)) continue;
+    const long long cost = bp::cdiv(others * bp::cdiv(items, c), slots) * (c * per_item + overhead);
+    if (best_cost < 0 || cost <= best_cost) best = (int)c, best_cost = cost;
+  }
+  return best;
 }
 
 struct Stage {
@@ -154,51 +169,6 @@ inline void launch_sum_partials(const float* part, float* out, int E, int P, lon
                                 cudaStream_t stream) {
   const long long total = (long long)E * M;
   sum_partials<<<(unsigned)cdiv(total, THREADS), THREADS, 0, stream>>>(part, out, E, P, M);
-}
-
-// ---------------------------------------------------------------------------
-// atb: out [M, N] = XᵀY for X [K, M], Y [K, N]
-// ---------------------------------------------------------------------------
-
-// Block z sums rows [z·kchunk, (z+1)·kchunk) into partial z of out, laid out
-// as [gridDim.z, M, N].
-__global__ void __launch_bounds__(THREADS)
-atb_kernel(const float* __restrict__ X, const float* __restrict__ Y, long long K, int M, int N,
-           long long kchunk, float* __restrict__ out) {
-  __shared__ __align__(16) Stage st;
-  const int n0 = blockIdx.x * BT, m0 = blockIdx.y * BT;
-  const long long kb = (long long)blockIdx.z * kchunk;
-  const long long rows = (kb + kchunk < K ? kb + kchunk : K) - kb;
-  float acc[4][4];
-  zero(acc);
-  tile64(X + kb * M, M, m0, Y + kb * N, N, n0, rows, st, acc);
-  store_tile(out + (size_t)blockIdx.z * M * N, M, N, m0, n0, acc);
-}
-
-struct AtbPlan {
-  int splits;
-  long long chunk;
-};
-
-// Row split: enough blocks to fill the card twice over, at least 64 rows each.
-inline AtbPlan atb_plan(long long K, int M, int N) {
-  const long long s = fill_splits(cdiv(M, BT) * cdiv(N, BT), cdiv(K, 64));
-  const long long chunk = cdiv(cdiv(K, s), BK) * BK;
-  return {(int)cdiv(K, chunk), chunk};
-}
-
-// Floats of scratch atb_launch needs (the per-split partials).
-inline long long atb_scratch_floats(long long K, int M, int N) {
-  const AtbPlan p = atb_plan(K, M, N);
-  return p.splits > 1 ? (long long)p.splits * M * N : 0;
-}
-
-inline void atb_launch(const float* X, const float* Y, long long K, int M, int N, float* out,
-                       float* scratch, cudaStream_t stream) {
-  const AtbPlan p = atb_plan(K, M, N);
-  dim3 grid((unsigned)cdiv(N, BT), (unsigned)cdiv(M, BT), (unsigned)p.splits);
-  atb_kernel<<<grid, THREADS, 0, stream>>>(X, Y, K, M, N, p.chunk, p.splits > 1 ? scratch : out);
-  if (p.splits > 1) launch_sum_partials(scratch, out, 1, p.splits, (long long)M * N, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -36,10 +36,18 @@
 #include <stdint.h>
 
 #include "common.cuh"  // bp::cdiv, bp::num_sms
+#include "tf32x3.cuh"  // cp.async, the hi/lo split, mma.sync m16n8k8
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using tf32x3::cp_async16;
+using tf32x3::cp_async4;
+using tf32x3::cp_commit;
+using tf32x3::cp_wait;
+using tf32x3::mma_tf32;
+using tf32x3::split_tf32;
 
 constexpr int BM = 128, BN = 64;  // output tile
 constexpr int PA = BM + 8, PB = BN + 8;  // padded rows of the staged A and B
@@ -50,42 +58,6 @@ constexpr int MAX_CLUSTER = 8;
 constexpr int STAGE_FLOATS = RS * (PA + PB);
 // The ring, and after the main loop the block's partial tile [BM][BN].
 constexpr int SMEM_FLOATS = STAGES * STAGE_FLOATS > BM * BN ? STAGES * STAGE_FLOATS : BM * BN;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = hi + lo, both TF32 (10-bit mantissas), |x − hi − lo| ≤ 2^-22·|x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// d += a·b for one m16n8k8 tile: a row-major 16x8, b column-major 8x8.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // One stage: rows [k0, k0 + RS) ∩ [k0, k_end) of the tile's A columns [m0, m0
 // + BM) into as [RS][PA] and B columns [n0, n0 + BN) into bs [RS][PB], zeros

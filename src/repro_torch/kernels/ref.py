@@ -10,9 +10,10 @@ from typing import Dict
 import torch
 
 
-def sq_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """C[a,b] = Σ_n A²[n,a] B²[n,b] — the paper's (A∘A)ᵀ(B∘B) (App. A.1)."""
-    Af, Bf = A.float(), B.float()
+def sq_matmul(A: torch.Tensor, B: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """C[a,b] = Σ_n A²[n,a] B²[n,b] — the paper's (A∘A)ᵀ(B∘B) (App. A.1),
+    in ``dtype`` (float64: the exact formula of the card checks)."""
+    Af, Bf = A.to(dtype), B.to(dtype)
     return (Af * Af).T @ (Bf * Bf)
 
 
@@ -45,15 +46,17 @@ def ggn_diag(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     return (t * t).sum(dim=(0, 1))
 
 
-def cross_dot(A1, B1, A2, B2) -> torch.Tensor:
+def cross_dot(A1, B1, A2, B2, dtype=torch.float32) -> torch.Tensor:
     """out[e,n,m] = ⟨G1[e,n], G2[e,m]⟩ for G = A_nᵀB_n — cross-block Gram.
 
-    A1/B1: [E, N1, R, a/b], A2/B2: [E, N2, R, a/b] → [E, N1, N2] float32.
-    The row-block × row-block generalisation of the BatchDot Gram: two row
-    sets, a leading group axis E (classes for the class-wise NTK).
+    A1/B1: [E, N1, R, a/b], A2/B2: [E, N2, R, a/b] → [E, N1, N2] in
+    ``dtype`` (float32; float64 is the exact formula the card checks hold
+    the 3xTF32 kernel to).  The row-block × row-block generalisation of the
+    BatchDot Gram: two row sets, a leading group axis E (classes for the
+    class-wise NTK).
     """
-    g1 = torch.einsum("enra,enrb->enab", A1.float(), B1.float())
-    g2 = torch.einsum("emra,emrb->emab", A2.float(), B2.float())
+    g1 = torch.einsum("enra,enrb->enab", A1.to(dtype), B1.to(dtype))
+    g2 = torch.einsum("emra,emrb->emab", A2.to(dtype), B2.to(dtype))
     return torch.einsum("enab,emab->enm", g1, g2)
 
 
@@ -72,13 +75,14 @@ def predictive_var(A, S, Sigma=None) -> torch.Tensor:
 
 
 def fused_second_order(A, S, want_diag=True, want_kron=False,
-                       want_trace=False) -> Dict[str, torch.Tensor]:
+                       want_trace=False, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """t[c,n] = A_nᵀ S_cn, reduced.
 
-    A: [N, R, a], S: [C, N, R, b] → dict of requested float32 stats
-    (diag [a, b] · kron [b, b] (unscaled SᵀS) · trace [N]).
+    A: [N, R, a], S: [C, N, R, b] → dict of requested stats in ``dtype``
+    (float32; float64 for the card checks of the 3xTF32 kernel): diag
+    [a, b] · kron [b, b] (unscaled SᵀS) · trace [N].
     """
-    Af, Sf = A.float(), S.float()
+    Af, Sf = A.to(dtype), S.to(dtype)
     out = {}
     if want_diag or want_trace:
         t = torch.einsum("nra,cnrb->cnab", Af, Sf)

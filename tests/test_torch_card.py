@@ -18,13 +18,22 @@ flash_attention's tensor-core design ("wgmma") at g = 5 and 1, dh 64 and
 at the configs' wider heads (120, 128, 192 with dv 128, 240); wkv also at
 Hymba's full prefill width and at a dv off its column slice, held row by
 row in bf16; sq_matmul's and wkv's calls give the same bits from call to
-call; the reduced Hymba serves on the card as on the CPU.
+call; the reduced Hymba serves on the card as on the CPU.  The two 3xTF32
+kernels, cross_dot and fused_second_order, are also held to their formula in
+float64 (``chip_smoke.F64_TOL`` whole-tensor, ``ENTRY_TOL`` entry by entry),
+off the 3C3D shapes too (shared, per-group and fewer-row A sides, C = 1, 3,
+10 and 13, widths and rows off the tiles), and give the same bits from call
+to call.
 """
 import itertools
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import ENTRY_TOL, F64_TOL, f64_readings  # noqa: E402
 from repro_torch.configs import papernets
 from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -63,6 +72,14 @@ def _card_close(kernel, plain):
         assert err.item() < CARD_TOL, (k, err.item())
 
 
+def _f64_close(name, kernel, exact):
+    """The 3xTF32 kernels against their formula in float64: chip_smoke.py's
+    whole-tensor and entry-by-entry limits."""
+    torch.cuda.synchronize()
+    r = f64_readings(torch, name, kernel, exact)
+    assert r["rel64"] <= F64_TOL and r["entry_median"] <= ENTRY_TOL, r
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("groups", [1, 2])
 @pytest.mark.parametrize("layer", sorted(CONV))
@@ -83,8 +100,10 @@ def test_card_fused_second_order(cuda, layer, classes):
     A = torch.randn(n, r, a, device="cuda", generator=cuda)
     S = torch.randn(classes, n, r, b, device="cuda", generator=cuda)
     for mask in SECOND_MASKS:
-        _card_close(ops.fused_second_order(A, S, **mask),
-                    ref.fused_second_order(A, S, **mask))
+        got = ops.fused_second_order(A, S, **mask)
+        _card_close(got, ref.fused_second_order(A, S, **mask))
+        _f64_close("fused_second_order", got,
+                   ref.fused_second_order(A, S, **mask, dtype=torch.float64))
 
 
 @pytest.mark.gpu
@@ -144,22 +163,85 @@ def test_card_cross_dot(cuda, layer, form):
     Afull = A[None].expand(c, n, r, a)
     if form == "ntk":
         got = ops.cross_dot(A[None], S, A[None], S)
-        want = ref.cross_dot(Afull, S, Afull, S)
+        full = (Afull, S, Afull, S)
         torch.cuda.synchronize()
         assert torch.equal(got, got.transpose(1, 2))
     elif form == "ggn_gram":
         rows = S.reshape(1, c * n, r, b)
         got = ops.cross_dot(A[None], rows, A[None], rows)
         flat = Afull.reshape(1, c * n, r, a)
-        want = ref.cross_dot(flat, rows, flat, rows)
+        full = (flat, rows, flat, rows)
         torch.cuda.synchronize()
         assert torch.equal(got, got.transpose(1, 2))
     else:
         h = n // 2
         A1, A2 = A[None, :h].contiguous(), A[None, h:].contiguous()
         B1, B2 = S[:1, :h].contiguous(), S[:1, h:].contiguous()
-        got, want = ops.cross_dot(A1, B1, A2, B2), ref.cross_dot(A1, B1, A2, B2)
-    _card_close({"out": got}, {"out": want})
+        got, full = ops.cross_dot(A1, B1, A2, B2), (A1, B1, A2, B2)
+    _card_close({"out": got}, {"out": ref.cross_dot(*full)})
+    _f64_close("cross_dot", {"out": got}, {"out": ref.cross_dot(*full, dtype=torch.float64)})
+
+
+# cross_dot off the 3C3D shapes: (E, N1, N2 or None for one row set, R, a,
+# b, rows of A (a_rows; N1 when the rows pair one to one), A per group).
+CROSS = {
+    "a75_e10_shared_a": (10, 128, None, 32, 75, 64, 128, False),
+    "n127_off_tile_widths": (1, 127, None, 9, 70, 130, 127, False),
+    "e1_a_rows_below_n": (1, 160, None, 16, 36, 40, 40, False),
+    "e10_a_per_group": (10, 64, None, 16, 50, 24, 64, True),
+    "two_row_sets_ragged": (2, 50, 77, 12, 33, 20, 50, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CROSS))
+def test_card_cross_dot_cases(cuda, case):
+    """Shared, per-group and fewer-row A sides, one row set (symmetric bit
+    for bit) and two, widths and rows off the tiles: float32 and float64
+    agreement, and the same bits from call to call."""
+    e, n1, n2, r, a, b, a_rows, per_group = CROSS[case]
+
+    def side(n, rows):
+        A = torch.randn(e if per_group else 1, rows, r, a, device="cuda", generator=cuda)
+        return A, torch.randn(e, n, r, b, device="cuda", generator=cuda)
+
+    A1, B1 = side(n1, a_rows)
+    A2, B2 = (A1, B1) if n2 is None else side(n2, n2)
+    got = ops.cross_dot(A1, B1, A2, B2)
+    full = (ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2)
+    _card_close({"out": got}, {"out": ref.cross_dot(*full)})
+    _f64_close("cross_dot", {"out": got}, {"out": ref.cross_dot(*full, dtype=torch.float64)})
+    assert torch.equal(got, ops.cross_dot(A1, B1, A2, B2))
+    if n2 is None:
+        assert torch.equal(got, got.transpose(1, 2))
+
+
+# fused_second_order off the 3C3D shapes: (C, N, R, a, b).
+SECOND = {
+    "a75_exact": (10, 128, 64, 75, 64),
+    "n127_off_tile_widths": (10, 127, 9, 70, 130),
+    "mc_c1_ragged": (1, 127, 9, 70, 130),
+    "c3_part_of_a_class_block": (3, 40, 16, 50, 36),
+    "c13_two_class_blocks": (13, 24, 16, 40, 72),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SECOND))
+def test_card_fused_second_order_cases(cuda, case):
+    """Every output mask (kron alone is KFAC's call) at classes C = 1, 3, 10
+    and 13 and widths and rows off the tiles: float32 and float64
+    agreement, and the same bits from call to call."""
+    c, n, r, a, b = SECOND[case]
+    A = torch.randn(n, r, a, device="cuda", generator=cuda)
+    S = torch.randn(c, n, r, b, device="cuda", generator=cuda)
+    for mask in SECOND_MASKS:
+        got = ops.fused_second_order(A, S, **mask)
+        _card_close(got, ref.fused_second_order(A, S, **mask))
+        _f64_close("fused_second_order", got,
+                   ref.fused_second_order(A, S, **mask, dtype=torch.float64))
+        again = ops.fused_second_order(A, S, **mask)
+        assert all(torch.equal(got[k], again[k]) for k in got)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""How much the float64 checks of ``chip_smoke.py`` can see in the two
+3xTF32 kernels: plant faults in ``cross_dot`` and ``fused_second_order`` and
+read every check.
+
+    python3 tools/cross_dot_fault.py
+
+Needs one CUDA card and nvcc.  Builds the sources as they are and four
+copies with a fault planted, under ``build/fault/cross_dot/<name>/`` (the
+sources themselves are not touched):
+
+* ``split_skipped`` (cross_dot): ``split_tf32`` in ``tf32x3.cuh`` leaves
+  the lo parts 0, so both stages run in 1xTF32 (hi·hi alone);
+* ``partial_dropped`` (cross_dot): the Gram stage's split-K partial in the
+  middle of K (split splits / 2) is written as zeros;
+* ``unpromoted`` (cross_dot): the Gram stage carries a split's whole sum in
+  the tensor cores' accumulator instead of adding each stage into float32
+  registers (``tf32x3::promote``'s reason);
+* ``fso_split_skipped`` (fused_second_order): the same split fault, in t
+  and kron.
+
+Each build runs its kernel at ``chip_smoke.backpack_cases``' rows (3C3D at
+batch 128, inputs from seed 0 as in ``chip_smoke.py``) and prints one JSON
+line a (build, row) with the readings ``chip_smoke.py`` limits: ``rel``
+(max |kernel − plain float32| / max |plain|, limit ``TOL``), ``rel64``
+(against the formula in float64, limit ``F64_TOL``) and ``entry_median``
+(entry by entry against float64, limit ``ENTRY_TOL``), and whether each
+holds.  A last line counts, for each build, the rows each limit fails.
+Exits non-zero if the unchanged kernels fail a limit or a planted fault
+passes every limit at every row.
+"""
+import json
+import shutil
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+# name: (kernel, [(file, anchor, replacement), ...]); each anchor occurs once.
+SPLIT = ("tf32x3.cuh",
+         '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));',
+         "  lo = 0u;")
+FAULTS = {
+    "split_skipped": ("cross_dot", [SPLIT]),
+    "partial_dropped": ("cross_dot", [(
+        "cross_dot.cu", "  float* dst = out + ((long long)e * splits + sp) * N1 * N2;",
+        "  if (sp == splits / 2)\n    for (int x = 0; x < 64; ++x) acc[x] = 0.f;\n"
+        "  float* dst = out + ((long long)e * splits + sp) * N1 * N2;")]),
+    "unpromoted": ("cross_dot", [
+        ("cross_dot.cu", "hopper::sw128_desc(bhi + 32 * kk), kk > 0);",
+         "hopper::sw128_desc(bhi + 32 * kk), it > 0 || kk > 0);"),
+        ("cross_dot.cu", "      acc[x] += tc[x];", "      acc[x] = tc[x];")]),
+    "fso_split_skipped": ("fused_second_order", [SPLIT]),
+}
+
+
+def planted(csrc: Path, name: str) -> Path:
+    """A copy of ``csrc`` with fault ``name`` planted."""
+    out = ROOT / "build" / "fault" / "cross_dot" / name / "csrc"
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(csrc, out)
+    for file, old, new in FAULTS[name][1]:
+        src = (out / file).read_text()
+        if src.count(old) != 1:
+            sys.exit(f"{name}: the anchor does not occur once in {csrc / file}: {old}")
+        (out / file).write_text(src.replace(old, new))
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAILED: no CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import ENTRY_TOL, F64_TOL, TOL, backpack_cases, f64_readings
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import batch_l2 as l2_mod
+    from repro_torch.kernels import cross_dot as cd_mod
+    from repro_torch.kernels import fused_second_order as fso_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    modules = {"cross_dot": (cd_mod, cd_mod.cross_dot_cuda),
+               "fused_second_order": (fso_mod, fso_mod.fused_second_order_cuda)}
+    plain = {"cross_dot": lambda A1, B1, A2, B2, **w: ref.cross_dot(
+                 ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2, **w),
+             "fused_second_order": ref.fused_second_order}
+    rows = []  # (kernel, label, args, kw, plain float32, float64)
+    for kernel, label, _, _, args, kw, *_ in backpack_cases(torch, randn, gen, l2_mod):
+        if kernel in modules:
+            want, want64 = (plain[kernel](*args, **kw, dtype=d)
+                            for d in (torch.float32, torch.float64))
+            if not isinstance(want, dict):
+                want, want64 = {"out": want}, {"out": want64}
+            rows.append((kernel, label, args, kw, want, want64))
+
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    builds = {"unchanged": (None, csrc, build_dir)}
+    for name, (kernel, _) in FAULTS.items():
+        fault_csrc = planted(csrc, name)
+        builds[name] = (kernel, fault_csrc, fault_csrc.parent / "kernels")
+    ok, summary = True, {}
+    for name, (only, src, lib_dir) in builds.items():
+        _build.CSRC, _build.BUILD_DIR = src, lib_dir
+        fails = summary[name] = dict(rows=0, tol=0, f64=0, entry=0)
+        for kernel, label, args, kw, want, want64 in rows:
+            if only not in (None, kernel):
+                continue
+            mod, wrapper = modules[kernel]
+            mod._lib.cache_clear()
+            got = wrapper(*args, **kw)
+            got = got if isinstance(got, dict) else {"out": got}
+            torch.cuda.synchronize()
+            rel = max(((got[k] - want[k]).abs().max() / want[k].abs().max()).item()
+                      for k in want)
+            line = dict(build=name, kernel=kernel, shape=label, rel=rel,
+                        **f64_readings(torch, kernel, got, want64))
+            line.update(tol_passes=rel <= TOL, f64_passes=line["rel64"] <= F64_TOL,
+                        entry_passes=line["entry_median"] <= ENTRY_TOL)
+            print(json.dumps(line), flush=True)
+            fails["rows"] += 1
+            for check in ("tol", "f64", "entry"):
+                fails[check] += not line[f"{check}_passes"]
+            del got
+        if name == "unchanged":
+            ok &= fails["tol"] == fails["f64"] == fails["entry"] == 0
+        else:
+            ok &= fails["tol"] + fails["f64"] + fails["entry"] > 0
+    _build.CSRC, _build.BUILD_DIR = csrc, build_dir
+    for mod, _ in modules.values():
+        mod._lib.cache_clear()
+    print(json.dumps({"ok": ok, "failing_rows": summary, "TOL": TOL, "F64_TOL": F64_TOL,
+                      "ENTRY_TOL": ENTRY_TOL}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
