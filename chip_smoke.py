@@ -55,11 +55,12 @@ that ran (``flash_attention.design``: "wgmma" for bf16 prefill at dh = dv ∈
 {64, 128}, "simt" else, the other configs' wider heads included).  bf16
 attention and wkv outputs are also held row by row (``ROW_TOL``).
 
-cross_dot and fused_second_order (3xTF32 on the tensor cores) are also held
-to their formula evaluated in float64 on the card, whole-tensor
-(``F64_TOL``) and entry by entry (``ENTRY_TOL``); sq_matmul's float64
-readings are printed.  cross_dot's one-row-set rows must be symmetric bit
-for bit.  Every float32 row also carries a second bound, 3 × its matrix
+cross_dot, fused_second_order, fused_first_order and per_sample_moment
+(3xTF32 on the tensor cores) are also held to their formula evaluated in
+float64 on the card, whole-tensor (``F64_TOL``) and entry by entry
+(``ENTRY_TOL``); sq_matmul's float64 readings are printed.  cross_dot's
+one-row-set rows and fused_first_order's dot must be symmetric bit for bit,
+and fused_first_order's l2 equal to dot's diagonal bit for bit.  Every float32 row also carries a second bound, 3 × its matrix
 products' operations at the TF32 rate (``bound_tf32_ms``), and its share of
 it.
 
@@ -104,7 +105,7 @@ BF16_TOL = 1e-2
 # tools/flash_attention_fault.py and tools/wkv_fault.py).
 ROW_TOL = 2e-2
 ROW_CHECKED = ("flash_attention", "wkv")  # their y / out rows, enforced on bf16
-# The two redesigned 3xTF32 kernels are also held to the same formula in
+# The 3xTF32 kernels of the BackPACK paths are also held to the same formula in
 # float64 on the card (ref.* with dtype=float64): TOL against the float32
 # plain version cannot tell 3xTF32 from 1xTF32 (the hi parts alone, ≈ 3
 # decimal digits), which reads ≈ 3e-5 whole-tensor at cross_dot's conv3
@@ -112,7 +113,7 @@ ROW_CHECKED = ("flash_attention", "wkv")  # their y / out rows, enforced on bf16
 # sum order.  sq_matmul's readings are printed, not limited: it carries its
 # sums in the tensor cores' accumulator (tf32x3.cuh, promote), ≈ 7e-6 at
 # K = 1280.
-F64_CHECKED = ("cross_dot", "fused_second_order")
+F64_CHECKED = ("cross_dot", "fused_second_order", "fused_first_order", "per_sample_moment")
 F64_READ = F64_CHECKED + ("sq_matmul",)
 # max over outputs of max |kernel − f64| / max |f64|: float32 sums over up
 # to 110,592 terms read ≤ 9.4e-7 at 3C3D's shapes (H100, PERF.md), the float32
@@ -121,9 +122,11 @@ F64_READ = F64_CHECKED + ("sq_matmul",)
 # PERF.md.
 F64_TOL = 3e-6
 # ...and entry by entry: the median of |kernel − f64| / |f64| over cross_dot's
-# off-diagonal entries (sums with cancellation, where 1xTF32 loses ≈ 3e-5 of
-# an entry) and over the sums of squares (fused_second_order's diag, trace
-# and kron diagonal; sq_matmul's every entry).  The max is printed beside
+# and fused_first_order's dot's off-diagonal entries (sums with
+# cancellation, where 1xTF32 loses ≈ 3e-5 of an entry) and over the sums of
+# squares (fused_second_order's diag, trace and kron diagonal;
+# fused_first_order's l2 and moment; per_sample_moment's and sq_matmul's
+# every entry), the largest of the outputs' medians.  The max is printed beside
 # it: a near-zero entry makes it large for any float32 sum.  The kernels
 # read ≤ 6.9e-7 (1xTF32, the split skipped, 1e-5 to 5e-4); the limit keeps
 # 3x over them.
@@ -168,24 +171,26 @@ def row_rel_err(got, want):
 
 
 def f64_readings(torch, kernel, got, want64):
-    """``rel64`` (max over outputs of max |got − want64| / max |want64|) and
-    the entry-wise median and max of |got − want64| / |want64| over the
-    entries ``ENTRY_TOL`` reads (``F64_TOL``'s comment)."""
-    rel, entries = 0.0, []
+    """``rel64`` (max over outputs of max |got − want64| / max |want64|),
+    ``entry_median`` (the largest over outputs of the median of |got −
+    want64| / |want64| over the entries ``ENTRY_TOL`` reads, ``F64_TOL``'s
+    comment: so a fault in one output shows though the others hold more
+    entries) and ``entry_max`` (over all those entries)."""
+    rel, median, worst = 0.0, 0.0, 0.0
     for key, w in want64.items():
         g = got[key].reshape(w.shape).double()
         rel = max(rel, ((g - w).abs().max() / w.abs().max()).item())
         err = (g - w).abs() / w.abs()
-        if kernel == "cross_dot":  # off the diagonal of each [N1, N2] group
+        if kernel == "cross_dot" or key == "dot":  # off the diagonal of each [N1, N2] group
             n1, n2 = w.shape[-2:]
             eye = torch.eye(n1, n2, dtype=torch.bool, device=w.device).expand(w.shape)
-            entries.append(err[~eye])
+            off = err[~eye]
+            err = off if off.numel() else err.flatten()  # N = 1: the diagonal
         elif key == "kron":
-            entries.append(torch.diagonal(err))
-        else:
-            entries.append(err.flatten())
-    e = torch.cat(entries)
-    return dict(rel64=rel, entry_median=e.median().item(), entry_max=e.max().item())
+            err = torch.diagonal(err)
+        median = max(median, err.flatten().median().item())
+        worst = max(worst, err.max().item())
+    return dict(rel64=rel, entry_median=median, entry_max=worst)
 
 
 def medians_ms(samples):
@@ -844,6 +849,11 @@ def main():
         if kernel == "cross_dot" and "two row sets" not in label and not torch.equal(
                 got["out"], got["out"].transpose(1, 2)):
             fail(f"cross_dot {label}: one row set, but not symmetric bit for bit")
+        if kernel == "fused_first_order" and not (
+                torch.equal(got["dot"], got["dot"].T)
+                and torch.equal(got["l2"], torch.diagonal(got["dot"]))):
+            fail(f"fused_first_order {label}: dot not symmetric, or l2 not its diagonal, "
+                 "bit for bit")
         if kernel in ROW_CHECKED and tol == BF16_TOL and not extra["row_rel_err"] <= ROW_TOL:
             fail(f"{kernel} {label}: row error {extra['row_rel_err']:.3e} above {ROW_TOL}")
         # bf16 prefill at dh = dv ∈ {64, 128} takes the tensor cores; decode,

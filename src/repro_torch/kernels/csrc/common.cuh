@@ -6,10 +6,9 @@
 // and float4 shared-memory reads.  One kernel is built on it:
 //   * sq_stats_kernel: per-sample products t = X_nᵀY_cn squared and reduced
 //     in registers, Σ_cn t² per element and Σ_c,elements t² per sample, so t
-//     never reaches device memory (per_sample_moment, ggn_diag, batch_l2's
-//     G form, the fused first-order kernel's moment and l2 when no dot is
-//     asked for); or, in its variance mode, Σ_elements t² [· Σ] per (c, n)
-//     (the GLM predictive variance).
+//     never reaches device memory (ggn_diag, batch_l2's G form); or, in
+//     its variance mode, Σ_elements t² [· Σ] per (c, n) (the GLM predictive
+//     variance).
 // Sums across blocks never use atomics: each block writes its own partial and
 // sum_partials adds them in a fixed order, so every result is the same from
 // run to run.

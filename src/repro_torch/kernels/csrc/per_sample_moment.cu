@@ -5,23 +5,31 @@
 // Replaces the Pallas kernel per_sample_moment_pallas
 // (src/repro/kernels/per_sample_moment.py:38).
 //
-// Bound on the H100: fp32 operations.  Forming G_n = A_nᵀB_n costs 2·N·R·a·b
-// operations against N·R·(a+b) input floats: hundreds of operations a byte at
-// the 3C3D conv shapes.  The point of the TPU kernel is that the N [a, b]
-// gradients never reach device memory, and that is kept: this is the diag of
-// common.cuh's sq_stats_kernel with one class.  One block owns a 64x64 (a, b)
-// tile and a group of samples; G_n is a 4x4 register tile a thread, squared
-// and summed in registers.  The sample groups put about two blocks on every SM
-// when the feature tiles are few (conv1: 2 tiles; N = 1280 in the exact
-// sweep: 128 groups of 10 samples), and their partials are added in a fixed
-// order by a second pass: deterministic, no atomics.
-#include "common.cuh"
+// Bound on the H100: operations in float32, and in 3xTF32 bytes where the
+// rows are many (the exact diagonal's 1280 rows read ≈ 1.9 GB over the three
+// conv layers).  Forming G_n = A_nᵀB_n costs 2·N·R·a·b operations against
+// N·R·(a+b) input floats.  The point of the TPU kernel is that the N [a, b]
+// gradients never reach device memory, and that is kept: this is
+// fused_first_order's moment without a group axis, xty.cuh's one-class
+// per-sample product with the SQUARE epilogue.  G_n runs on the tensor cores
+// in 3xTF32 by mma.sync (three TF32 products a k-step, each 16 rows' sum
+// promoted into float32 registers on the CUDA cores), a block owning an
+// (a, b) tile and walking a group of samples through one cp.async ring;
+// after a sample's last stage the promoted tile is squared into float32
+// moment registers.  The blocks of one sample group are issued tile-fastest,
+// so each row of A and B comes from device memory once and from L2 for the
+// other tiles.  The sample groups fill whole waves, each block writes its own
+// moment partial, and a second pass adds them in a fixed order:
+// deterministic, no atomics.
+#include "xty.cuh"
 
-extern "C" long long per_sample_moment_scratch_floats(int N, int a, int b) {
-  return bp::sq_stats_scratch_floats(1, N, a, b, true, false);
+extern "C" long long per_sample_moment_scratch_floats(int N, int R, int a, int b) {
+  return tf32x3::per_sample_scratch_floats<tf32x3::XTY_SQUARE>(
+      tf32x3::per_sample_args(nullptr, nullptr, 1, N, R, a, b));
 }
 
 extern "C" int per_sample_moment_launch(const float* A, const float* B, int N, int R, int a,
                                         int b, float* out, float* scratch, cudaStream_t stream) {
-  return (int)bp::sq_stats(true, false, A, B, 1, 1, N, R, a, b, out, nullptr, scratch, stream);
+  return (int)tf32x3::per_sample_launch<tf32x3::XTY_SQUARE>(
+      tf32x3::per_sample_args(A, B, 1, N, R, a, b), nullptr, 0, out, nullptr, scratch, stream);
 }

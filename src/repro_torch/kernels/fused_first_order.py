@@ -2,9 +2,10 @@
 ``csrc/fused_first_order.cu``.
 
 Replaces the Pallas kernel ``fused_first_order_pallas``
-(``src/repro/kernels/fused_first_order.py:87``).  One launch emits the masked
-{l2, moment, dot} reductions of the per-sample gradients G[e,n] = A_nᵀB_n
-without writing G to device memory.  The source note in the ``.cu`` file says
+(``src/repro/kernels/fused_first_order.py:87``).  One call emits the masked
+{l2, moment, dot} reductions of the per-sample gradients G[e,n] = A_nᵀB_n on
+the tensor cores in 3xTF32; G reaches device memory only when dot is asked
+for, and then once, for the Gram.  The source note in the ``.cu`` file says
 what bounds it on the H100 and how the design answers that; the plain version
 is :func:`repro_torch.kernels.ref.fused_first_order`.
 """
@@ -26,7 +27,7 @@ REPLACES = "src/repro/kernels/fused_first_order.py:87"
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_first_order")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_first_order_scratch_floats.argtypes = [I, I, I, I, I, I, I]
+    lib.fused_first_order_scratch_floats.argtypes = [I, I, I, I, I, I, I, I]
     lib.fused_first_order_scratch_floats.restype = L
     lib.fused_first_order_launch.argtypes = [P, P, I, I, I, I, I, I, I, I,
                                              P, P, P, P, P]
@@ -62,7 +63,7 @@ def fused_first_order_cuda(A: torch.Tensor, B: torch.Tensor, want_l2=True,
         if want_dot:
             out["dot"] = new(e, n, n)
         scratch = new(lib.fused_first_order_scratch_floats(
-            e, n, a, b, int(want_l2), int(want_moment), int(want_dot)))
+            e, n, r, a, b, int(want_l2), int(want_moment), int(want_dot)))
         ptr = {k: v.data_ptr() for k, v in out.items()}
         code = lib.fused_first_order_launch(
             A.data_ptr(), B.data_ptr(), e, n, r, a, b,

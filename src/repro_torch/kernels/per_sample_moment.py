@@ -26,7 +26,7 @@ REPLACES = "src/repro/kernels/per_sample_moment.py:38"
 def _lib() -> ctypes.CDLL:
     lib = _build.load("per_sample_moment")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.per_sample_moment_scratch_floats.argtypes = [I, I, I]
+    lib.per_sample_moment_scratch_floats.argtypes = [I, I, I, I]
     lib.per_sample_moment_scratch_floats.restype = L
     lib.per_sample_moment_launch.argtypes = [P, P, I, I, I, I, P, P, P]
     lib.per_sample_moment_launch.restype = I
@@ -45,7 +45,7 @@ def per_sample_moment_cuda(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     with torch.cuda.device(A.device):
         out = torch.empty((a, b), device=A.device, dtype=torch.float32)
-        scratch = torch.empty(lib.per_sample_moment_scratch_floats(n, a, b),
+        scratch = torch.empty(lib.per_sample_moment_scratch_floats(n, r, a, b),
                               device=A.device, dtype=torch.float32)
         code = lib.per_sample_moment_launch(
             A.data_ptr(), B.data_ptr(), n, r, a, b, out.data_ptr(),

@@ -17,12 +17,13 @@ def sq_matmul(A: torch.Tensor, B: torch.Tensor, dtype=torch.float32) -> torch.Te
     return (Af * Af).T @ (Bf * Bf)
 
 
-def per_sample_moment(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def per_sample_moment(A: torch.Tensor, B: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """M[a,b] = Σ_n (Σ_r A[n,r,a] B[n,r,b])² — the sequence second moment.
 
-    A: [N, R, a], B: [N, R, b] → [a, b] float32.
+    A: [N, R, a], B: [N, R, b] → [a, b] in ``dtype`` (float64: the exact
+    formula of the card checks).
     """
-    g = torch.einsum("nra,nrb->nab", A.float(), B.float())
+    g = torch.einsum("nra,nrb->nab", A.to(dtype), B.to(dtype))
     return (g * g).sum(dim=0)
 
 
@@ -98,13 +99,14 @@ def fused_second_order(A, S, want_diag=True, want_kron=False,
 
 
 def fused_first_order(A, B, want_l2=True, want_moment=False,
-                      want_dot=False) -> Dict[str, torch.Tensor]:
+                      want_dot=False, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Materialize G[e,n] = A_nᵀB_n, reduce.
 
     A: [E, N, R, a], B: [E, N, R, b] → dict of requested stats
-    (l2 [E, N] · moment [E, a, b] · dot [E, N, N]), all float32.
+    (l2 [E, N] · moment [E, a, b] · dot [E, N, N]), all in ``dtype``
+    (float32; float64 is the exact formula the card checks hold to).
     """
-    Af, Bf = A.float(), B.float()
+    Af, Bf = A.to(dtype), B.to(dtype)
     g = torch.einsum("enra,enrb->enab", Af, Bf)
     out = {}
     if want_l2:

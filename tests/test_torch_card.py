@@ -18,12 +18,13 @@ flash_attention's tensor-core design ("wgmma") at g = 5 and 1, dh 64 and
 at the configs' wider heads (120, 128, 192 with dv 128, 240); wkv also at
 Hymba's full prefill width and at a dv off its column slice, held row by
 row in bf16; sq_matmul's and wkv's calls give the same bits from call to
-call; the reduced Hymba serves on the card as on the CPU.  The two 3xTF32
-kernels, cross_dot and fused_second_order, are also held to their formula in
-float64 (``chip_smoke.F64_TOL`` whole-tensor, ``ENTRY_TOL`` entry by entry),
-off the 3C3D shapes too (shared, per-group and fewer-row A sides, C = 1, 3,
-10 and 13, widths and rows off the tiles), and give the same bits from call
-to call.
+call; the reduced Hymba serves on the card as on the CPU.  The four 3xTF32
+kernels, cross_dot, fused_second_order, fused_first_order and
+per_sample_moment, are also held to their formula in float64
+(``chip_smoke.F64_TOL`` whole-tensor, ``ENTRY_TOL`` entry by entry), off the
+3C3D shapes too (shared, per-group and fewer-row A sides, C = 1, 3, 10 and
+13, E = 1 and 3 groups, N = 1 to 1280 rows, R = 1, widths and rows off the
+tiles), and give the same bits from call to call.
 """
 import itertools
 import sys
@@ -88,8 +89,10 @@ def test_card_fused_first_order(cuda, layer, groups):
     A = torch.randn(groups, n, r, a, device="cuda", generator=cuda)
     B = torch.randn(groups, n, r, b, device="cuda", generator=cuda)
     for mask in FIRST_MASKS:
-        _card_close(ops.fused_first_order(A, B, **mask),
-                    ref.fused_first_order(A, B, **mask))
+        got = ops.fused_first_order(A, B, **mask)
+        _card_close(got, ref.fused_first_order(A, B, **mask))
+        _f64_close("fused_first_order", got,
+                   ref.fused_first_order(A, B, **mask, dtype=torch.float64))
 
 
 @pytest.mark.gpu
@@ -122,7 +125,60 @@ def test_card_per_sample_moment(cuda, layer, rows):
     n, r, a, b = CONV[layer]
     A = torch.randn(rows * n, r, a, device="cuda", generator=cuda)
     B = torch.randn(rows * n, r, b, device="cuda", generator=cuda)
-    _card_close({"out": ops.per_sample_moment(A, B)}, {"out": ref.per_sample_moment(A, B)})
+    got = {"out": ops.per_sample_moment(A, B)}
+    _card_close(got, {"out": ref.per_sample_moment(A, B)})
+    _f64_close("per_sample_moment", got,
+               {"out": ref.per_sample_moment(A, B, dtype=torch.float64)})
+
+
+# fused_first_order off the 3C3D shapes: (R, a, b) at rows N and groups E.
+FIRST_WIDTHS = {"r1_a75_b64": (1, 75, 64), "r3_a75_b64": (3, 75, 64),
+                "r1_a13_b7": (1, 13, 7), "r3_a13_b7": (3, 13, 7)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", sorted(FIRST_WIDTHS))
+@pytest.mark.parametrize("n", [1, 100, 200])
+@pytest.mark.parametrize("groups", [1, 3])
+def test_card_fused_first_order_cases(cuda, groups, n, width):
+    """Every output mask at E = 1 and 3, N = 1, 100 and 200 (one and two
+    Gram tiles), R = 1 and 3, widths off the tiles: float32 and float64
+    agreement, dot symmetric bit for bit, l2 equal to dot's diagonal bit for
+    bit (it is read from there), and the same bits from call to call."""
+    r, a, b = FIRST_WIDTHS[width]
+    A = torch.randn(groups, n, r, a, device="cuda", generator=cuda)
+    B = torch.randn(groups, n, r, b, device="cuda", generator=cuda)
+    for mask in FIRST_MASKS:
+        got = ops.fused_first_order(A, B, **mask)
+        _card_close(got, ref.fused_first_order(A, B, **mask))
+        _f64_close("fused_first_order", got,
+                   ref.fused_first_order(A, B, **mask, dtype=torch.float64))
+        if mask["want_dot"]:
+            assert torch.equal(got["dot"], got["dot"].transpose(1, 2))
+        if mask["want_dot"] and mask["want_l2"]:
+            assert torch.equal(got["l2"], torch.diagonal(got["dot"], dim1=1, dim2=2))
+        again = ops.fused_first_order(A, B, **mask)
+        assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+# per_sample_moment off the 3C3D shapes: (rows, R, a, b).
+MOMENT = {"rows1_ragged": (1, 3, 13, 7), "rows129_ragged": (129, 9, 70, 130),
+          "rows1280_a75": (1280, 16, 75, 64), "rows129_r1": (129, 1, 75, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(MOMENT))
+def test_card_per_sample_moment_cases(cuda, case):
+    """Rows of 1, 129 and 1280, R = 1 and widths off the tiles: float32 and
+    float64 agreement, and the same bits from call to call."""
+    rows, r, a, b = MOMENT[case]
+    A = torch.randn(rows, r, a, device="cuda", generator=cuda)
+    B = torch.randn(rows, r, b, device="cuda", generator=cuda)
+    got = ops.per_sample_moment(A, B)
+    _card_close({"out": got}, {"out": ref.per_sample_moment(A, B)})
+    _f64_close("per_sample_moment", {"out": got},
+               {"out": ref.per_sample_moment(A, B, dtype=torch.float64)})
+    assert torch.equal(got, ops.per_sample_moment(A, B))
 
 
 @pytest.mark.gpu

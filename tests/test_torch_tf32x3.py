@@ -1,6 +1,7 @@
-"""Why cross_dot and fused_second_order split their operands (3xTF32), and
-what ``chip_smoke.py``'s float64 limits guard: TF32 rounding emulated on the
-CPU, with no card and no JAX.
+"""Why the 3xTF32 kernels (cross_dot, fused_second_order, fused_first_order,
+per_sample_moment) split their operands, and what ``chip_smoke.py``'s
+float64 limits guard: TF32 rounding emulated on the CPU, with no card and no
+JAX.
 
 ``cvt.rna.tf32.f32`` keeps 10 of float32's 23 mantissa bits, rounding to
 nearest with ties away from zero.  A kernel in 3xTF32 splits each float32
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import ENTRY_TOL, F64_TOL  # noqa: E402
+from chip_smoke import ENTRY_TOL, F64_TOL, f64_readings  # noqa: E402
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -102,3 +103,51 @@ def test_second_order_diag_against_float64(terms):
         assert rel <= F64_TOL / 3 and median <= ENTRY_TOL / 3, (rel, median)
     else:
         assert rel > F64_TOL, (rel, median)
+
+
+def _per_sample_inputs(rows, repeat, seed):
+    """A [rows·repeat, 64, 96] (a ReLU'd normal, its rows repeated as the
+    exact diagonal's call site broadcasts the layer input over ten classes)
+    and B [rows·repeat, 64, 32] (a normal · 0.1): conv3's R 64 at widths
+    reduced for time."""
+    rng = np.random.default_rng(seed)
+    A = np.maximum(rng.standard_normal((rows, 64, 96)), 0).astype(np.float32)
+    B = (0.1 * rng.standard_normal((rows * repeat, 64, 32))).astype(np.float32)
+    return torch.from_numpy(np.tile(A, (repeat, 1, 1))), torch.from_numpy(B)
+
+
+def _assert_tells(terms, reading):
+    """3xTF32 within a third of both limits (no float32 sums here); 1xTF32
+    outside both: the card's checks fail it at every row."""
+    if terms == 3:
+        assert reading["rel64"] <= F64_TOL / 3, reading
+        assert reading["entry_median"] <= ENTRY_TOL / 3, reading
+    else:
+        assert reading["rel64"] > F64_TOL, reading
+        assert reading["entry_median"] > ENTRY_TOL, reading
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "1xtf32"])
+def test_per_sample_moment_against_float64(terms):
+    """per_sample_moment's Σ_n (A_nᵀB_n)∘² at the exact diagonal's 1280 rows
+    (128 samples × 10 classes), as chip_smoke reads it."""
+    A, B = _per_sample_inputs(128, 10, seed=2)
+    want = torch.einsum("nra,nrb->nab", A.double(), B.double()).square().sum(0)
+    got = product(A, B, "nra,nrb->nab", terms).square().sum(0)
+    _assert_tells(terms, f64_readings(torch, "per_sample_moment", {"out": got},
+                                      {"out": want}))
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "1xtf32"])
+def test_first_order_dot_and_moment_against_float64(terms):
+    """fused_first_order at 128 rows: G_n in 3xTF32 (or 1xTF32), the moment
+    Σ_n G∘G and l2 from it, and dot = G Gᵀ from G stored in float32 and split
+    again for the Gram, as the card computes it; dot's entries read off the
+    diagonal."""
+    A, B = _per_sample_inputs(128, 1, seed=3)
+    G64 = torch.einsum("nra,nrb->nab", A.double(), B.double()).flatten(1)
+    want = dict(l2=G64.square().sum(1), moment=G64.square().sum(0), dot=G64 @ G64.T)
+    G = product(A, B, "nra,nrb->nab", terms).flatten(1)
+    got = dict(l2=G.square().sum(1), moment=G.square().sum(0),
+               dot=product(G.float(), G.float(), "nk,mk->nm", terms))
+    _assert_tells(terms, f64_readings(torch, "fused_first_order", got, want))

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""How much the float64 checks of ``chip_smoke.py`` can see in the two
-3xTF32 kernels: plant faults in ``cross_dot`` and ``fused_second_order`` and
-read every check.
+"""How much the float64 checks of ``chip_smoke.py`` can see in the 3xTF32
+kernels: plant faults in ``cross_dot``, ``fused_second_order``,
+``fused_first_order`` and ``per_sample_moment`` and read every check.
 
-    python3 tools/cross_dot_fault.py
+    python3 tools/cross_dot_fault.py [FAULT ...]
 
-Needs one CUDA card and nvcc.  Builds the sources as they are and four
-copies with a fault planted, under ``build/fault/cross_dot/<name>/`` (the
-sources themselves are not touched):
+Needs one CUDA card and nvcc.  Builds the sources as they are and a copy
+for each fault named (every fault when none is), with the fault planted,
+under ``build/fault/cross_dot/<name>/`` (the sources themselves are not
+touched):
 
 * ``split_skipped`` (cross_dot): ``split_tf32`` in ``tf32x3.cuh`` leaves
   the lo parts 0, so both stages run in 1xTF32 (hi·hi alone);
@@ -17,7 +18,15 @@ sources themselves are not touched):
   the tensor cores' accumulator instead of adding each stage into float32
   registers (``tf32x3::promote``'s reason);
 * ``fso_split_skipped`` (fused_second_order): the same split fault, in t
-  and kron.
+  and kron;
+* ``ffo_split_skipped``, ``psm_split_skipped`` (fused_first_order,
+  per_sample_moment): the same split fault, in the per-sample product (and
+  fused_first_order's Gram);
+* ``ffo_unpromoted``, ``psm_unpromoted``: ``xty.cuh``'s per-sample product
+  carries a sample's whole sum in the tensor cores' accumulator;
+* ``ffo_partial_dropped``, ``psm_partial_dropped``: the moment partial of
+  the middle z block of each group (the only one where a group has one) is
+  written as zeros.
 
 Each build runs its kernel at ``chip_smoke.backpack_cases``' rows (3C3D at
 batch 128, inputs from seed 0 as in ``chip_smoke.py``) and prints one JSON
@@ -42,17 +51,31 @@ sys.path.insert(0, str(ROOT))
 SPLIT = ("tf32x3.cuh",
          '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));',
          "  lo = 0u;")
+XTY_UNPROMOTED = [
+    ("xty.cuh", "        float tc[1][NI][4];\n        zero(tc);\n",
+     "        float (&tc)[1][NI][4] = reinterpret_cast<float (&)[1][NI][4]>(acc[mi]);\n"),
+    ("xty.cuh", "        promote(acc[mi], tc[0]);\n", "")]
+MOMENT_DROPPED = [(
+    "xty.cuh", "    float* o = p.moment + (long long)blockIdx.y * p.M * p.N;\n",
+    "    if (blockIdx.y % p.z_blocks == p.z_blocks / 2) zero(mom);\n"
+    "    float* o = p.moment + (long long)blockIdx.y * p.M * p.N;\n")]
 FAULTS = {
     "split_skipped": ("cross_dot", [SPLIT]),
     "partial_dropped": ("cross_dot", [(
-        "cross_dot.cu", "  float* dst = out + ((long long)e * splits + sp) * N1 * N2;",
+        "gram.cuh", "  float* dst = out + ((long long)e * splits + sp) * N1 * N2;",
         "  if (sp == splits / 2)\n    for (int x = 0; x < 64; ++x) acc[x] = 0.f;\n"
         "  float* dst = out + ((long long)e * splits + sp) * N1 * N2;")]),
     "unpromoted": ("cross_dot", [
-        ("cross_dot.cu", "hopper::sw128_desc(bhi + 32 * kk), kk > 0);",
+        ("gram.cuh", "hopper::sw128_desc(bhi + 32 * kk), kk > 0);",
          "hopper::sw128_desc(bhi + 32 * kk), it > 0 || kk > 0);"),
-        ("cross_dot.cu", "      acc[x] += tc[x];", "      acc[x] = tc[x];")]),
+        ("gram.cuh", "      acc[x] += tc[x];", "      acc[x] = tc[x];")]),
     "fso_split_skipped": ("fused_second_order", [SPLIT]),
+    "ffo_split_skipped": ("fused_first_order", [SPLIT]),
+    "ffo_unpromoted": ("fused_first_order", XTY_UNPROMOTED),
+    "ffo_partial_dropped": ("fused_first_order", MOMENT_DROPPED),
+    "psm_split_skipped": ("per_sample_moment", [SPLIT]),
+    "psm_unpromoted": ("per_sample_moment", XTY_UNPROMOTED),
+    "psm_partial_dropped": ("per_sample_moment", MOMENT_DROPPED),
 }
 
 
@@ -73,6 +96,10 @@ def planted(csrc: Path, name: str) -> Path:
 def main() -> int:
     import torch
 
+    names = sys.argv[1:] or list(FAULTS)
+    unknown = [n for n in names if n not in FAULTS]
+    if unknown:
+        sys.exit(f"unknown faults {unknown}; the faults are {list(FAULTS)}")
     if not torch.cuda.is_available():
         print("FAILED: no CUDA card", file=sys.stderr)
         return 1
@@ -81,21 +108,33 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import batch_l2 as l2_mod
     from repro_torch.kernels import cross_dot as cd_mod
+    from repro_torch.kernels import fused_first_order as ffo_mod
     from repro_torch.kernels import fused_second_order as fso_mod
+    from repro_torch.kernels import per_sample_moment as psm_mod
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
+    def first_order(A, B, **w):  # the rows are [N, R, a]: one group
+        out = ffo_mod.fused_first_order_cuda(A[None], B[None], **w)
+        return {k: v[0] for k, v in out.items()}
+
     modules = {"cross_dot": (cd_mod, cd_mod.cross_dot_cuda),
-               "fused_second_order": (fso_mod, fso_mod.fused_second_order_cuda)}
+               "fused_second_order": (fso_mod, fso_mod.fused_second_order_cuda),
+               "fused_first_order": (ffo_mod, first_order),
+               "per_sample_moment": (psm_mod, psm_mod.per_sample_moment_cuda)}
     plain = {"cross_dot": lambda A1, B1, A2, B2, **w: ref.cross_dot(
                  ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2, **w),
-             "fused_second_order": ref.fused_second_order}
+             "fused_second_order": ref.fused_second_order,
+             "fused_first_order": lambda A, B, **w: {
+                 k: v[0] for k, v in ref.fused_first_order(A[None], B[None], **w).items()},
+             "per_sample_moment": ref.per_sample_moment}
+    kernels = {FAULTS[n][0] for n in names}
     rows = []  # (kernel, label, args, kw, plain float32, float64)
     for kernel, label, _, _, args, kw, *_ in backpack_cases(torch, randn, gen, l2_mod):
-        if kernel in modules:
+        if kernel in kernels:
             want, want64 = (plain[kernel](*args, **kw, dtype=d)
                             for d in (torch.float32, torch.float64))
             if not isinstance(want, dict):
@@ -104,7 +143,8 @@ def main() -> int:
 
     csrc, build_dir = _build.CSRC, _build.BUILD_DIR
     builds = {"unchanged": (None, csrc, build_dir)}
-    for name, (kernel, _) in FAULTS.items():
+    for name in names:
+        kernel = FAULTS[name][0]
         fault_csrc = planted(csrc, name)
         builds[name] = (kernel, fault_csrc, fault_csrc.parent / "kernels")
     ok, summary = True, {}

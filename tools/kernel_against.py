@@ -6,7 +6,8 @@ their times in turns.
     python3 tools/kernel_against.py --kernel NAME --csrc DIR [--bits] [--iters K]
 
 Needs one CUDA card and nvcc.  ``NAME`` is ``wkv``, ``sq_matmul``,
-``cross_dot`` or ``fused_second_order``.  ``DIR`` holds the older
+``cross_dot``, ``fused_second_order``, ``fused_first_order`` or
+``per_sample_moment``.  ``DIR`` holds the older
 ``NAME.cu`` and its headers (for example the ``src/repro_torch/kernels/csrc``
 of an older commit, unpacked with ``git archive``); it is built under
 ``build/against/NAME/``, this checkout's source under ``build/kernels/``.  The
@@ -17,9 +18,13 @@ widths) and ``chip_smoke.backpack_cases``' rows of the kernel for the others
 For each row it prints one JSON line: whether every output of the two
 builds is equal to the bit (``torch.equal``); each build's event ms a launch
 (``--iters`` launches after 2, default 100), taken in three rounds of turns
-(older, this, this, older), with the median of its six readings; and, after
-every row's event times, each build's device ms a launch from a profiler
-window of 10 launches, in all and by kernel name.  Both builds are called through the same wrapper
+(older, this, this, older), with the median of its six readings; each build's device memory
+a call needs beyond its inputs and outputs' (``peak_bytes``: outputs and
+scratch, from ``max_memory_allocated``); and, after every row's event
+times, each build's device ms a launch from a profiler window of 10
+launches, in all and by kernel name.  An older source whose scratch query
+lacks the row count R (fused_first_order and per_sample_moment before
+their 3xTF32 designs) is called without it.  Both builds are called through the same wrapper
 (``NAME_cuda``), so the host's share of an event time is the same for both.
 With ``--bits`` (a source whose arithmetic was not meant to change) it exits
 non-zero if a row's bits differ.
@@ -27,6 +32,7 @@ non-zero if a row's bits differ.
 import argparse
 import importlib
 import json
+import re
 import sys
 from pathlib import Path
 from statistics import median
@@ -35,7 +41,29 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("wkv", "sq_matmul", "cross_dot", "fused_second_order")
+KERNELS = ("wkv", "sq_matmul", "cross_dot", "fused_second_order", "fused_first_order",
+           "per_sample_moment")
+# The scratch queries that gained R, and where it stands among their arguments.
+R_JOINED = {"fused_first_order": 2, "per_sample_moment": 1}
+
+
+def without_r(lib, src: Path, name: str):
+    """``lib`` as this checkout's wrapper calls it: where the older source's
+    scratch query takes no R, it is dropped from the call."""
+    fn = f"{name}_scratch_floats"
+    params = re.search(rf"{fn}\(([^)]*)\)", (src / f"{name}.cu").read_text())
+    if name not in R_JOINED or "int R" in params.group(1):
+        return lib
+    query, at = getattr(lib, fn), R_JOINED[name]
+    query.argtypes = query.argtypes[:at] + query.argtypes[at + 1:]
+
+    class Older:
+        def __getattr__(self, attr):
+            if attr == fn:
+                return lambda *a: query(*a[:at], *a[at + 1:])
+            return getattr(lib, attr)
+
+    return Older()
 
 
 def outputs(out):
@@ -68,6 +96,11 @@ def main() -> int:
     name = args.kernel
     mod = importlib.import_module(f"repro_torch.kernels.{name}")
     wrapper = getattr(mod, f"{name}_cuda")
+    if name == "fused_first_order":  # chip_smoke's rows are [N, R, a]: one group
+        cuda = wrapper
+
+        def wrapper(A, B, **kw):
+            return {k: v[0] for k, v in cuda(A[None], B[None], **kw).items()}
 
     def load(src, lib_dir):
         """The kernel's library built from ``src`` into ``lib_dir``, declared
@@ -76,7 +109,7 @@ def main() -> int:
         _build.CSRC, _build.BUILD_DIR = src, lib_dir
         mod._lib.cache_clear()
         try:
-            return mod._lib()
+            return without_r(mod._lib(), src, name)
         finally:
             _build.CSRC, _build.BUILD_DIR = saved
             mod._lib.cache_clear()
@@ -123,9 +156,18 @@ def main() -> int:
                    for a, b in zip(outs["older"], outs["this"]))
         turns = [(w, timed(lambda w=w: call(w, xs, kw)))
                  for _ in range(3) for w in ("older", "this", "this", "older")]
+        peak = {}
+        for w in libs:
+            del outs[w]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call(w, xs, kw)
+            torch.cuda.synchronize()
+            peak[f"{w}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
         rows.append(dict(shape=label, same_bits=same, rel_diff=diff, turns_ms=turns, xs=xs,
-                         kw=kw, **{f"{w}_ms": median([t for v, t in turns if v == w])
-                                   for w in libs}))
+                         kw=kw, **peak, **{f"{w}_ms": median([t for v, t in turns if v == w])
+                                           for w in libs}))
     ok = True
     for row in rows:
         xs, kw = row.pop("xs"), row.pop("kw")
