@@ -55,10 +55,12 @@ that ran (``flash_attention.design``: "wgmma" for bf16 prefill at dh = dv ∈
 {64, 128}, "simt" else, the other configs' wider heads included).  bf16
 attention and wkv outputs are also held row by row (``ROW_TOL``).
 
-cross_dot, fused_second_order, fused_first_order and per_sample_moment
-(3xTF32 on the tensor cores) are also held to their formula evaluated in
-float64 on the card, whole-tensor (``F64_TOL``) and entry by entry
-(``ENTRY_TOL``); sq_matmul's float64 readings are printed.  cross_dot's
+cross_dot, fused_second_order, fused_first_order, per_sample_moment,
+predictive_var (3xTF32 on the tensor cores) and batch_l2 (3xTF32 in its
+gradient form, float32 on the CUDA cores in its Gram form) are also held to
+their formula evaluated in float64 on the card, whole-tensor (``F64_TOL``)
+and entry by entry (``ENTRY_TOL``); sq_matmul's float64 readings are
+printed.  cross_dot's
 one-row-set rows and fused_first_order's dot must be symmetric bit for bit,
 and fused_first_order's l2 equal to dot's diagonal bit for bit.  Every float32 row also carries a second bound, 3 × its matrix
 products' operations at the TF32 rate (``bound_tf32_ms``), and its share of
@@ -105,7 +107,8 @@ BF16_TOL = 1e-2
 # tools/flash_attention_fault.py and tools/wkv_fault.py).
 ROW_TOL = 2e-2
 ROW_CHECKED = ("flash_attention", "wkv")  # their y / out rows, enforced on bf16
-# The 3xTF32 kernels of the BackPACK paths are also held to the same formula in
+# The 3xTF32 kernels of the BackPACK paths (and batch_l2's CUDA-core Gram form
+# beside its 3xTF32 gradient form) are also held to the same formula in
 # float64 on the card (ref.* with dtype=float64): TOL against the float32
 # plain version cannot tell 3xTF32 from 1xTF32 (the hi parts alone, ≈ 3
 # decimal digits), which reads ≈ 3e-5 whole-tensor at cross_dot's conv3
@@ -113,7 +116,8 @@ ROW_CHECKED = ("flash_attention", "wkv")  # their y / out rows, enforced on bf16
 # sum order.  sq_matmul's readings are printed, not limited: it carries its
 # sums in the tensor cores' accumulator (tf32x3.cuh, promote), ≈ 7e-6 at
 # K = 1280.
-F64_CHECKED = ("cross_dot", "fused_second_order", "fused_first_order", "per_sample_moment")
+F64_CHECKED = ("cross_dot", "fused_second_order", "fused_first_order", "per_sample_moment",
+               "predictive_var", "batch_l2")
 F64_READ = F64_CHECKED + ("sq_matmul",)
 # max over outputs of max |kernel − f64| / max |f64|: float32 sums over up
 # to 110,592 terms read ≤ 9.4e-7 at 3C3D's shapes (H100, PERF.md), the float32
@@ -125,11 +129,11 @@ F64_TOL = 3e-6
 # and fused_first_order's dot's off-diagonal entries (sums with
 # cancellation, where 1xTF32 loses ≈ 3e-5 of an entry) and over the sums of
 # squares (fused_second_order's diag, trace and kron diagonal;
-# fused_first_order's l2 and moment; per_sample_moment's and sq_matmul's
-# every entry), the largest of the outputs' medians.  The max is printed beside
-# it: a near-zero entry makes it large for any float32 sum.  The kernels
-# read ≤ 6.9e-7 (1xTF32, the split skipped, 1e-5 to 5e-4); the limit keeps
-# 3x over them.
+# fused_first_order's l2 and moment; per_sample_moment's, predictive_var's,
+# batch_l2's and sq_matmul's every entry), the largest of the outputs'
+# medians.  The max is printed beside it: a near-zero entry makes it large
+# for any float32 sum.  The kernels read ≤ 6.9e-7 (1xTF32, the split
+# skipped, 1e-5 to 5e-4); the limit keeps 3x over them.
 ENTRY_TOL = 2.5e-6
 # The serving path: Hymba-1.5B (32 layers, 3 global, 29 with a window of
 # 1024), 4 prompts of 2048 tokens for prefill, of 32 tokens to 128 for
@@ -767,7 +771,7 @@ def main():
     wrapper = {k: getattr(ops, k) for k in ops.KERNELS}
     plain = {k: getattr(ref, k) for k in ops.KERNELS}
     plain["fused_first_order"] = lambda A, B, **w: ref.fused_first_order(A[None], B[None], **w)
-    plain["batch_l2"] = lambda A, B, form: ref.batch_l2(A, B)
+    plain["batch_l2"] = lambda A, B, form, **w: ref.batch_l2(A, B, **w)
     plain["cross_dot"] = lambda A1, B1, A2, B2, **w: ref.cross_dot(
         ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2, **w)
     library = {"sq_matmul": lambda A, B: torch.matmul(A.square().T, B.square()),
@@ -1198,10 +1202,11 @@ def main():
         record["laplace"][label]["card_vs_cpu"] = check_errs(f"laplace {label} card vs cpu", err)
     laplace_launches = ops.launch_counts()
     say("laplace_launches", launches=laplace_launches)
-    kron_post = fit_posterior(model, map_params, x, y, loss, structure="kron")
-    record["profile_laplace_predictive"] = profiled(
-        lambda: glm_predictive(model, map_params, kron_post, x_out))
-    say("profile_laplace_predictive", **record["profile_laplace_predictive"])
+    for structure in ("diag", "kron"):  # the full-network predictives, one call each
+        post = fit_posterior(model, map_params, x, y, loss, structure=structure)
+        prof = profiled(lambda: glm_predictive(model, map_params, post, x_out))
+        record[f"profile_laplace_predictive_{structure}"] = prof
+        say("profile_laplace_predictive", structure=structure, **prof)
 
     # -- 11. the serving path: Hymba-1.5B through prefill, generate, decode ----
     record["serve"] = serve_phase(torch, ops)

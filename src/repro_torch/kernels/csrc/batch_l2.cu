@@ -14,16 +14,25 @@
 //     shared memory with rows padded to 68 floats), multiplies them
 //     elementwise, sums the block and writes one partial, twice for an
 //     off-diagonal pair.  The Grams never reach device memory.
-//   form 1, the gradient: the trace of common.cuh's sq_stats_kernel with one
-//     class, the l2-only launch of fused_first_order.cu.
+//   form 1, the gradient: xty.cuh's one-class per-sample product with the
+//     ROWSUM epilogue, G_n on the tensor cores in 3xTF32 (mma.sync, each 16
+//     rows' sum promoted into float32 registers), squared and summed over
+//     each (a, b) tile after the sample's last stage; the l2-only launch of
+//     fused_first_order.cu, the same code, so the two agree bit for bit.
 // The rule (the wrapper's batch_l2_form): the Gram trick where it needs fewer
 // operations, R·(a+b+1) < 2·a·b.  At 3C3D's conv layers that takes the
 // gradient at conv1 (R = 1024, a = 75, b = 64) and conv2 (R = 256, a = 576,
-// b = 96), and the Gram trick at conv3 (R = 64, a = 864, b = 128).
-// Bound on the H100: fp32 operations in both forms.  Sums across blocks never
+// b = 96), and the Gram trick at conv3 (R = 64, a = 864, b = 128).  The
+// bounds agree: at conv3 the gradient's 3xTF32 bound, 3 × 1.81 GFLOP / 495
+// TFLOP/s = 0.0110 ms, stays above the Gram trick's bytes bound, 32.5 MB /
+// 3.35 TB/s = 0.0097 ms; at conv1 and conv2 the Gram trick needs 15× and
+// 1.6× the gradient's operations on the CUDA cores alone.
+// Bound on the H100: operations for the Gram trick (fp32, CUDA cores); bytes
+// at conv1 and conv2 for the gradient in 3xTF32.  Sums across blocks never
 // use atomics: partials per (sample, tile pair) or per (tile, sample) are
 // added in a fixed order by a second pass, so every result repeats exactly.
 #include "common.cuh"
+#include "xty.cuh"
 
 namespace {
 
@@ -111,13 +120,15 @@ int gram_pairs(int R) {
 
 extern "C" long long batch_l2_scratch_floats(int N, int R, int a, int b, int form) {
   if (form == 0) return (long long)N * gram_pairs(R);
-  return bp::sq_stats_scratch_floats(1, N, a, b, false, true);
+  return tf32x3::per_sample_scratch_floats<tf32x3::XTY_ROWSUM>(
+      tf32x3::per_sample_args(nullptr, nullptr, 1, N, R, a, b));
 }
 
 extern "C" int batch_l2_launch(const float* A, const float* B, int N, int R, int a, int b,
                                int form, float* l2, float* scratch, cudaStream_t stream) {
   if (form == 1)
-    return (int)bp::sq_stats(false, true, A, B, 1, 1, N, R, a, b, nullptr, l2, scratch, stream);
+    return (int)tf32x3::per_sample_launch<tf32x3::XTY_ROWSUM>(
+        tf32x3::per_sample_args(A, B, 1, N, R, a, b), nullptr, 0, nullptr, l2, scratch, stream);
   if (form != 0) return (int)cudaErrorInvalidValue;
   const int tiles = (int)bp::cdiv(R, bp::BT), pairs = gram_pairs(R);
   const long long blocks = (long long)N * pairs;

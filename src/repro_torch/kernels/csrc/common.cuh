@@ -4,14 +4,13 @@
 // Y, 4x4 outputs a thread, rows staged through shared memory 16 at a time
 // with the next 16 fetched into registers while the current ones are used,
 // and float4 shared-memory reads.  One kernel is built on it:
-//   * sq_stats_kernel: per-sample products t = X_nᵀY_cn squared and reduced
-//     in registers, Σ_cn t² per element and Σ_c,elements t² per sample, so t
-//     never reaches device memory (ggn_diag, batch_l2's G form); or, in
-//     its variance mode, Σ_elements t² [· Σ] per (c, n) (the GLM predictive
-//     variance).
-// Sums across blocks never use atomics: each block writes its own partial and
-// sum_partials adds them in a fixed order, so every result is the same from
-// run to run.
+//   * sq_stats_kernel: per-sample products t = X_nᵀY_cn squared and summed
+//     in registers, Σ_cn t² per element, so t never reaches device memory
+//     (ggn_diag).
+// The rest serves every BackPACK kernel: warp and block sums, the wave
+// sizing, and sum_partials.  Sums across blocks never use atomics: each
+// block writes its own partial and sum_partials adds them in a fixed order,
+// so every result is the same from run to run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -171,72 +170,42 @@ inline void launch_sum_partials(const float* part, float* out, int E, int P, lon
 }
 
 // ---------------------------------------------------------------------------
-// sq_stats: reductions of t[e,c,n] = X[e,n]ᵀ Y[e,c,n]
-//   diag[e]  = Σ_cn t∘t        [E, a, b]
-//   trace[e,n] = Σ_c Σ t∘t     [E, N]
-//   var[e,c,n] = Σ t∘t [∘ W]   [E, C, N]   (VAR = 1 unweighted, 2 weighted by W [a, b])
-// X is [E, N, R, a], Y is [E, C, N, R, b].
+// sq_stats: diag[e] = Σ_cn t∘t [E, a, b] for t[e,c,n] = X[e,n]ᵀ Y[e,c,n],
+// X [E, N, R, a] and Y [E, C, N, R, b].  ggn_diag calls it with E = 1; the
+// group axis stays because without it the same arithmetic (the same bits)
+// ran 21–31% slower at 3C3D's conv1 and conv2 on the H100
+// (tools/kernel_against.py --kernel ggn_diag).
 // ---------------------------------------------------------------------------
 
 // Grid (tiles_a, tiles_b, E·groups); block (·, ·, e·groups + g) takes the
 // samples [g·group_size, (g+1)·group_size).  diag_part is [E, groups, a, b]
-// (the diag output itself when groups == 1); trace_part is [E, tiles, N];
-// var_part is [E, tiles, C, N].
-template <bool DIAG, bool TRACE, int VAR = 0>
+// (the diag output itself when groups == 1).
 __global__ void __launch_bounds__(THREADS)
 sq_stats_kernel(const float* __restrict__ X, const float* __restrict__ Y, int C, int N, int R,
-                int a, int b, int groups, int group_size, float* __restrict__ diag_part,
-                float* __restrict__ trace_part, const float* __restrict__ W,
-                float* __restrict__ var_part) {
+                int a, int b, int groups, int group_size, float* __restrict__ diag_part) {
   __shared__ __align__(16) Stage st;
-  __shared__ float red[32];
   const int e = blockIdx.z / groups, g = blockIdx.z % groups;
-  const int tiles = gridDim.x * gridDim.y, tile = blockIdx.y * gridDim.x + blockIdx.x;
   const int a0 = blockIdx.x * BT, b0 = blockIdx.y * BT;
   const int n_lo = g * group_size, n_hi = min(N, n_lo + group_size);
   float diag[4][4];
   zero(diag);
-  float w[4][4];  // this thread's weights (VAR == 2); 0 past the edges, where t is 0 too
-  if (VAR == 2) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = a0 + 4 * ty + i, c = b0 + 4 * tx + j;
-        w[i][j] = (r < a && c < b) ? W[(size_t)r * b + c] : 0.f;
-      }
-  }
   for (int n = n_lo; n < n_hi; ++n) {
     const float* Xn = X + ((size_t)e * N + n) * R * a;
-    float tr = 0.f;
     for (int c = 0; c < C; ++c) {
       const float* Yn = Y + (((size_t)e * C + c) * N + n) * R * b;
       float acc[4][4];
       zero(acc);
       tile64(Xn, a, a0, Yn, b, b0, R, st, acc);
-      float vs = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float v = acc[i][j] * acc[i][j];
           diag[i][j] += v;
-          tr += v;
-          if (VAR == 1) vs += v;
-          if (VAR == 2) vs = fmaf(v, w[i][j], vs);
         }
-      if (VAR) {
-        const float s = block_sum(vs, red);
-        if (threadIdx.x == 0) var_part[(((size_t)e * tiles + tile) * C + c) * N + n] = s;
-      }
-    }
-    if (TRACE) {
-      const float s = block_sum(tr, red);
-      if (threadIdx.x == 0) trace_part[((size_t)e * tiles + tile) * N + n] = s;
     }
   }
-  if (DIAG) store_tile(diag_part + ((size_t)e * groups + g) * a * b, a, b, a0, b0, diag);
+  store_tile(diag_part + ((size_t)e * groups + g) * a * b, a, b, a0, b0, diag);
 }
 
 struct SqStatsPlan {
@@ -253,39 +222,21 @@ inline SqStatsPlan sq_stats_plan(int E, int N, int a, int b) {
   return p;
 }
 
-inline long long sq_stats_scratch_floats(int E, int N, int a, int b, bool diag, bool trace) {
+inline long long sq_stats_scratch_floats(int E, int N, int a, int b) {
   const SqStatsPlan p = sq_stats_plan(E, N, a, b);
-  const long long tiles = (long long)p.tiles_a * p.tiles_b;
-  return (diag && p.groups > 1 ? (long long)E * p.groups * a * b : 0) +
-         (trace ? (long long)E * tiles * N : 0);
+  return p.groups > 1 ? (long long)E * p.groups * a * b : 0;
 }
 
-template <bool DIAG, bool TRACE>
-inline cudaError_t sq_stats_launch(const float* X, const float* Y, int E, int C, int N, int R,
-                                   int a, int b, float* diag, float* trace, float* scratch,
-                                   cudaStream_t stream) {
+inline cudaError_t sq_stats(const float* X, const float* Y, int E, int C, int N, int R, int a,
+                            int b, float* diag, float* scratch, cudaStream_t stream) {
   const SqStatsPlan p = sq_stats_plan(E, N, a, b);
-  const long long tiles = (long long)p.tiles_a * p.tiles_b;
   float* diag_part = p.groups > 1 ? scratch : diag;
-  float* trace_part = scratch + (DIAG && p.groups > 1 ? (size_t)E * p.groups * a * b : 0);
   dim3 grid(p.tiles_a, p.tiles_b, E * p.groups);
-  sq_stats_kernel<DIAG, TRACE><<<grid, THREADS, 0, stream>>>(
-      X, Y, C, N, R, a, b, p.groups, p.group_size, diag_part, trace_part, nullptr, nullptr);
-  if (DIAG && p.groups > 1)
+  sq_stats_kernel<<<grid, THREADS, 0, stream>>>(X, Y, C, N, R, a, b, p.groups, p.group_size,
+                                                diag_part);
+  if (p.groups > 1)
     launch_sum_partials(diag_part, diag, E, p.groups, (long long)a * b, stream);
-  if (TRACE) launch_sum_partials(trace_part, trace, E, (int)tiles, N, stream);
   return cudaGetLastError();
-}
-
-// diag/trace as the mask asks (at least one of them).
-inline cudaError_t sq_stats(bool want_diag, bool want_trace, const float* X, const float* Y,
-                            int E, int C, int N, int R, int a, int b, float* diag, float* trace,
-                            float* scratch, cudaStream_t stream) {
-  if (want_diag && want_trace)
-    return sq_stats_launch<true, true>(X, Y, E, C, N, R, a, b, diag, trace, scratch, stream);
-  if (want_diag)
-    return sq_stats_launch<true, false>(X, Y, E, C, N, R, a, b, diag, trace, scratch, stream);
-  return sq_stats_launch<false, true>(X, Y, E, C, N, R, a, b, diag, trace, scratch, stream);
 }
 
 }  // namespace bp

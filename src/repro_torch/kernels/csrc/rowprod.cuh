@@ -3,7 +3,8 @@
 // one A_n [R, a] each, A_n staged and split once for every class.
 // fused_second_order squares t into the GGN diagonal and the per-sample
 // trace; cross_dot's form stage stores it as the per-sample gradients G of
-// the NTK's classes and GGNGram's class-major rows.  The design is in
+// the NTK's classes and GGNGram's class-major rows; predictive_var sums each
+// class's squares [· Σ] into the GLM predictive variance.  The design is in
 // fused_second_order.cu's source note.
 #pragma once
 
@@ -69,7 +70,8 @@ __device__ __forceinline__ int sw128(int r, int c) {
 // diag_part [groups · (split_a ? 1 : 2), a, b] (the diag output itself when
 // that is 1: a warpgroup of ten classes writes its own partial).  TRACE:
 // trace_part [tiles, N].  STORE: t[c, n] itself at out + (c·N + n)·out_ld,
-// as [a, b].
+// as [a, b].  VAR: var_part [tiles, var_warps, C, N], each warp's share of
+// Σ_ab t[c, n]² [· sigma[a, b]] (sigma [a, b], or nullptr: unweighted).
 struct Args {
   const float* A;
   const float* S;
@@ -79,9 +81,15 @@ struct Args {
   float* trace_part;
   float* out;
   long long out_ld;
+  const float* sigma;
+  float* var_part;
 };
 
-enum { DIAG = 1, TRACE = 2, STORE = 4 };
+enum { DIAG = 1, TRACE = 2, STORE = 4, VAR = 8 };
+
+// The warps that hold a class's share of a tile: one warpgroup's four with
+// ten classes, both warpgroups' eight with one (their a-columns differ).
+__host__ __device__ constexpr int var_warps(bool split_a) { return split_a ? 8 : 4; }
 
 using Fn = void (*)(const CUtensorMap, const Args);
 
@@ -92,6 +100,7 @@ template <int CW, bool SPLIT_A, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 kernel(const __grid_constant__ CUtensorMap smap, const Args p) {
   constexpr bool DIAG_ = MODE & DIAG, TRACE_ = MODE & TRACE, STORE_ = MODE & STORE;
+  constexpr bool VAR_ = MODE & VAR;
   const float* __restrict__ A = p.A;
   const float* __restrict__ S = p.S;
   const int C = p.C, N = p.N, R = p.R, a = p.a, b = p.b, group_size = p.group_size;
@@ -166,6 +175,19 @@ kernel(const __grid_constant__ CUtensorMap smap, const Args p) {
     for (int i = 0; i < CW; ++i) acc[i][x] = 0.f;
   }
   float tr = 0.f;
+  float sg[WN / 2];  // VAR: the thread's weights, 0 past the edges (t is 0 there too)
+  if (VAR_) {
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int bb = b0 + 16 * warp + g + 8 * i, aa = a0 + aoff + 8 * j + 2 * t + c;
+          sg[4 * j + 2 * i + c] =
+              bb < b && aa < a ? (p.sigma ? p.sigma[(long long)aa * b + bb] : 1.f) : 0.f;
+        }
+  }
   if (steps > 0) copy(0);
   tf32x3::cp_commit();
   for (int step = 0; step < steps; ++step) {
@@ -243,15 +265,29 @@ kernel(const __grid_constant__ CUtensorMap smap, const Args p) {
               }
         }
       }
+      float vs[CW];  // VAR: each class's weighted squares
 #pragma unroll
-      for (int i = 0; i < CW; ++i)
+      for (int i = 0; i < CW; ++i) {
+        vs[i] = 0.f;
 #pragma unroll
         for (int x = 0; x < WN / 2; ++x) {
           const float v = acc[i][x] * acc[i][x];
           if (DIAG_) dg[x] += v;  // classes past C give zeros
           if (TRACE_) tr += v;
+          if (VAR_) vs[i] = fmaf(v, sg[x], vs[i]);
           acc[i][x] = 0.f;
         }
+      }
+      if (VAR_) {  // each warp's share a class, summed in a fixed order: no block barrier
+        const int c0 = step / spz % ncb * CLS + cls0;
+        const int w = SPLIT_A ? 4 * wg + warp : warp;
+        float* o = p.var_part + ((long long)blockIdx.x * var_warps(SPLIT_A) + w) * C * N + n;
+#pragma unroll
+        for (int i = 0; i < CW; ++i) {
+          const float s = bp::warp_sum(vs[i]);
+          if (lane == 0 && c0 + i < C) o[(long long)(c0 + i) * N] = s;
+        }
+      }
       if (TRACE_ && step / spz % ncb == ncb - 1) {  // the sample's last class block
         const float s = bp::block_sum(tr, red);
         if (tid == 0) p.trace_part[(long long)blockIdx.x * N + n] = s;

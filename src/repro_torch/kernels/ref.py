@@ -27,12 +27,13 @@ def per_sample_moment(A: torch.Tensor, B: torch.Tensor, dtype=torch.float32) -> 
     return (g * g).sum(dim=0)
 
 
-def batch_l2(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def batch_l2(A: torch.Tensor, B: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """l2[n] = Σ_rs (A_n A_nᵀ)[r,s] (B_n B_nᵀ)[r,s] — the Gram trick.
 
-    A: [N, R, a], B: [N, R, b] → [N] float32.
+    A: [N, R, a], B: [N, R, b] → [N] in ``dtype`` (float64: the exact
+    formula of the card checks).
     """
-    Af, Bf = A.float(), B.float()
+    Af, Bf = A.to(dtype), B.to(dtype)
     ga = torch.einsum("nra,nsa->nrs", Af, Af)
     gb = torch.einsum("nrb,nsb->nrs", Bf, Bf)
     return (ga * gb).sum(dim=(1, 2))
@@ -61,17 +62,18 @@ def cross_dot(A1, B1, A2, B2, dtype=torch.float32) -> torch.Tensor:
     return torch.einsum("enab,emab->enm", g1, g2)
 
 
-def predictive_var(A, S, Sigma=None) -> torch.Tensor:
+def predictive_var(A, S, Sigma=None, dtype=torch.float32) -> torch.Tensor:
     """var[c,n] = Σ_ab (Σ_r A[n,r,a] S[c,n,r,b])² [· Sigma[a,b]].
 
-    A: [N, R, a], S: [C, N, R, b], Sigma: [a, b] → [C, N] float32: the GLM
-    predictive variance of one layer, with the per-sample Jacobian
-    J[c,n] = A_nᵀS_cn formed, squared, weighted and reduced.
+    A: [N, R, a], S: [C, N, R, b], Sigma: [a, b] → [C, N] in ``dtype``
+    (float64: the exact formula of the card checks): the GLM predictive
+    variance of one layer, with the per-sample Jacobian J[c,n] = A_nᵀS_cn
+    formed, squared, weighted and reduced.
     """
-    t = torch.einsum("nra,cnrb->cnab", A.float(), S.float())
+    t = torch.einsum("nra,cnrb->cnab", A.to(dtype), S.to(dtype))
     t2 = t * t
     if Sigma is not None:
-        t2 = t2 * Sigma.float()
+        t2 = t2 * Sigma.to(dtype)
     return t2.sum(dim=(2, 3))
 
 

@@ -18,9 +18,10 @@ flash_attention's tensor-core design ("wgmma") at g = 5 and 1, dh 64 and
 at the configs' wider heads (120, 128, 192 with dv 128, 240); wkv also at
 Hymba's full prefill width and at a dv off its column slice, held row by
 row in bf16; sq_matmul's and wkv's calls give the same bits from call to
-call; the reduced Hymba serves on the card as on the CPU.  The four 3xTF32
-kernels, cross_dot, fused_second_order, fused_first_order and
-per_sample_moment, are also held to their formula in float64
+call; the reduced Hymba serves on the card as on the CPU.  The 3xTF32
+kernels, cross_dot, fused_second_order, fused_first_order,
+per_sample_moment and predictive_var, and batch_l2 in both its forms, are
+also held to their formula in float64
 (``chip_smoke.F64_TOL`` whole-tensor, ``ENTRY_TOL`` entry by entry), off the
 3C3D shapes too (shared, per-group and fewer-row A sides, C = 1, 3, 10 and
 13, E = 1 and 3 groups, N = 1 to 1280 rows, R = 1, widths and rows off the
@@ -39,6 +40,7 @@ from repro_torch.configs import papernets
 from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.batch_l2 import batch_l2_form
 from repro_torch.optim import curvature_optimizer
 from repro_torch.train import make_extended_train_step
 
@@ -74,7 +76,7 @@ def _card_close(kernel, plain):
 
 
 def _f64_close(name, kernel, exact):
-    """The 3xTF32 kernels against their formula in float64: chip_smoke.py's
+    """A kernel against its formula in float64: chip_smoke.py's
     whole-tensor and entry-by-entry limits."""
     torch.cuda.synchronize()
     r = f64_readings(torch, name, kernel, exact)
@@ -188,7 +190,13 @@ def test_card_batch_l2(cuda, layer, form):
     n, r, a, b = CONV[layer]
     A = torch.randn(n, r, a, device="cuda", generator=cuda)
     B = torch.randn(n, r, b, device="cuda", generator=cuda)
-    _card_close({"out": ops.batch_l2(A, B, form)}, {"out": ref.batch_l2(A, B)})
+    got = {"out": ops.batch_l2(A, B, form)}
+    _card_close(got, {"out": ref.batch_l2(A, B)})
+    _f64_close("batch_l2", got, {"out": ref.batch_l2(A, B, dtype=torch.float64)})
+    if (form or batch_l2_form(r, a, b)) == "g":  # fused_first_order's l2-only launch
+        l2 = ops.fused_first_order(A[None], B[None], want_l2=True, want_moment=False,
+                                   want_dot=False)["l2"][0]
+        assert torch.equal(got["out"], l2)
 
 
 @pytest.mark.gpu
@@ -308,7 +316,28 @@ def test_card_predictive_var(cuda, layer, sigma):
     A = torch.randn(n, r, a, device="cuda", generator=cuda)
     S = torch.randn(10, n, r, b, device="cuda", generator=cuda)
     W = torch.rand(a, b, device="cuda", generator=cuda) if sigma else None
-    _card_close({"out": ops.predictive_var(A, S, W)}, {"out": ref.predictive_var(A, S, W)})
+    got = {"out": ops.predictive_var(A, S, W)}
+    _card_close(got, {"out": ref.predictive_var(A, S, W)})
+    _f64_close("predictive_var", got,
+               {"out": ref.predictive_var(A, S, W, dtype=torch.float64)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sigma", [True, False], ids=["diag", "kron"])
+@pytest.mark.parametrize("case", sorted(SECOND))
+def test_card_predictive_var_cases(cuda, case, sigma):
+    """Classes C = 1 (the warpgroups split the a-columns), 3, 10 and 13 (two
+    class blocks), widths and rows off the tiles: float32 and float64
+    agreement, and the same bits from call to call."""
+    c, n, r, a, b = SECOND[case]
+    A = torch.randn(n, r, a, device="cuda", generator=cuda)
+    S = torch.randn(c, n, r, b, device="cuda", generator=cuda)
+    W = torch.rand(a, b, device="cuda", generator=cuda) if sigma else None
+    got = ops.predictive_var(A, S, W)
+    _card_close({"out": got}, {"out": ref.predictive_var(A, S, W)})
+    _f64_close("predictive_var", {"out": got},
+               {"out": ref.predictive_var(A, S, W, dtype=torch.float64)})
+    assert torch.equal(got, ops.predictive_var(A, S, W))
 
 
 def _c2d2(cuda):

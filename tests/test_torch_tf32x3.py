@@ -1,5 +1,6 @@
 """Why the 3xTF32 kernels (cross_dot, fused_second_order, fused_first_order,
-per_sample_moment) split their operands, and what ``chip_smoke.py``'s
+per_sample_moment, predictive_var, batch_l2's gradient form) split their
+operands, and what ``chip_smoke.py``'s
 float64 limits guard: TF32 rounding emulated on the CPU, with no card and no
 JAX.
 
@@ -151,3 +152,27 @@ def test_first_order_dot_and_moment_against_float64(terms):
     got = dict(l2=G.square().sum(1), moment=G.square().sum(0),
                dot=product(G.float(), G.float(), "nk,mk->nm", terms))
     _assert_tells(terms, f64_readings(torch, "fused_first_order", got, want))
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "1xtf32"])
+def test_predictive_var_against_float64(terms):
+    """predictive_var's Σ_ab (A_nᵀS_cn)² · Σ_ab per (c, n) at conv3's widths
+    (R 64, a 864, b 128: 110,592 weighted squares a sum), ten classes, four
+    samples, Σ uniform in [0, 1) as a posterior variance."""
+    rng = np.random.default_rng(4)
+    A = torch.from_numpy(np.maximum(rng.standard_normal((4, 64, 864)), 0).astype(np.float32))
+    S = torch.from_numpy((0.1 * rng.standard_normal((10, 4, 64, 128))).astype(np.float32))
+    W = torch.from_numpy(rng.random((864, 128)).astype(np.float32)).double()
+    want = (torch.einsum("nra,cnrb->cnab", A.double(), S.double()).square() * W).sum((2, 3))
+    got = (product(A, S, "nra,cnrb->cnab", terms).square() * W).sum((2, 3))
+    _assert_tells(terms, f64_readings(torch, "predictive_var", {"out": got}, {"out": want}))
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "1xtf32"])
+def test_batch_l2_rowsum_against_float64(terms):
+    """batch_l2's gradient form (xty.cuh's ROWSUM): l2[n] = Σ_ab (A_nᵀB_n)²
+    for 128 samples."""
+    A, B = _per_sample_inputs(128, 1, seed=5)
+    want = torch.einsum("nra,nrb->nab", A.double(), B.double()).square().sum((1, 2))
+    got = product(A, B, "nra,nrb->nab", terms).square().sum((1, 2))
+    _assert_tells(terms, f64_readings(torch, "batch_l2", {"out": got}, {"out": want}))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """How much the float64 checks of ``chip_smoke.py`` can see in the 3xTF32
 kernels: plant faults in ``cross_dot``, ``fused_second_order``,
-``fused_first_order`` and ``per_sample_moment`` and read every check.
+``fused_first_order``, ``per_sample_moment``, ``predictive_var`` and
+``batch_l2`` and read every check.
 
     python3 tools/cross_dot_fault.py [FAULT ...]
 
@@ -26,7 +27,14 @@ touched):
   carries a sample's whole sum in the tensor cores' accumulator;
 * ``ffo_partial_dropped``, ``psm_partial_dropped``: the moment partial of
   the middle z block of each group (the only one where a group has one) is
-  written as zeros.
+  written as zeros;
+* ``pv_split_skipped`` (predictive_var), ``l2_split_skipped`` (batch_l2):
+  the same split fault, in ``rowprod.cuh``'s t kernel and in batch_l2's
+  gradient form (its Gram form runs on the CUDA cores and does not change);
+* ``pv_unpromoted``: the t kernel carries each class's whole sum for a
+  sample in the tensor cores' accumulator;
+* ``pv_partial_dropped``: the variance partial of the first warp of the
+  middle tile is written as zeros.
 
 Each build runs its kernel at ``chip_smoke.backpack_cases``' rows (3C3D at
 batch 128, inputs from seed 0 as in ``chip_smoke.py``) and prints one JSON
@@ -55,6 +63,19 @@ XTY_UNPROMOTED = [
     ("xty.cuh", "        float tc[1][NI][4];\n        zero(tc);\n",
      "        float (&tc)[1][NI][4] = reinterpret_cast<float (&)[1][NI][4]>(acc[mi]);\n"),
     ("xty.cuh", "        promote(acc[mi], tc[0]);\n", "")]
+PV_UNPROMOTED = [
+    ("rowprod.cuh", """        wgmma_n48(tc, al[kq], hopper::sw128_desc(bhi + 32 * kq), kq > 0);
+        wgmma_n48(tc, ah[kq], hopper::sw128_desc(blo + 32 * kq), 1);
+        wgmma_n48(tc, ah[kq], hopper::sw128_desc(bhi + 32 * kq), 1);""",
+     """        wgmma_n48(acc[i], al[kq], hopper::sw128_desc(bhi + 32 * kq), 1);
+        wgmma_n48(acc[i], ah[kq], hopper::sw128_desc(blo + 32 * kq), 1);
+        wgmma_n48(acc[i], ah[kq], hopper::sw128_desc(bhi + 32 * kq), 1);"""),
+    ("rowprod.cuh", """        asm volatile("" : "+f"(tc[x])::"memory");  // no read of tc before the wait
+        acc[i][x] += tc[x];""", """        asm volatile("" : "+f"(acc[i][x])::"memory");""")]
+PV_DROPPED = [(
+    "rowprod.cuh", "          if (lane == 0 && c0 + i < C) o[(long long)(c0 + i) * N] = s;",
+    "          if (lane == 0 && c0 + i < C)\n"
+    "            o[(long long)(c0 + i) * N] = blockIdx.x == gridDim.x / 2 && w == 0 ? 0.f : s;")]
 MOMENT_DROPPED = [(
     "xty.cuh", "    float* o = p.moment + (long long)blockIdx.y * p.M * p.N;\n",
     "    if (blockIdx.y % p.z_blocks == p.z_blocks / 2) zero(mom);\n"
@@ -76,6 +97,10 @@ FAULTS = {
     "psm_split_skipped": ("per_sample_moment", [SPLIT]),
     "psm_unpromoted": ("per_sample_moment", XTY_UNPROMOTED),
     "psm_partial_dropped": ("per_sample_moment", MOMENT_DROPPED),
+    "pv_split_skipped": ("predictive_var", [SPLIT]),
+    "pv_unpromoted": ("predictive_var", PV_UNPROMOTED),
+    "pv_partial_dropped": ("predictive_var", PV_DROPPED),
+    "l2_split_skipped": ("batch_l2", [SPLIT]),
 }
 
 
@@ -111,6 +136,7 @@ def main() -> int:
     from repro_torch.kernels import fused_first_order as ffo_mod
     from repro_torch.kernels import fused_second_order as fso_mod
     from repro_torch.kernels import per_sample_moment as psm_mod
+    from repro_torch.kernels import predictive_var as pv_mod
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -124,13 +150,17 @@ def main() -> int:
     modules = {"cross_dot": (cd_mod, cd_mod.cross_dot_cuda),
                "fused_second_order": (fso_mod, fso_mod.fused_second_order_cuda),
                "fused_first_order": (ffo_mod, first_order),
-               "per_sample_moment": (psm_mod, psm_mod.per_sample_moment_cuda)}
+               "per_sample_moment": (psm_mod, psm_mod.per_sample_moment_cuda),
+               "predictive_var": (pv_mod, pv_mod.predictive_var_cuda),
+               "batch_l2": (l2_mod, l2_mod.batch_l2_cuda)}
     plain = {"cross_dot": lambda A1, B1, A2, B2, **w: ref.cross_dot(
                  ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2, **w),
              "fused_second_order": ref.fused_second_order,
              "fused_first_order": lambda A, B, **w: {
                  k: v[0] for k, v in ref.fused_first_order(A[None], B[None], **w).items()},
-             "per_sample_moment": ref.per_sample_moment}
+             "per_sample_moment": ref.per_sample_moment,
+             "predictive_var": ref.predictive_var,
+             "batch_l2": lambda A, B, form, **w: ref.batch_l2(A, B, **w)}
     kernels = {FAULTS[n][0] for n in names}
     rows = []  # (kernel, label, args, kw, plain float32, float64)
     for kernel, label, _, _, args, kw, *_ in backpack_cases(torch, randn, gen, l2_mod):

@@ -6,8 +6,8 @@ their times in turns.
     python3 tools/kernel_against.py --kernel NAME --csrc DIR [--bits] [--iters K]
 
 Needs one CUDA card and nvcc.  ``NAME`` is ``wkv``, ``sq_matmul``,
-``cross_dot``, ``fused_second_order``, ``fused_first_order`` or
-``per_sample_moment``.  ``DIR`` holds the older
+``cross_dot``, ``fused_second_order``, ``fused_first_order``,
+``per_sample_moment``, ``predictive_var``, ``batch_l2`` or ``ggn_diag``.  ``DIR`` holds the older
 ``NAME.cu`` and its headers (for example the ``src/repro_torch/kernels/csrc``
 of an older commit, unpacked with ``git archive``); it is built under
 ``build/against/NAME/``, this checkout's source under ``build/kernels/``.  The
@@ -42,7 +42,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 KERNELS = ("wkv", "sq_matmul", "cross_dot", "fused_second_order", "fused_first_order",
-           "per_sample_moment")
+           "per_sample_moment", "predictive_var", "batch_l2", "ggn_diag")
 # The scratch queries that gained R, and where it stands among their arguments.
 R_JOINED = {"fused_first_order": 2, "per_sample_moment": 1}
 
