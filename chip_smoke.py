@@ -41,7 +41,10 @@ launch counts set to 0 just before and read just after:
   ``make_prefill_step`` on 4 prompts of 2048 tokens (flash_attention and wkv
   32 launches each, nothing else), greedy ``generate`` on 4 prompts of 32
   tokens to 128 (each kernel 32 times a serve_step), timed decode steps and
-  one profiled; in a float32 copy of the weights the serve_step chain over
+  one profiled, from a 32-token cache and at a long context (16 steps after
+  a 1500-token prefill into caches of 2048, ``serve_decode_long``: wall and
+  device ms, idle share, attention's device ms); in a float32 copy of the
+  weights the serve_step chain over
   1040 tokens matches the full forward (the window-1024 rings wrap, limit
   1e-3) and the card matches the CPU (batch 1, T 64, limit 1e-4); and
   ``python -m repro_torch.launch.serve --arch hymba-1.5b --full`` exits 0.
@@ -51,16 +54,19 @@ the squares; flash_attention: SDPA) are timed in turns with it (kernel,
 library, library, kernel); they and wkv get their device time a call from
 a profiler window, taken after every row's event times so that no event
 time follows a profiler window; flash_attention's rows name the design
-that ran (``flash_attention.design``: "wgmma" for bf16 prefill at dh = dv ∈
-{64, 128}, "simt" else, the other configs' wider heads included).  bf16
-attention and wkv outputs are also held row by row (``ROW_TOL``).
+that ran (``flash_attention.design``: "split" for decode, T·g < 64, with its
+split count and scratch bytes; "wgmma" for bf16 prefill at dh = dv ∈ {64,
+128}; "simt" else, the other configs' wider prefill heads included), and
+their device time's share of the bound.  bf16 attention and wkv outputs are
+also held row by row (``ROW_TOL``).
 
-cross_dot, fused_second_order, fused_first_order, per_sample_moment,
-predictive_var (3xTF32 on the tensor cores) and batch_l2 (3xTF32 in its
-gradient form, float32 on the CUDA cores in its Gram form) are also held to
-their formula evaluated in float64 on the card, whole-tensor (``F64_TOL``)
-and entry by entry (``ENTRY_TOL``); sq_matmul's float64 readings are
-printed.  cross_dot's
+sq_matmul, cross_dot, fused_second_order, fused_first_order,
+per_sample_moment, predictive_var (3xTF32 on the tensor cores) and batch_l2
+(3xTF32 in its gradient form, float32 on the CUDA cores in its Gram form)
+are also held to their formula evaluated in float64 on the card,
+whole-tensor (``F64_TOL``) and entry by entry (``ENTRY_TOL``), the four with
+a per-sample sum also at conv3's widths with 256 and 1024 rows a sample
+(weight 0).  cross_dot's
 one-row-set rows and fused_first_order's dot must be symmetric bit for bit,
 and fused_first_order's l2 equal to dot's diagonal bit for bit.  Every float32 row also carries a second bound, 3 × its matrix
 products' operations at the TF32 rate (``bound_tf32_ms``), and its share of
@@ -113,12 +119,9 @@ ROW_CHECKED = ("flash_attention", "wkv")  # their y / out rows, enforced on bf16
 # plain version cannot tell 3xTF32 from 1xTF32 (the hi parts alone, ≈ 3
 # decimal digits), which reads ≈ 3e-5 whole-tensor at cross_dot's conv3
 # depth, and most of what TOL sees there is the float32 plain version's own
-# sum order.  sq_matmul's readings are printed, not limited: it carries its
-# sums in the tensor cores' accumulator (tf32x3.cuh, promote), ≈ 7e-6 at
-# K = 1280.
-F64_CHECKED = ("cross_dot", "fused_second_order", "fused_first_order", "per_sample_moment",
-               "predictive_var", "batch_l2")
-F64_READ = F64_CHECKED + ("sq_matmul",)
+# sum order.
+F64_CHECKED = ("sq_matmul", "cross_dot", "fused_second_order", "fused_first_order",
+               "per_sample_moment", "predictive_var", "batch_l2")
 # max over outputs of max |kernel − f64| / max |f64|: float32 sums over up
 # to 110,592 terms read ≤ 9.4e-7 at 3C3D's shapes (H100, PERF.md), the float32
 # plain version 3e-5 where its order is long; the limit keeps 3x over the
@@ -140,7 +143,8 @@ ENTRY_TOL = 2.5e-6
 # generate; the decode-vs-forward check runs one sequence of 1040 tokens so
 # the window-1024 rings wrap.
 SERVE = dict(arch="hymba-1.5b", batch=4, prefill_len=2048, prompt_len=32, max_len=128,
-             chain_len=1040, cpu_len=64, layers=32, global_layers=3, window=1024)
+             chain_len=1040, cpu_len=64, layers=32, global_layers=3, window=1024,
+             long_pos=1500, long_max_len=2048)
 CHAIN_TOL = 1e-3  # decode chain vs full forward, float32 weights, 32 layers
 
 FIRST = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot")
@@ -151,6 +155,8 @@ FUSED_KERNELS = ("fused_first_order", "fused_second_order", "sq_matmul")
 # route: 3 conv layers × (moment, exact diag, MC diag) and l2; 3 dense layers
 # × (moment, exact diag, MC diag).
 PER_EXTENSION_LAUNCHES = {"per_sample_moment": 9, "batch_l2": 3, "sq_matmul": 9}
+# rows a sample of the weight-0 rows at conv3's widths (a = 864, b = 128)
+CONV3_DEEP_ROWS = (256, 1024)
 TRAIN_STEPS = 10
 # (curvature, extensions, lr, damping): ten steps on one fixed batch
 # reduce the loss with these (chosen on the CPU at the same size).
@@ -201,9 +207,10 @@ def medians_ms(samples):
     return {k: sorted(v)[len(v) // 2] * 1e3 for k, v in samples.items()}
 
 
-def profiled(call):
+def profiled(call, groups=None):
     """One call under torch.profiler: wall ms, summed device kernel ms, the
-    top kernels by device time."""
+    top kernels by device time, and for each ``groups`` label the device ms
+    of the kernels whose name holds its text."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -215,9 +222,12 @@ def profiled(call):
 
     events = kernel_events(torch, prof)
     top = sorted(events, key=lambda e: -device_us(e))[:12]
-    return dict(wall_ms=wall * 1e3, device_ms=sum(device_us(e) for e in events) / 1e3,
-                top=[dict(name=e.key[:80], ms=device_us(e) / 1e3, calls=e.count)
-                     for e in top])
+    out = dict(wall_ms=wall * 1e3, device_ms=sum(device_us(e) for e in events) / 1e3,
+               top=[dict(name=e.key[:80], ms=device_us(e) / 1e3, calls=e.count)
+                    for e in top])
+    for label, text in (groups or {}).items():
+        out[f"{label}_device_ms"] = sum(device_us(e) for e in events if text in e.key) / 1e3
+    return out
 
 
 def device_us(e):  # the attribute's name changed across PyTorch versions
@@ -487,6 +497,32 @@ def backpack_cases(torch, randn, gen, l2_mod):
                 (A, B), {}, 2 * rows * a * b + rows * (a + b), 4 * (rows * (a + b) + a * b),
                 2 * rows * a * b)
 
+    # conv3's widths at 256 and 1024 rows a sample (conv3 itself has 64), off
+    # the path (weight 0): deep enough that a per-sample sum carried
+    # unpromoted in the tensor cores' accumulator fails the float64 checks
+    # (tools/cross_dot_fault.py reads these rows).  Drawn from a generator of
+    # their own, so the other rows and paths see the inputs they saw before.
+    deep = torch.Generator(device="cuda").manual_seed(1)
+    _, a, b = conv["conv3"]
+    for r in CONV3_DEEP_ROWS:
+        A, B, S = (torch.randn(*shape, device="cuda", generator=deep)
+                   for shape in ((N, r, a), (N, r, b), (10, N, r, b)))
+        name = f"conv3 widths R{r} (weight 0)"
+        add("fused_first_order", f"{name} A[{N},{r},{a}] B[{N},{r},{b}]", 0, 0, (A, B),
+            dict(want_l2=True, want_moment=True, want_dot=True),
+            2 * N * r * a * b + 3 * N * a * b + N * (N - 1) * a * b,
+            4 * (N * r * (a + b) + N + a * b + N * N), 2 * N * r * a * b + N * (N - 1) * a * b)
+        add("per_sample_moment", f"{name} A[{N},{r},{a}] B[{N},{r},{b}]", 0, 0, (A, B), {},
+            N * (2 * r * a * b + 2 * a * b), 4 * (N * r * (a + b) + a * b), N * 2 * r * a * b)
+        flops = 2 * 10 * N * r * a * b + 10 * N * (N + 1) * a * b
+        add("cross_dot", f"{name} ntk A[{N},{r},{a}] S[10,{N},{r},{b}]", 0, 0,
+            (A[None], S, A[None], S), {}, flops,
+            4 * (N * r * a + 10 * N * r * b + 10 * N * N), flops)
+        W = torch.rand(a, b, device="cuda", generator=deep)
+        add("predictive_var", f"{name} diag Sigma A[{N},{r},{a}] S[10,{N},{r},{b}]", 0, 0,
+            (A, S, W), {}, 2 * 10 * N * r * a * b + 3 * 10 * N * a * b,
+            4 * (N * r * a + 10 * N * r * b + 10 * N + a * b), 2 * 10 * N * r * a * b)
+
     # The Gram family's cross_dot (per gram run call: the NTK's E = C groups
     # over one shared input and GGNGram's C·N class-major rows, one row set
     # each, so the kernel forms G once and the upper triangle of the Gram;
@@ -622,6 +658,37 @@ def serve_phase(torch, ops):
     out["decode"] = dict(batch=n, step_s=step_s, ms_per_token=medians_ms({"d": step_s})["d"],
                          profile=prof)
     say("serve_decode", **out["decode"])
+    del caches, logits
+
+    # -- decode at a long context: 1500 tokens prefilled, 16 steps timed ----------
+    pos, long_len = SERVE["long_pos"], SERVE["long_max_len"]
+    caches = model.init_serve_cache(params, n, long_len, torch.float32)
+    t0 = time.perf_counter()
+    caches, logits = prefill(model, params, caches, prompts[:, :pos].contiguous(), pos)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    step_s = []
+    ops.reset_launch_counts()
+    for t in range(pos, pos + 16):
+        tok = logits.argmax(-1).int()
+        t0 = time.perf_counter()
+        logits, caches = decode(params, caches, tok, t)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    long_launches = ops.launch_counts()
+    if long_launches != {k: 16 * v for k, v in per_layer.items()}:
+        fail(f"long-context decode must launch each kernel 32 times a step, got {long_launches}")
+    if not torch.isfinite(logits).all():
+        fail("long-context decode: non-finite logits")
+    tok = logits.argmax(-1).int()
+    prof = profiled(lambda: decode(params, caches, tok, pos + 16), groups={"attention": "flash_"})
+    prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+    out["decode_long"] = dict(
+        batch=n, position=pos, max_len=long_len, prefill_s=prefill_s, step_s=step_s,
+        ms_per_token=medians_ms({"d": step_s})["d"], launches=long_launches,
+        wall_ms=prof["wall_ms"], device_ms=prof["device_ms"], idle_share=prof["idle_share"],
+        attention_device_ms=prof["attention_device_ms"], profile=prof)
+    say("serve_decode_long", **out["decode_long"])
     del caches, logits, last
 
     # -- agreement in a float32 copy of the same weights -------------------------
@@ -802,7 +869,7 @@ def main():
             abs_err = max(abs_err, e)
             rel_err = max(rel_err, e / want[key].float().abs().max().item())
         extra = {}
-        if kernel in F64_READ:  # the formula in float64, and the plain version against it
+        if kernel in F64_CHECKED:  # the formula in float64, and the plain version against it
             want64 = plain[kernel](*args, **kw, dtype=torch.float64)
             if not isinstance(want64, dict):
                 want64 = {"out": want64}
@@ -826,6 +893,12 @@ def main():
         if kernel == "flash_attention":
             extra["design"] = fa_mod.design(*args, kw.get("window"), kw.get("q_positions"),
                                             kw.get("k_positions"))
+            if extra["design"] == "split":  # its grid and scratch, as the wrapper sizes them
+                (n_, t_, h_, _), (s_, kv_, dv_) = args[0].shape, args[2].shape[1:]
+                keys = fa_mod.split_keys(s_, n_ * kv_ * -(-t_ * (h_ // kv_) // fa_mod.SPLIT_ROWS),
+                                         torch.cuda.get_device_properties(0).multi_processor_count)
+                extra.update(split_keys=keys, splits=-(-s_ // keys), scratch_bytes=4 * (
+                    fa_mod.split_scratch_floats(n_, t_, h_, dv_, -(-s_ // keys))))
         if kernel in ROW_CHECKED:
             out_key = "y" if kernel == "wkv" else "out"
             extra["row_rel_err"] = row_rel_err(got[out_key], want[out_key])
@@ -860,9 +933,10 @@ def main():
                  "bit for bit")
         if kernel in ROW_CHECKED and tol == BF16_TOL and not extra["row_rel_err"] <= ROW_TOL:
             fail(f"{kernel} {label}: row error {extra['row_rel_err']:.3e} above {ROW_TOL}")
-        # bf16 prefill at dh = dv ∈ {64, 128} takes the tensor cores; decode,
-        # float32 and the wider heads the CUDA cores
-        want_design = "wgmma" if label.startswith("prefill bf16") else "simt"
+        # decode takes the split-KV design; bf16 prefill at dh = dv ∈ {64,
+        # 128} the tensor cores; float32 and the wider prefill heads "simt"
+        want_design = ("split" if "decode" in label.split()
+                       else "wgmma" if label.startswith("prefill bf16") else "simt")
         if kernel == "flash_attention" and extra["design"] != want_design:
             fail(f"flash_attention {label}: design {extra['design']}, not {want_design}")
         agg = per_kernel[kernel]
@@ -881,6 +955,7 @@ def main():
     for row, args, kw in profiled_rows:
         kernel = row["kernel"]
         extra = dict(device_ms=device_per_call(torch, lambda: wrapper[kernel](*args, **kw))[0])
+        extra["device_share"] = row["bound_ms"] / extra["device_ms"]
         if kernel in library:
             extra["library_device_ms"], extra["library_kernels"] = device_per_call(
                 torch, lambda: library[kernel](*args, **kw))

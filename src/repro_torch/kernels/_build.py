@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -40,12 +40,15 @@ def _nvcc() -> str:
                        "kernels are built on a machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+def library_path(name: str, csrc: Optional[Path] = None,
+                 build_dir: Optional[Path] = None) -> Path:
+    """Where the library built from ``<csrc>/<name>.cu`` lives (``CSRC`` and
+    ``BUILD_DIR`` by default)."""
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(csrc.glob("*.cuh")) + [csrc / f"{name}.cu"]:
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
@@ -55,28 +58,34 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     beside each library as ``lib<name>.log``.
     """
     names = tuple(names)
-    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
-    if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-    procs = {}
-    for n, target in todo.items():
+    build_jobs((n, CSRC, BUILD_DIR) for n in names)
+    return {n: library_path(n) for n in names}
+
+
+def build_jobs(jobs: Iterable[Tuple[str, Path, Path]]) -> None:
+    """Compile ``<csrc>/<name>.cu`` into ``build_dir`` for each (name, csrc,
+    build_dir) that has no current library, one nvcc each, all at once (the
+    fault and comparison tools build several copies of a source)."""
+    todo = [(n, c, d, library_path(n, c, d)) for n, c, d in jobs]
+    todo = [job for job in todo if not job[3].exists()]
+    nvcc = _nvcc() if todo else None
+    procs = []
+    for n, csrc, build_dir, target in todo:
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, target)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
+        procs.append((n, csrc, build_dir, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, target))
     failed = []
-    for n, (proc, tmp, target) in procs.items():
+    for n, csrc, build_dir, proc, tmp, target in procs:
         out, _ = proc.communicate()
-        (BUILD_DIR / f"lib{n}.log").write_text(out)
+        (build_dir / f"lib{n}.log").write_text(out)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{n}.cu (exit {proc.returncode}):\n{out}")
+            failed.append(f"nvcc failed for {csrc / n}.cu (exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {n: library_path(n) for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,7 +16,7 @@
 // Bound on the H100: operations (2·dh + 2·dv per seen (query, key) pair).  At
 // Hymba-1.5B's prefill (4×2048 tokens, 25 heads, dh 64) that is 53.7 GFLOP a
 // global layer and 40.3 GFLOP a window-1024 one: 0.054 and 0.041 ms at 989
-// TFLOP/s bf16.  Two designs; the wrapper picks one (flash_attention.design):
+// TFLOP/s bf16.  Three designs; the wrapper picks one (flash_attention.design):
 //
 // "wgmma" — bf16 q, k, v, positions arange, dh = dv ∈ {64, 128}, T ≤ S and
 // T·g ≥ 64 rows a KV head (prefill).  Every row then sees its own key, so no
@@ -40,10 +40,11 @@
 //   * P goes to bf16 in registers and is wgmma's A operand for O += P·V, V
 //     read from shared memory in the transposed (MN-major) form; O stays in
 //     float32 registers and is written as bf16 once.
-// "simt" — everything else (float32, bf16 queries against the float32
-// cache, given positions (decode), fully masked rows, any dh and dv that are
-// multiples of 4 up to 256, dh ≠ dv allowed), on CUDA cores, all arithmetic
-// float32:
+// "split" — T·g < 64 rows a KV head (decode, short prompts), any dtypes,
+// positions and widths "simt" takes; bound by bytes; its note is below.
+// "simt" — everything else (float32, bf16 queries against a float32 cache,
+// given positions, fully masked rows, any dh and dv that are multiples of 4
+// up to 256, dh ≠ dv allowed), on CUDA cores, all arithmetic float32:
 //   * one block per (n, kv head, tile of query rows), the rows taken as
 //     (t, j) for the g = H/KV query heads j of that KV head, so the g heads
 //     share each K/V tile, as the Pallas kernel's [bq, g, dh] block does;
@@ -58,8 +59,6 @@
 //   * with default key positions the block visits only the tiles its rows
 //     can see (causal end, window start); with given key positions it visits
 //     all S keys and masks each;
-//   * few rows (decode: T = 1, g = 5) give each row TPR threads, each taking
-//     every TPR-th key, merged at the end by warp shuffles;
 //   * a row that saw no key takes the mean of all S values, in a second
 //     pass for such rows only.
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
@@ -107,10 +106,10 @@ struct Tiles {
   int kp[BK];
 };
 
-// Grid (row tiles, N·KV); rows r = t·g + j of one (n, kv head), THREADS/tpr
+// Grid (row tiles, N·KV); rows r = t·g + j of one (n, kv head), THREADS/DS
 // of them a block.  DM ≥ dh, dv, padded with zeros: instances DM = 64, 128
-// and 256.  A row's tpr threads are DS dimension lanes (the low bits of the
-// lane) times tpr/DS key lanes.  Each thread keeps DPT = DM/DS dims of q and
+// and 256.  A row's DS threads are its dimension lanes.  Each thread keeps
+// DPT = DM/DS dims of q and
 // of acc in registers, four at a time (dims 4·(dl + DS·i) .. +3 for dimension
 // lane dl), and the DS lanes sum their q·k partials by warp shuffle: DS = 1
 // at DM = 64 (64 dims a thread), DPT = 32 at the wider instances, which
@@ -123,7 +122,7 @@ __global__ void __launch_bounds__(THREADS, DM == 64 ? 1 : 3)
 flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
              TQ* __restrict__ out, const int* __restrict__ qpos, const int* __restrict__ kpos,
              int T, int S, int H, int KV, int dh, int dv, int causal, int has_window,
-             long long window, float scale, int tpr) {
+             long long window, float scale) {
   using Tl = Tiles<DM>;
   constexpr int BK = Tl::BK;
   constexpr int DPT = DM / DS;
@@ -131,13 +130,12 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
   __shared__ int q_lo, q_hi;
   const int g = H / KV;
   const int n = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int rows_per_block = THREADS / tpr;
-  const int lane = threadIdx.x % tpr;
-  const int kl = lane / DS, dl = lane % DS, kls = tpr / DS;  // key lane, dim lane, key lanes
-  // The DS lanes of one key lane, for their shuffles (aligned, inside a warp).
+  const int rows_per_block = THREADS / DS;
+  const int dl = threadIdx.x % DS;  // the dimension lane
+  // The DS lanes of a row, for their shuffles (aligned, inside a warp).
   static_assert(DS < 32 && (DS & (DS - 1)) == 0, "DS: a power of two below 32");
   const unsigned dmask = ((1u << DS) - 1) << ((threadIdx.x & 31) & ~(DS - 1));
-  const long long row = (long long)blockIdx.x * rows_per_block + threadIdx.x / tpr;
+  const long long row = (long long)blockIdx.x * rows_per_block + threadIdx.x / DS;
   const bool valid = row < (long long)T * g;
   const int t = valid ? (int)(row / g) : 0, j = valid ? (int)(row % g) : 0;
   const long long qoff = (((long long)n * T + t) * H + (long long)kvh * g + j);
@@ -158,7 +156,7 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
     q_hi = INT_MIN;
   }
   __syncthreads();
-  if (valid && lane == 0) {
+  if (valid && dl == 0) {
     atomicMin(&q_lo, (int)qp);
     atomicMax(&q_hi, (int)qp);
   }
@@ -193,16 +191,15 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
     load_tile(s0, len, true);
     __syncthreads();
     if (!valid) continue;
-    // 16 keys a step (every kls-th key of the tile from this key lane):
-    // their logits, one rescale, their values.
-    for (int base = kl; base < len; base += 16 * kls) {
+    // 16 keys a step: their logits, one rescale, their values.
+    for (int base = 0; base < len; base += 16) {
       float sc[16];
       float mx = m;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        const int s = base + i * kls;
+        const int s = base + i;
         sc[i] = -INFINITY;
-        if (s < len && seen(tl.kp[s])) {  // the same for the DS lanes of a key lane
+        if (s < len && seen(tl.kp[s])) {  // the same for the DS lanes of a row
           float dot = 0.f;
 #pragma unroll
           for (int c = 0; c < DPT; c += 4) {
@@ -227,7 +224,7 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         if (sc[i] == -INFINITY) continue;
-        const int s = base + i * kls;
+        const int s = base + i;
         const float p = expf(sc[i] - m);
         l += p;
 #pragma unroll
@@ -242,23 +239,6 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
     }
   }
 
-  // Merge the key lanes of a row (aligned groups inside one warp; the lanes
-  // DS·2^i apart hold the same dims).
-  for (int off = tpr / 2; off >= DS; off /= 2) {
-    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
-    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
-    const float mn = fmaxf(m, mo);
-    const float c1 = mn == -INFINITY ? 0.f : expf(m - mn);
-    const float c2 = mn == -INFINITY ? 0.f : expf(mo - mn);
-    l = l * c1 + lo * c2;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const float ao = __shfl_xor_sync(0xffffffffu, acc[c], off);
-      acc[c] = acc[c] * c1 + ao * c2;
-    }
-    m = mn;
-  }
-
   // Rows that saw no key: the mean of all S values (softmax over −1e30s).
   const bool none = valid && m == -INFINITY;
   if (__syncthreads_or(none)) {
@@ -270,19 +250,15 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
       load_tile(s0, len, false);
       __syncthreads();
       if (!none) continue;
-      for (int s = kl; s < len; s += kls) {
+      for (int s = 0; s < len; ++s) {
 #pragma unroll
         for (int c = 0; c < DPT; ++c) acc[c] += tl.v[s][4 * (dl + DS * (c / 4)) + c % 4];
       }
     }
-    for (int off = tpr / 2; off >= DS; off /= 2) {
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
-    }
     if (none) l = (float)S;
   }
 
-  if (valid && kl == 0) {
+  if (valid) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
@@ -295,26 +271,24 @@ flash_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
 template <int DM, int DS, typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* out, const int* qpos,
            const int* kpos, int N, int T, int S, int H, int KV, int dh, int dv, int causal,
-           int has_window, long long window, float scale, int tpr, cudaStream_t stream) {
-  if (tpr < DS) return (int)cudaErrorInvalidValue;
+           int has_window, long long window, float scale, cudaStream_t stream) {
   const long long rows = (long long)T * (H / KV);
-  const long long blocks = (rows + THREADS / tpr - 1) / (THREADS / tpr);
+  const long long blocks = (rows + THREADS / DS - 1) / (THREADS / DS);
   dim3 grid((unsigned)blocks, (unsigned)(N * KV));
   flash_kernel<DM, DS, TQ, TKV><<<grid, THREADS, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<TQ*>(out), qpos, kpos, T, S, H, KV, dh, dv, causal, has_window, window, scale,
-      tpr);
+      static_cast<TQ*>(out), qpos, kpos, T, S, H, KV, dh, dv, causal, has_window, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DM, int DS>
 int dispatch(int q_bf16, int kv_bf16, const void* q, const void* k, const void* v, void* out,
              const int* qpos, const int* kpos, int N, int T, int S, int H, int KV, int dh,
-             int dv, int causal, int has_window, long long window, float scale, int tpr,
+             int dv, int causal, int has_window, long long window, float scale,
              cudaStream_t stream) {
   using BF = __nv_bfloat16;
 #define FA_ARGS q, k, v, out, qpos, kpos, N, T, S, H, KV, dh, dv, causal, has_window, window, \
-                scale, tpr, stream
+                scale, stream
   if (q_bf16 && kv_bf16) return launch<DM, DS, BF, BF>(FA_ARGS);
   if (q_bf16) return launch<DM, DS, BF, float>(FA_ARGS);
   if (kv_bf16) return launch<DM, DS, float, BF>(FA_ARGS);
@@ -654,27 +628,464 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int N, int
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// "split": decode and short prompts on CUDA cores, the keys split over blocks
+//
+// Replaces, for the calls whose T·g rows a KV head are fewer than 64 (decode,
+// T = 1; short prompts), the Pallas kernel flash_attention_pallas
+// (src/repro/kernels/flash_attention.py:78).  Bound on the H100: bytes.  The
+// cache is read once: at Hymba-1.5B's decode (batch 4, 5 KV heads of 64,
+// float32 cache) 10.5 MB for a ring of 1024 and 21 MB for a global cache of
+// 2048, 3.1 and 6.3 µs at 3.35 TB/s, against 2·(dh + dv) operations a seen
+// (query, key) pair for g = 5 query rows: 2 operations a byte, far below the
+// ridge, so no tensor cores.  The "simt" design gave decode's 5 rows of a KV
+// head 32 threads each: 2 blocks an (n, KV head), each reading that head's
+// whole K and V, 40 blocks on 132 SMs, every tile behind a __syncthreads
+// pair (7–10× SDPA's device time).  Here:
+//   * one block per (n, KV head, split of the S keys, 8 query rows): every
+//     query head of the KV head in one block, so each K/V element is read
+//     from device memory once; the wrapper sizes the splits
+//     (flash_attention.split_keys) so the grid fills the SMs (Hymba's
+//     decode: 20 (n, KV head) pairs);
+//   * each warp stages its own keys KW at a time (K and V rows, and their
+//     positions) by 16-byte cp.async, neighbouring lanes on neighbouring
+//     addresses, two stages in flight, and waits on its own copies: no
+//     barrier in the key loop; the stage after next goes out as soon as a
+//     stage is read;
+//   * q·k with a lane on a key (DS lanes a key above dh 64, added by
+//     shuffle), P·V with a lane on its dims of V; float32 throughout;
+//   * each split writes its partial (m, l, acc[dv]) per query row to scratch
+//     (the wrapper's torch.empty); the last block of an (n, KV head, row
+//     group) to arrive (an atomic ticket the wrapper's counters hold, back
+//     at 0 after each launch) merges its rows' splits in split order, so
+//     repeats give the same bits and no second launch waits on the first; a
+//     row no split saw a key of takes the mean of all S values there.
+// ---------------------------------------------------------------------------
+
+constexpr int SPLIT_THREADS = 128;  // four warps, each owning its keys
+constexpr int SPLIT_WARPS = SPLIT_THREADS / 32;
+constexpr int SPLIT_ROWS = 8;       // query rows a block: every g ≤ 8 decode in one
+constexpr int QSEG = 36;            // a 32-dim segment of a staged q row, padded
+
+// Dynamic shared memory of an instance: the block's q rows (float32, 32-dim
+// segments padded by 4 floats, so the DS dimension lanes of a key read them
+// without conflict); then per warp two stages of KW keys (K rows then V rows
+// in the cache's type, each padded by 16 bytes, so lanes reading 16 bytes of
+// neighbouring rows hit different banks), the stages' key positions, and p
+// [KW][ROWS].  After the key loop the same bytes hold the four warps' states.
+template <int DM, typename TKV>
+struct SplitSmem {
+  static constexpr int KW = 1024 / DM;  // keys a warp stages at once: 16, 8, 4
+  static constexpr int ROW = DM + 16 / (int)sizeof(TKV);  // elements a staged row
+  static constexpr int QROW = (DM / 32) * QSEG;            // floats a staged q row
+  static constexpr int Q_BYTES = 4 * SPLIT_ROWS * QROW;
+  static constexpr int STAGE_BYTES = 2 * KW * ROW * (int)sizeof(TKV);
+  static constexpr int WARP_BYTES = 2 * STAGE_BYTES + 4 * 2 * KW + 4 * KW * SPLIT_ROWS;
+  static constexpr int STATE_BYTES = 4 * SPLIT_WARPS * SPLIT_ROWS * (DM + 2);  // m, l, acc[DM]
+  static constexpr int BYTES = Q_BYTES + (SPLIT_WARPS * WARP_BYTES > STATE_BYTES
+                                              ? SPLIT_WARPS * WARP_BYTES
+                                              : STATE_BYTES);
+};
+
+// One cp.async of `bytes` ∈ {16, 8, 4} (2: a plain copy, for a bf16 cache
+// whose base is not 4-byte aligned); zeros where `in` is false.
+__device__ __forceinline__ void copy_chunk(void* dst, const void* src, int bytes, bool in) {
+  const uint32_t d = smem_u32(dst);
+  const int n = in ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else if (bytes == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    *static_cast<uint16_t*>(dst) = in ? *static_cast<const uint16_t*>(src) : (uint16_t)0;
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// 4 consecutive elements of a staged row as floats (8- or 16-byte aligned).
+__device__ __forceinline__ void ld4(const float* p, float (&x)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+}
+__device__ __forceinline__ void ld2(const float* p, float (&x)[4]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  x[0] = t.x, x[1] = t.y;
+}
+__device__ __forceinline__ void ld2(const __nv_bfloat16* p, float (&x)[4]) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  x[0] = a.x, x[1] = a.y;
+}
+
+// The dimension of V a lane owns at its e-th of DM/32 values: two
+// consecutive at DM = 64, four at 128, two groups of four 128 apart at 256
+// (neighbouring lanes on neighbouring addresses).
+template <int DM>
+__device__ __forceinline__ int pv_dim(int lane, int e) {
+  return DM == 64 ? 2 * lane + e : 128 * (e / 4) + 4 * lane + e % 4;
+}
+
+// Grid (splits, N·KV, row groups of SPLIT_ROWS): block (x, y, z) takes keys
+// [x·chunk, (x+1)·chunk) ∩ [0, S) of (n, kv head) y for the query rows r =
+// t·g + j in [8z, 8z + 8).  Warp w takes keys base = w·KW, w·KW + 4·KW, …
+// of the split, staging them by cp.async two stages ahead into its own
+// buffers (no block barrier in the key loop): lane (kl, dl) = (lane % KW,
+// lane / KW) takes q·k of key kl over dims [32·dl, 32·dl + 32) for all eight
+// rows (rows past the block's are computed and dropped: the rows' chains
+// interleave), the DS lanes adding by shuffle; an online softmax per row
+// over the warp's keys (the max by shuffles, p to shared memory); then P·V
+// with the lane on its DM/32 dims of V.  At the end the four warps' (m, l,
+// acc) are merged in warp order and written, unnormalised, as the split's
+// partial: part[((y·R + r)·splits + x)·dv + d], and (m, l) at ml[((y·R +
+// r)·splits + x)·2]; the last block to arrive merges the splits into out.
+template <int DM, typename TQ, typename TKV>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+flash_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                   const TKV* __restrict__ v, const int* __restrict__ qpos,
+                   const int* __restrict__ kpos, float* __restrict__ part, float* __restrict__ ml,
+                   unsigned* __restrict__ tickets, TQ* __restrict__ out, int T, int S, int H,
+                   int KV, int dh, int dv, int causal, int has_window, long long window,
+                   float scale, int chunk, int copy_bytes) {
+  using L = SplitSmem<DM, TKV>;
+  constexpr int KW = L::KW, ROW = L::ROW, QROW = L::QROW, DPL = DM / 32;
+  extern __shared__ __align__(16) uint8_t split_smem[];
+  __shared__ int is_last;
+  float* qs = reinterpret_cast<float*>(split_smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint8_t* own = split_smem + L::Q_BYTES + warp * L::WARP_BYTES;
+  TKV* kv_st = reinterpret_cast<TKV*>(own);                         // [2][K rows, V rows]
+  int* kp_st = reinterpret_cast<int*>(own + 2 * L::STAGE_BYTES);    // [2][KW]
+  float* ps = reinterpret_cast<float*>(own + 2 * L::STAGE_BYTES + 8 * KW);  // [KW][ROWS]
+
+  const int g = H / KV, R = T * g, splits = gridDim.x;
+  const int n = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const int r0 = SPLIT_ROWS * blockIdx.z;
+  const int rows = min(SPLIT_ROWS, R - r0);
+  long long s_lo = (long long)blockIdx.x * chunk;
+  long long s_hi = min((long long)S, s_lo + chunk);
+
+  // Query positions of the block's rows (past its rows: the last row's);
+  // with default key positions the keys its rows can see bound the visit
+  // (causal end, window start).
+  int qp[SPLIT_ROWS];
+  long long q_lo = LLONG_MAX, q_hi = LLONG_MIN;
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r) {
+    const int t = (r0 + min(r, rows - 1)) / g;
+    qp[r] = qpos ? qpos[t] : t;
+    q_lo = min(q_lo, (long long)qp[r]);
+    q_hi = max(q_hi, (long long)qp[r]);
+  }
+  if (!kpos) {
+    if (causal) s_hi = min(s_hi, q_hi + 1);
+    if (has_window) s_lo = max(s_lo, q_lo - window + 1);
+  }
+
+  // Stage keys [base, base + KW) ∩ [s_lo, s_hi) of this warp into buffer
+  // `buf`, zeros past them; columns past dh / dv keep the zeros written
+  // below.  A row is `per` copies; lane l takes copies l, l + 32, … of the
+  // KW rows in turn.
+  const TKV* kh = k + (long long)n * S * KV * dh + (long long)kvh * dh;
+  const TKV* vh = v + (long long)n * S * KV * dv + (long long)kvh * dv;
+  auto copy_rows = [&](TKV* dst, const TKV* src, long long stride, int per, long long base) {
+    const int dk = 32 / per, dc = 32 % per;
+    for (int key = lane / per, c = lane % per; key < KW;) {
+      const long long s = base + key;
+      const bool in = s < s_hi;
+      copy_chunk(reinterpret_cast<uint8_t*>(dst + key * ROW) + c * copy_bytes,
+                 reinterpret_cast<const uint8_t*>(src + (in ? s : 0) * stride) + c * copy_bytes,
+                 copy_bytes, in);
+      key += dk;
+      c += dc;
+      if (c >= per) c -= per, ++key;
+    }
+  };
+  const int kchunks = dh * (int)sizeof(TKV) / copy_bytes, vchunks = dv * (int)sizeof(TKV) / copy_bytes;
+  auto stage = [&](long long base, int buf) {
+    TKV* st_k = kv_st + buf * 2 * KW * ROW;
+    copy_rows(st_k, kh, (long long)KV * dh, kchunks, base);
+    copy_rows(st_k + KW * ROW, vh, (long long)KV * dv, vchunks, base);
+    if (kpos && lane < KW) {
+      const long long s = base + lane;
+      copy_chunk(kp_st + buf * KW + lane, kpos + (s < s_hi ? s : 0), 4, s < s_hi);
+    }
+  };
+  const long long step = (long long)SPLIT_WARPS * KW;
+  long long base = s_lo + (long long)warp * KW;
+  // Two stages in flight while q is read (a group each, empty past the keys).
+  if (base < s_hi) stage(base, 0);
+  cp_commit();
+  if (base + step < s_hi) stage(base + step, 1);
+  cp_commit();
+
+  // Zero both stages' columns past dh and dv (never copied into), and read
+  // the block's q rows into shared memory as float32, zeros past dh.
+  for (int e = lane; e < 2 * KW * (DM - dh); e += 32)
+    kv_st[(e / (KW * (DM - dh))) * 2 * KW * ROW + (e % (KW * (DM - dh))) / (DM - dh) * ROW + dh +
+          e % (DM - dh)] = TKV(0.f);
+  for (int e = lane; e < 2 * KW * (DM - dv); e += 32)
+    kv_st[(e / (KW * (DM - dv))) * 2 * KW * ROW + KW * ROW + (e % (KW * (DM - dv))) / (DM - dv) * ROW +
+          dv + e % (DM - dv)] = TKV(0.f);
+  for (int e = threadIdx.x; e < SPLIT_ROWS * DM; e += SPLIT_THREADS) {
+    const int r = e / DM, d = e % DM;
+    float x = 0.f;
+    if (r < rows && d < dh) {
+      const int row = r0 + r, t = row / g, j = row % g;
+      x = ld(q, (((long long)n * T + t) * H + (long long)kvh * g + j) * dh + d);
+    }
+    qs[r * QROW + (d / 32) * QSEG + d % 32] = x;
+  }
+  __syncthreads();
+
+  const int kl = lane % KW, dl = lane / KW;
+  float m[SPLIT_ROWS], l[SPLIT_ROWS], acc[SPLIT_ROWS][DPL];
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
+  }
+
+  for (int buf = 0; base < s_hi; base += step, buf ^= 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this stage's group is in
+    __syncwarp();
+    const TKV* ks = kv_st + buf * 2 * KW * ROW;
+    const TKV* vs = ks + KW * ROW;
+    const long long key = base + kl;
+    const int kp = key < s_hi ? (kpos ? kp_st[buf * KW + kl] : (int)key) : -1;
+
+    // q·k of key kl over the lane's 32 dims, for every row.
+    float sc[SPLIT_ROWS];
+#pragma unroll
+    for (int r = 0; r < SPLIT_ROWS; ++r) sc[r] = 0.f;
+    const TKV* kr = ks + kl * ROW + 32 * dl;
+#pragma unroll
+    for (int c = 0; c < 32; c += 4) {
+      float kk[4];
+      ld4(kr + c, kk);
+#pragma unroll
+      for (int r = 0; r < SPLIT_ROWS; ++r) {
+        const float4 qq = *reinterpret_cast<const float4*>(qs + r * QROW + dl * QSEG + c);
+        sc[r] = fmaf(qq.x, kk[0], fmaf(qq.y, kk[1], fmaf(qq.z, kk[2], fmaf(qq.w, kk[3], sc[r]))));
+      }
+    }
+    // The DS dimension lanes of a key (KW apart) add their partials; then
+    // the online softmax over the warp's KW keys, row by row.
+#pragma unroll
+    for (int r = 0; r < SPLIT_ROWS; ++r) {
+#pragma unroll
+      for (int off = KW; off < 32; off *= 2) sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], off);
+      const bool seen = kp >= 0 && (!causal || qp[r] >= kp) &&
+                        (!has_window || (long long)qp[r] - kp < window);
+      const float x = seen ? sc[r] * scale : -INFINITY;
+      float mx = x;
+#pragma unroll
+      for (int off = KW / 2; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[r], mx);
+      const bool none = mn == -INFINITY;   // nothing seen yet: the state stays zero
+      const float corr = none ? 1.f : expf(m[r] - mn);  // 0 while m = −inf
+      const float p = none ? 0.f : expf(x - mn);        // 0 for a masked key
+      m[r] = mn;
+      l[r] = l[r] * corr + (dl == 0 ? p : 0.f);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[r][e] *= corr;
+      if (dl == 0) ps[kl * SPLIT_ROWS + r] = p;
+    }
+    __syncwarp();
+
+    // P·V over the stage's keys (p = 0 and zeros past the split), the lane
+    // on its dims of V.
+#pragma unroll
+    for (int s = 0; s < KW; ++s) {
+      float pr[SPLIT_ROWS];
+      const float4 p0 = *reinterpret_cast<const float4*>(ps + s * SPLIT_ROWS);
+      const float4 p1 = *reinterpret_cast<const float4*>(ps + s * SPLIT_ROWS + 4);
+      pr[0] = p0.x, pr[1] = p0.y, pr[2] = p0.z, pr[3] = p0.w;
+      pr[4] = p1.x, pr[5] = p1.y, pr[6] = p1.z, pr[7] = p1.w;
+      float vv[DPL];
+#pragma unroll
+      for (int e = 0; e < DPL; e += 4) {
+        float x[4];
+        if (DM == 64)
+          ld2(vs + s * ROW + pv_dim<DM>(lane, 0), x);
+        else
+          ld4(vs + s * ROW + pv_dim<DM>(lane, e), x);
+#pragma unroll
+        for (int i = 0; i < 4 && e + i < DPL; ++i) vv[e + i] = x[i];
+      }
+#pragma unroll
+      for (int r = 0; r < SPLIT_ROWS; ++r)
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[r][e] = fmaf(pr[r], vv[e], acc[r][e]);
+    }
+    __syncwarp();  // the stage and p are read: the keys two stages on may land
+    if (base + 2 * step < s_hi) stage(base + 2 * step, buf);
+    cp_commit();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // The warps' states into shared memory, then merged in warp order.
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r)
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+  __syncthreads();  // every warp is done with its stages
+  float* state = reinterpret_cast<float*>(split_smem + L::Q_BYTES);
+  float* mine = state + warp * SPLIT_ROWS * (DM + 2);
+#pragma unroll
+  for (int r = 0; r < SPLIT_ROWS; ++r) {
+    if (lane == 0) mine[r * (DM + 2)] = m[r], mine[r * (DM + 2) + 1] = l[r];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) mine[r * (DM + 2) + 2 + pv_dim<DM>(lane, e)] = acc[r][e];
+  }
+  __syncthreads();
+  const long long row0 = (long long)blockIdx.y * R + r0;  // the first row's index in ml
+  for (int e = threadIdx.x; e < rows * (dv + 1); e += SPLIT_THREADS) {
+    const int r = e / (dv + 1), d = e % (dv + 1) - 1;  // d = −1: (m, l)
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < SPLIT_WARPS; ++w) mx = fmaxf(mx, state[(w * SPLIT_ROWS + r) * (DM + 2)]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPLIT_WARPS; ++w) {
+      const float* sw = state + (w * SPLIT_ROWS + r) * (DM + 2);
+      const float c = mx == -INFINITY ? 0.f : expf(sw[0] - mx);
+      sum += c * (d < 0 ? sw[1] : sw[2 + d]);
+    }
+    const long long slot = (row0 + r) * splits + blockIdx.x;
+    if (d < 0) {
+      ml[2 * slot] = mx;
+      ml[2 * slot + 1] = sum;
+    } else {
+      part[slot * dv + d] = sum;
+    }
+  }
+
+  // The last block of (n, kv head, row group) to arrive merges every
+  // split's partial: out = Σ_x e^(m_x − M) acc_x / Σ_x e^(m_x − M) l_x with
+  // M the largest m_x, summed in split order; a row no split saw a key of
+  // takes the mean of all S values.  atomicInc wraps the ticket back to 0.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicInc(&tickets[blockIdx.y * gridDim.z + blockIdx.z], splits - 1) ==
+              (unsigned)(splits - 1);
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // A thread a row and 4 dims: every split's (m, l) and acc in one round of
+  // loads, then an online merge in split order.
+  const int dv4 = dv / 4;
+  for (int e = threadIdx.x; e < rows * dv4; e += SPLIT_THREADS) {
+    const int r = e / dv4, d = 4 * (e % dv4), row = r0 + r, t = row / g, j = row % g;
+    TQ* o = out + (((long long)n * T + t) * H + (long long)kvh * g + j) * dv + d;
+    const float2* mlr = reinterpret_cast<const float2*>(ml) + (row0 + r) * splits;
+    const float4* pr = reinterpret_cast<const float4*>(part + ((row0 + r) * splits * dv + d));
+    float M = -INFINITY, lsum = 0.f, sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 16
+    for (int x = 0; x < splits; ++x) {
+      const float2 mlx = __ldcg(mlr + x);
+      const float4 a = __ldcg(pr + (long long)x * dv4);
+      const float mn = fmaxf(M, mlx.x);
+      const float c = mn == -INFINITY ? 1.f : expf(M - mn);  // 0 while M = −inf
+      const float w = mlx.x == -INFINITY ? 0.f : expf(mlx.x - mn);
+      M = mn;
+      lsum = fmaf(w, mlx.y, lsum * c);
+      sum[0] = fmaf(w, a.x, sum[0] * c);
+      sum[1] = fmaf(w, a.y, sum[1] * c);
+      sum[2] = fmaf(w, a.z, sum[2] * c);
+      sum[3] = fmaf(w, a.w, sum[3] * c);
+    }
+    if (M == -INFINITY) {  // no split saw a key: the mean of all S values
+      for (long long s = 0; s < S; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[i] += ld(vh, s * KV * dv + d + i);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st(o, i, sum[i] / (float)S);
+    } else {
+      const float inv = 1.f / lsum;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st(o, i, sum[i] * inv);
+    }
+  }
+}
+
+template <int DM, typename TQ, typename TKV>
+int launch_split(const void* q, const void* k, const void* v, void* out, const int* qpos,
+                 const int* kpos, float* part, unsigned* tickets, int N, int T, int S, int H,
+                 int KV, int dh, int dv, int causal, int has_window, long long window,
+                 float scale, int chunk, cudaStream_t stream) {
+  // The widest copy the rows' widths and the bases allow.
+  int bytes = 16;
+  while (bytes > 2 && ((dh * (int)sizeof(TKV)) % bytes || (dv * (int)sizeof(TKV)) % bytes ||
+                       (uintptr_t)k % bytes || (uintptr_t)v % bytes))
+    bytes /= 2;
+  const int R = T * (H / KV);
+  const int splits = (int)(((long long)S + chunk - 1) / chunk);
+  float* ml = part + (long long)N * KV * R * splits * dv;
+  using L = SplitSmem<DM, TKV>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_split_kernel<DM, TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid((unsigned)splits, (unsigned)(N * KV), (unsigned)((R + SPLIT_ROWS - 1) / SPLIT_ROWS));
+  flash_split_kernel<DM, TQ, TKV><<<grid, SPLIT_THREADS, L::BYTES, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), qpos,
+      kpos, part, ml, tickets, static_cast<TQ*>(out), T, S, H, KV, dh, dv, causal, has_window,
+      window, scale, chunk, bytes);
+  return (int)cudaGetLastError();
+}
+
+template <int DM>
+int dispatch_split(int q_bf16, int kv_bf16, const void* q, const void* k, const void* v, void* out,
+                   const int* qpos, const int* kpos, float* part, unsigned* tickets, int N, int T,
+                   int S, int H, int KV, int dh, int dv, int causal, int has_window,
+                   long long window, float scale, int chunk, cudaStream_t stream) {
+  using BF = __nv_bfloat16;
+#define FS_ARGS q, k, v, out, qpos, kpos, part, tickets, N, T, S, H, KV, dh, dv, causal, \
+                has_window, window, scale, chunk, stream
+  if (q_bf16 && kv_bf16) return launch_split<DM, BF, BF>(FS_ARGS);
+  if (q_bf16) return launch_split<DM, BF, float>(FS_ARGS);
+  if (kv_bf16) return launch_split<DM, float, BF>(FS_ARGS);
+  return launch_split<DM, float, float>(FS_ARGS);
+#undef FS_ARGS
+}
+
 }  // namespace
 
-// The "simt" design: dh, dv multiples of 4, at most SIMT_MAX_DIM.  tpr:
-// threads a query row, a power of two ≤ 32, raised to the instance's
-// dimension lanes (4 above dh, dv = 64, 8 above 128).  window ≤ 0 with
-// has_window set masks every key.  Returns a cudaError_t.
+// The "simt" design: dh, dv multiples of 4, at most SIMT_MAX_DIM; a query
+// row takes the instance's dimension lanes (1; 4 above dh, dv = 64; 8 above
+// 128).  window ≤ 0 with has_window set masks every key.  Returns a
+// cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       const int* qpos, const int* kpos, int N, int T, int S,
                                       int H, int KV, int dh, int dv, int causal,
                                       int has_window, long long window, float scale,
-                                      int q_bf16, int kv_bf16, int tpr, cudaStream_t stream) {
-  if (KV <= 0 || H % KV || tpr <= 0 || tpr > 32 || (tpr & (tpr - 1)) || N * KV > 65535 ||
-      dh % 4 || dv % 4)
+                                      int q_bf16, int kv_bf16, cudaStream_t stream) {
+  if (KV <= 0 || H % KV || N * KV > 65535 || dh % 4 || dv % 4)
     return (int)cudaErrorInvalidValue;
   if (dh > SIMT_MAX_DIM || dv > SIMT_MAX_DIM) return (int)cudaErrorInvalidValue;
 #define FA_ARGS q_bf16, kv_bf16, q, k, v, out, qpos, kpos, N, T, S, H, KV, dh, dv, causal, \
                 has_window, window, scale
   const int dm = dh > dv ? dh : dv;
-  if (dm <= 64) return dispatch<64, 1>(FA_ARGS, tpr, stream);
-  if (dm <= 128) return dispatch<128, 4>(FA_ARGS, tpr < 4 ? 4 : tpr, stream);
-  return dispatch<256, 8>(FA_ARGS, tpr < 8 ? 8 : tpr, stream);
+  if (dm <= 64) return dispatch<64, 1>(FA_ARGS, stream);
+  if (dm <= 128) return dispatch<128, 4>(FA_ARGS, stream);
+  return dispatch<256, 8>(FA_ARGS, stream);
 #undef FA_ARGS
 }
 
@@ -693,4 +1104,30 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k, const voi
   if (dh == 128)
     return launch_tc<128>(q, k, v, out, N, T, S, H, KV, causal, has_window, window, scale, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The "split" design: dh, dv multiples of 4, at most SIMT_MAX_DIM; q and
+// k/v each float32 or bf16; `chunk` keys a split (≥ 1), so ⌈S / chunk⌉
+// splits; `part` holds N·KV·R·splits·(dv + 2) floats (R =
+// T·H/KV), written before they are read; `tickets` N·KV·⌈R / 8⌉ counters
+// that are 0, and are 0 again when the launch has run.  window ≤ 0 with
+// has_window set masks every key.  One launch.  Returns a cudaError_t.
+extern "C" int flash_attention_split_launch(const void* q, const void* k, const void* v,
+                                            void* out, const int* qpos, const int* kpos,
+                                            float* part, unsigned* tickets, int N, int T, int S,
+                                            int H, int KV,
+                                            int dh, int dv, int causal, int has_window,
+                                            long long window, float scale, int q_bf16,
+                                            int kv_bf16, int chunk, cudaStream_t stream) {
+  if (KV <= 0 || H % KV || N * KV > 65535 || dh % 4 || dv % 4 || dh <= 0 || dv <= 0 ||
+      dh > SIMT_MAX_DIM || dv > SIMT_MAX_DIM || chunk < 1 ||
+      ((long long)T * (H / KV) + SPLIT_ROWS - 1) / SPLIT_ROWS > 65535)
+    return (int)cudaErrorInvalidValue;
+#define FS_ARGS q_bf16, kv_bf16, q, k, v, out, qpos, kpos, part, tickets, N, T, S, H, KV, dh, dv, \
+                causal, has_window, window, scale, chunk, stream
+  const int dm = dh > dv ? dh : dv;
+  if (dm <= 64) return dispatch_split<64>(FS_ARGS);
+  if (dm <= 128) return dispatch_split<128>(FS_ARGS);
+  return dispatch_split<256>(FS_ARGS);
+#undef FS_ARGS
 }

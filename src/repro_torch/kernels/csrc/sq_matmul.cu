@@ -23,6 +23,11 @@
 //     thread squares in shared memory the elements it copied, once, so A² and
 //     B² never reach device memory; the hi/lo split happens as the
 //     fragments are loaded;
+//   * each stage's 16 rows are summed into a zeroed accumulator tile, a row
+//     of tiles at a time, and added into float32 registers on the CUDA cores
+//     (tf32x3::promote): carried through K = 1280 in the tensor cores'
+//     accumulator, the sum read 7.3e-6 against float64 (H100 80GB HBM3, 700
+//     W), above the 3e-6 the other 3xTF32 kernels meet;
 //   * when the output has too few tiles to fill the 132 SMs, K is split over
 //     the blocks of a thread-block cluster (2–8, cudaLaunchKernelEx).  Each
 //     block leaves its partial tile in its shared memory; after a cluster
@@ -46,8 +51,11 @@ using tf32x3::cp_async16;
 using tf32x3::cp_async4;
 using tf32x3::cp_commit;
 using tf32x3::cp_wait;
-using tf32x3::mma_tf32;
-using tf32x3::split_tf32;
+using tf32x3::frag_a_mk;
+using tf32x3::frag_b_kn;
+using tf32x3::mma3;
+using tf32x3::promote;
+using tf32x3::zero;
 
 constexpr int BM = 128, BN = 64;  // output tile
 constexpr int PA = BM + 8, PB = BN + 8;  // padded rows of the staged A and B
@@ -134,12 +142,7 @@ sq_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B, long 
 
   // acc[mi][ni][c]: row wm + 16mi + g + 8(c/2), column wn + 8ni + 2t + c%2.
   float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  zero(acc);
 
   const int steps = k_end > k_begin ? (int)((k_end - k_begin + RS - 1) / RS) : 0;
 #pragma unroll
@@ -158,37 +161,24 @@ sq_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B, long 
     cp_commit();
     const float* as = st;
     const float* bs = st + RS * PA;
+    // The stage's 16 rows into a zeroed tile a row of tiles at a time, then
+    // promoted into the float32 registers (tf32x3::promote's reason).
+    uint32_t bh[2][4][2], bl[2][4][2];
 #pragma unroll
-    for (int kk = 0; kk < RS; kk += 8) {
-      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+    for (int kq = 0; kq < 2; ++kq)
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const float* p = as + (kk + t) * PA + wm + 16 * mi + g;
-        split_tf32(p[0], ah[mi][0], al[mi][0]);
-        split_tf32(p[8], ah[mi][1], al[mi][1]);
-        split_tf32(p[4 * PA], ah[mi][2], al[mi][2]);
-        split_tf32(p[4 * PA + 8], ah[mi][3], al[mi][3]);
+      for (int ni = 0; ni < 4; ++ni) frag_b_kn(bs, PB, 8 * kq, wn + 8 * ni, bh[kq][ni], bl[kq][ni]);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      float tc[1][4][4];
+      zero(tc);
+#pragma unroll
+      for (int kq = 0; kq < 2; ++kq) {
+        uint32_t ah[1][4], al[1][4];
+        frag_a_mk(as, PA, 8 * kq, wm + 16 * mi, ah[0], al[0]);
+        mma3(tc, ah, al, bh[kq], bl[kq]);
       }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* p = bs + (kk + t) * PB + wn + 8 * ni + g;
-        split_tf32(p[0], bh[ni][0], bl[ni][0]);
-        split_tf32(p[4 * PB], bh[ni][1], bl[ni][1]);
-      }
-      // The small terms first; a pass over all 16 tiles between two products
-      // into the same accumulator.
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
+      promote(acc[mi], tc[0]);
     }
   }
   cp_wait<0>();

@@ -106,9 +106,9 @@ __device__ __forceinline__ void mma3(float (&acc)[MI][NI][4], const uint32_t (&a
 // accumulator through thousands of products drifts: carried through a whole
 // split (3,456 products at conv3), cross_dot's Gram reads 1e-4 of its
 // largest entry against float64 and 6e-5 of a median entry (H100,
-// tools/cross_dot_fault.py's "unpromoted"; sq_matmul, which does not
-// promote, reads 7e-6 at K = 1280).  So the kernels built on these add a
-// stage (16 or 32 k) into a zeroed tc and promote it: 7e-7 and 5e-7.
+// tools/cross_dot_fault.py's "unpromoted"; sq_matmul, unpromoted, read
+// 7.3e-6 at K = 1280).  So the kernels built on these add a stage (16 or 32
+// k) into a zeroed tc and promote it: 7e-7 and 5e-7.
 template <int NI>
 __device__ __forceinline__ void promote(float (&acc)[NI][4], const float (&tc)[NI][4]) {
 #pragma unroll

@@ -14,8 +14,11 @@ language models' two kernels, ``flash_attention`` and ``wkv``, are held in
 float32 and bfloat16, with a fully masked row, T = 1 decode against ring and
 global caches, ragged tiles and chunks, and Hymba's [N, T, H, 1] decay;
 flash_attention's tensor-core design ("wgmma") at g = 5 and 1, dh 64 and
-128, with and without a causal mask and a window, and its CUDA-core design
-at the configs' wider heads (120, 128, 192 with dv 128, 240); wkv also at
+128, with and without a causal mask and a window, its CUDA-core design
+at the configs' wider heads (120, 128, 192 with dv 128, 240), and its
+split-KV design ("split", T·g < 64) at Hymba-1.5B's full decode shapes, a
+fully masked row, S off the splits, dh 128 and 256 and short prompts, the
+same bits from call to call; wkv also at
 Hymba's full prefill width and at a dv off its column slice, held row by
 row in bf16; sq_matmul's and wkv's calls give the same bits from call to
 call; the reduced Hymba serves on the card as on the CPU.  The 3xTF32
@@ -25,7 +28,8 @@ also held to their formula in float64
 (``chip_smoke.F64_TOL`` whole-tensor, ``ENTRY_TOL`` entry by entry), off the
 3C3D shapes too (shared, per-group and fewer-row A sides, C = 1, 3, 10 and
 13, E = 1 and 3 groups, N = 1 to 1280 rows, R = 1, widths and rows off the
-tiles), and give the same bits from call to call.
+tiles, conv3's widths at 256 and 1024 rows a sample), and give the same bits
+from call to call; so is sq_matmul.
 """
 import itertools
 import sys
@@ -117,7 +121,9 @@ def test_card_sq_matmul(cuda, shape):
     n, a, b = SQ[shape]
     A = torch.randn(n, a, device="cuda", generator=cuda)
     B = torch.randn(n, b, device="cuda", generator=cuda)
-    _card_close({"out": ops.sq_matmul(A, B)}, {"out": ref.sq_matmul(A, B)})
+    got = {"out": ops.sq_matmul(A, B)}
+    _card_close(got, {"out": ref.sq_matmul(A, B)})
+    _f64_close("sq_matmul", got, {"out": ref.sq_matmul(A, B, dtype=torch.float64)})
 
 
 @pytest.mark.gpu
@@ -340,6 +346,45 @@ def test_card_predictive_var_cases(cuda, case, sigma):
     assert torch.equal(got, ops.predictive_var(A, S, W))
 
 
+# conv3's widths (a = 864, b = 128) at 256 and 1024 rows a sample, N = 128:
+# deep enough that a sum carried through a sample's rows in the tensor
+# cores' accumulator, unpromoted, fails the float64 checks
+# (tools/cross_dot_fault.py); conv3 itself has 64 rows.
+CONV3_DEEP = {"conv3_r256": (128, 256, 864, 128), "conv3_r1024": (128, 1024, 864, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["cross_dot", "fused_first_order", "per_sample_moment",
+                                    "predictive_var"])
+@pytest.mark.parametrize("case", sorted(CONV3_DEEP))
+def test_card_conv3_widths_deep_rows(cuda, case, kernel):
+    n, r, a, b = CONV3_DEEP[case]
+    A = torch.randn(n, r, a, device="cuda", generator=cuda)
+    if kernel == "cross_dot":  # the NTK's ten groups over one shared input
+        S = torch.randn(10, n, r, b, device="cuda", generator=cuda)
+        got = {"out": ops.cross_dot(A[None], S, A[None], S)}
+        full = (ops.full_a_side(A[None], S), S, ops.full_a_side(A[None], S), S)
+        want, want64 = ref.cross_dot(*full), ref.cross_dot(*full, dtype=torch.float64)
+    elif kernel == "fused_first_order":
+        B = torch.randn(1, n, r, b, device="cuda", generator=cuda)
+        mask = dict(want_l2=True, want_moment=True, want_dot=True)
+        got = ops.fused_first_order(A[None], B, **mask)
+        want = ref.fused_first_order(A[None], B, **mask)
+        want64 = ref.fused_first_order(A[None], B, **mask, dtype=torch.float64)
+    elif kernel == "per_sample_moment":
+        B = torch.randn(n, r, b, device="cuda", generator=cuda)
+        got = {"out": ops.per_sample_moment(A, B)}
+        want, want64 = (ref.per_sample_moment(A, B, dtype=d) for d in (torch.float32, torch.float64))
+    else:
+        S = torch.randn(10, n, r, b, device="cuda", generator=cuda)
+        W = torch.rand(a, b, device="cuda", generator=cuda)
+        got = {"out": ops.predictive_var(A, S, W)}
+        want, want64 = (ref.predictive_var(A, S, W, dtype=d) for d in (torch.float32, torch.float64))
+    want, want64 = (w if isinstance(w, dict) else {"out": w} for w in (want, want64))
+    _card_close(got, want)
+    _f64_close(kernel, got, want64)
+
+
 def _c2d2(cuda):
     model = papernets.c2d2(img=16, device="cuda", generator=torch.Generator().manual_seed(0))
     x = torch.randn(16, 16, 16, 1, device="cuda", generator=cuda)
@@ -468,8 +513,8 @@ def _row_rel(a, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", sorted(ATTN))
 def test_card_flash_attention(cuda, case, dtype):
-    """Rows of T·g < 64 split their keys over 32 threads (decode, the first
-    all-masked case), others take one thread a row."""
+    """Rows of T·g < 64 take the split-KV design (decode, the first
+    all-masked case), others the CUDA-core one."""
     q, k, v, kw = _attn_inputs(case, dtype, cuda)
     want = ref.flash_attention(q, k, v, **kw)
     tol = CARD_TOL if dtype == torch.float32 else BF16_TOL
@@ -571,6 +616,102 @@ def test_card_flash_attention_wide(cuda, width, mode, dtype):
         assert _row_rel(got, want) < ROW_TOL
 
 
+# The "split" design (T·g < 64 rows a KV head): Hymba-1.5B's decode at full
+# size, bf16 queries against its float32 caches at position 1500 (a ring of
+# 1024 that wrapped, a global cache of 2048 with the slots past 1500 empty),
+# a decode row with no slot written (the mean of all values), S off the
+# splits (1000, 150), the wide decode heads (dh 128 without GQA, 256 with a
+# ring), float32 and bf16 caches, and short prompts (T·g = 60 and 63: row
+# groups of 8, default positions with a window).
+SPLIT_ATTN = {  # (N, T, S, H, KV, dh, window, cache, position, q dtype, cache dtype)
+    "hymba_ring_1024": (4, 1, 1024, 25, 5, 64, 1024, "ring", 1500, "bf16", "fp32"),
+    "hymba_global_2048": (4, 1, 2048, 25, 5, 64, None, "global", 1500, "bf16", "fp32"),
+    "masked_row": (2, 1, 300, 10, 2, 64, None, "empty", 0, "bf16", "fp32"),
+    "ragged_1000": (4, 1, 1000, 25, 5, 64, 1024, "global", 700, "fp32", "fp32"),
+    "ragged_150": (2, 1, 150, 10, 2, 64, None, "global", 120, "bf16", "bf16"),
+    "dh128_global": (2, 1, 2048, 32, 32, 128, None, "global", 1500, "bf16", "fp32"),
+    "dh256_ring": (2, 1, 1024, 16, 8, 256, 1024, "ring", 1500, "bf16", "fp32"),
+    "fp32_queries_bf16_cache": (2, 1, 512, 16, 2, 64, None, "global", 400, "fp32", "bf16"),
+    "short_prompt_rows60": (2, 12, 12, 25, 5, 64, 5, "arange", 0, "bf16", "bf16"),
+    "short_prompt_rows63": (1, 63, 90, 4, 4, 32, None, "arange", 0, "fp32", "fp32"),
+}
+_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def _split_inputs(case, gen):
+    n, t, s, h, kv, dh, window, cache, pos, qd, cd = SPLIT_ATTN[case]
+    q = torch.randn(n, t, h, dh, device="cuda", generator=gen).to(_DTYPES[qd])
+    k, v = (torch.randn(n, s, kv, dh, device="cuda", generator=gen).to(_DTYPES[cd])
+            for _ in range(2))
+    kw = dict(window=window)
+    i32 = dict(device="cuda", dtype=torch.int32)
+    kp = torch.arange(s, **i32)
+    if cache == "ring":  # slot i holds position i + S once the ring wrapped past it
+        kp = torch.where(kp <= pos % s, kp + s, kp)
+    elif cache == "global":
+        kp[pos + 1:] = -1
+    elif cache == "empty":
+        kp[:] = -1
+    if cache != "arange":
+        kw.update(q_positions=torch.tensor([pos], **i32), k_positions=kp)
+    return q, k, v, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SPLIT_ATTN))
+def test_card_flash_attention_split(cuda, case):
+    """Design "split", one counted launch, within TOL / BF16_TOL of the
+    plain version and ROW_TOL row by row in bf16, a row with no key the mean
+    of all values, and the same bits from call to call."""
+    from repro_torch.kernels.flash_attention import design
+
+    q, k, v, kw = _split_inputs(case, cuda)
+    assert design(q, k, v, kw["window"], kw.get("q_positions"), kw.get("k_positions")) == "split"
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    assert _rel(got, want) < (CARD_TOL if q.dtype == torch.float32 else BF16_TOL)
+    if q.dtype == torch.bfloat16:
+        assert _row_rel(got, want) < ROW_TOL
+    if SPLIT_ATTN[case][7] == "empty":
+        mean = v.float().mean(1, keepdim=True).repeat_interleave(q.shape[2] // k.shape[2], 2)
+        assert _rel(got, mean.expand_as(got)) < BF16_TOL
+    assert torch.equal(got, ops.flash_attention(q, k, v, **kw))
+
+
+# The "split" design's copy widths: 16 bytes where the rows and bases allow,
+# else 8 (bf16 rows of dh 36), 4 (a float32 cache one element off 16 bytes)
+# or 2 (a bf16 cache one element off 4 bytes).  (dtype, dh, offset in elements)
+SPLIT_COPIES = {"bf16_dh36_8_bytes": ("bf16", 36, 0), "fp32_off_by_one_4_bytes": ("fp32", 64, 1),
+                "bf16_off_by_one_2_bytes": ("bf16", 64, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SPLIT_COPIES))
+def test_card_flash_attention_split_copy_widths(cuda, case):
+    dtype, dh, off = SPLIT_COPIES[case]
+    n, s, h, kv = 2, 300, 10, 2
+    cache = []
+    for _ in range(2):  # k and v, each a view `off` elements into its buffer
+        flat = torch.randn(off + n * s * kv * dh, device="cuda", generator=cuda).to(_DTYPES[dtype])
+        cache.append(flat[off:].view(n, s, kv, dh))
+    k, v = cache
+    q = torch.randn(n, 1, h, dh, device="cuda", generator=cuda).bfloat16()
+    kp = torch.arange(s, device="cuda", dtype=torch.int32)
+    kp[201:] = -1
+    kw = dict(window=None, q_positions=torch.tensor([200], device="cuda", dtype=torch.int32),
+              k_positions=kp)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention(q, k, v, **kw)
+    assert _rel(got, want) < BF16_TOL and _row_rel(got, want) < ROW_TOL
+
+
 # sq_matmul in one launch: M and N off the 128x64 tile (and off 4, the
 # 16-byte copies' width), K = 1280 split over a cluster.
 SQ_ONE_LAUNCH = {"k128": (128, 300, 100), "k1280": (1280, 300, 100),
@@ -589,6 +730,7 @@ def test_card_sq_matmul_one_launch_same_bits(cuda, shape):
     first = ops.sq_matmul(A, B)
     assert ops.launch_counts()["sq_matmul"] == 1
     _card_close({"out": first}, {"out": ref.sq_matmul(A, B)})
+    _f64_close("sq_matmul", {"out": first}, {"out": ref.sq_matmul(A, B, dtype=torch.float64)})
     if n == 1280:
         assert torch.equal(first, ops.sq_matmul(A, B))
 

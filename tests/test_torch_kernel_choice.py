@@ -3,8 +3,10 @@ flash_attention call takes, and the refusals every wrapper makes before it
 touches a card.
 
 ``flash_attention.design`` is pure (shapes, dtypes, positions, window,
-alignment): bf16 prefill goes to the tensor-core design ("wgmma"), the rest
-to the CUDA-core one ("simt").  The wrappers check dtypes, dimensions and the pairing of shapes before the device
+alignment): fewer than 64 query rows a KV head (decode, short prompts) go to
+the split-KV design ("split"), bf16 prefill to the tensor-core design
+("wgmma"), the rest to the CUDA-core one ("simt"); ``split_keys`` sizes the
+"split" design's grid.  The wrappers check dtypes, dimensions and the pairing of shapes before the device
 (``_build.check_input``, then ``_build.check_devices``), so CPU tensors
 reach those checks; a CPU tensor of a good shape is refused for its
 device.  No JAX here: the kernels'
@@ -19,7 +21,13 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import wkv as wkv_mod
-from repro_torch.kernels.flash_attention import design, flash_attention_cuda
+from repro_torch.kernels.flash_attention import (
+    SPLIT_KEY_STEP,
+    design,
+    flash_attention_cuda,
+    split_keys,
+    split_scratch_floats,
+)
 from repro_torch.kernels.sq_matmul import sq_matmul_cuda
 
 BF, F32 = torch.bfloat16, torch.float32
@@ -37,6 +45,18 @@ def _positions(t, s):
                 k_positions=torch.arange(s, dtype=torch.int32))
 
 
+def _decode(s, pos=1500, ring=False):
+    """Positions of one decode query at ``pos`` against a cache of ``s``
+    slots: a ring that wrapped, or a global cache with slots past ``pos``
+    empty (−1)."""
+    kp = torch.arange(s, dtype=torch.int32)
+    if ring:
+        kp = torch.where(kp <= pos % s, kp + s, kp)
+    else:
+        kp[pos + 1:] = -1
+    return dict(q_positions=torch.tensor([pos], dtype=torch.int32), k_positions=kp)
+
+
 # (inputs, window, positions) → the design; every case of the choice.
 DESIGNS = {
     "hymba_prefill_global": (_qkv(), None, {}, "wgmma"),
@@ -51,17 +71,44 @@ DESIGNS = {
     "fp32_queries_bf16_kv": (_qkv(dtypes=(F32, BF, BF)), None, {}, "simt"),
     "decode_positions": (_qkv(t=1, s=1024), 1024,
                          dict(q_positions=torch.tensor([1500], dtype=torch.int32),
-                              k_positions=torch.arange(1024, dtype=torch.int32)), "simt"),
+                              k_positions=torch.arange(1024, dtype=torch.int32)), "split"),
     "prefill_with_positions": (_qkv(t=128), None, _positions(128, 128), "simt"),
     "k_positions_only": (_qkv(t=128), None,
                          dict(k_positions=torch.full((128,), -1, dtype=torch.int32)), "simt"),
-    "rows_63": (_qkv(t=63, h=1, kv=1), None, {}, "simt"),
-    "decode_t1": (_qkv(t=1, s=2048), None, {}, "simt"),
+    "rows_63": (_qkv(t=63, h=1, kv=1), None, {}, "split"),
+    "decode_t1": (_qkv(t=1, s=2048), None, {}, "split"),
     "t_above_s": (_qkv(t=300, s=100), None, {}, "simt"),
     "window_0": (_qkv(t=128), 0, {}, "simt"),
     "dh32": (_qkv(t=128, dh=32), None, {}, "simt"),
     "dh96": (_qkv(t=128, dh=96), None, {}, "simt"),
     "dh_ne_dv": (_qkv(t=128, dh=64, dv=128), None, {}, "simt"),
+    # "split": T·g < 64, whatever the dtypes, positions, window and widths
+    "hymba_decode_ring": (_qkv(t=1, s=1024, n=4, dtypes=(BF, F32, F32)), 1024,
+                          _decode(1024, ring=True), "split"),
+    "hymba_decode_global": (_qkv(t=1, s=2048, n=4, dtypes=(BF, F32, F32)), None,
+                            _decode(2048), "split"),
+    "hymba_decode_float32": (_qkv(t=1, s=1024, dtypes=(F32, F32, F32)), 1024,
+                             _decode(1024, ring=True), "split"),
+    "decode_bf16_cache": (_qkv(t=1, s=1024), 1024, _decode(1024, ring=True), "split"),
+    "decode_fp32_queries_bf16_cache": (_qkv(t=1, s=256, dtypes=(F32, BF, BF)), None,
+                                       _decode(256, pos=100), "split"),
+    "decode_g1": (_qkv(t=1, s=2048, h=32, kv=32, dh=128, dtypes=(BF, F32, F32)), None,
+                  _decode(2048), "split"),
+    "decode_g8": (_qkv(t=1, s=512, h=32, kv=4, dtypes=(BF, F32, F32)), None,
+                  _decode(512, pos=300), "split"),
+    "decode_dh128": (_qkv(t=1, s=2048, h=32, kv=32, dh=128, dtypes=(BF, F32, F32)), None,
+                     _decode(2048), "split"),
+    "decode_dh240": (_qkv(t=1, s=1024, h=16, kv=8, dh=240, dtypes=(BF, F32, F32)), 1024,
+                     _decode(1024, ring=True), "split"),
+    "decode_dh192_dv128": (_qkv(t=1, s=300, h=16, kv=16, dh=192, dv=128), None,
+                           _decode(300, pos=200), "split"),
+    "rows_63_g7": (_qkv(t=9, h=7, kv=1), None, {}, "split"),
+    "rows_64_g8": (_qkv(t=8, h=8, kv=1), None, {}, "wgmma"),
+    "rows_63_float32": (_qkv(t=63, h=1, kv=1, dtypes=(F32, F32, F32)), None, {}, "split"),
+    "rows_64_float32": (_qkv(t=64, h=1, kv=1, dtypes=(F32, F32, F32)), None, {}, "simt"),
+    "short_prompt_g5": (_qkv(t=12), 1024, {}, "split"),
+    "short_prompt_t_above_s": (_qkv(t=12, s=5), None, {}, "split"),
+    "short_prompt_window_0": (_qkv(t=4), 0, {}, "split"),
 }
 
 
@@ -76,6 +123,44 @@ def test_flash_attention_design_needs_16_byte_alignment():
     flat = torch.zeros(q.numel() + 8, dtype=BF)
     assert design(flat[1:1 + q.numel()].view(q.shape), k, v) == "simt"  # 2 bytes off
     assert design(flat[8:8 + q.numel()].view(q.shape), k, v) == "wgmma"  # 16 bytes off
+
+
+# (S, N·KV·row groups) of the "split" design's calls: Hymba-1.5B's decode
+# (batch 4 × 5 KV heads) against its ring of 1024 and global cache of 2048,
+# the wide decode rows (CodeQwen1.5-7B: 4 × 32; gemma3-12b: 4 × 8), a single
+# key, ragged S, one pair, and a short prompt's row groups.
+SPLIT_SHAPES = {"hymba_ring": (1024, 20), "hymba_global": (2048, 20),
+                "codeqwen_global": (2048, 128), "gemma3_ring": (1024, 32),
+                "one_key": (1, 20), "ragged_1000": (1000, 20), "ragged_150": (150, 6),
+                "one_pair_long": (32768, 1), "many_pairs": (300, 5000),
+                "short_prompt_groups": (12, 160)}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_SHAPES))
+def test_split_keys(case):
+    """Every split holds keys, the last one ragged at most; the keys are a
+    multiple of the step; the grid fills the H100's 132 SMs at Hymba's
+    decode shapes (4 blocks an SM)."""
+    s, pairs = SPLIT_SHAPES[case]
+    keys = split_keys(s, pairs, 132)
+    splits = -(-s // keys)
+    assert keys % SPLIT_KEY_STEP == 0 and keys >= SPLIT_KEY_STEP
+    assert 1 <= splits and (splits - 1) * keys < s <= splits * keys
+    if s >= keys:
+        assert splits * keys - s < keys
+    if case.startswith("hymba"):
+        assert pairs * splits >= 132
+    if pairs >= 4 * 132:  # enough blocks already: one split
+        assert splits == 1
+
+
+def test_split_keys_hymba_decode_pinned():
+    """Hymba-1.5B's decode on the H100: 64 keys a split for the ring (16
+    splits, 320 blocks), 128 for the global cache (16 splits, 320 blocks);
+    its partials are (m, l, acc[64]) for each of 4 × 25 query rows a split."""
+    assert split_keys(1024, 20, 132) == 64
+    assert split_keys(2048, 20, 132) == 128
+    assert split_scratch_floats(4, 1, 25, 64, 16) * 4 == 4 * 25 * 16 * 66 * 4 == 422400
 
 
 def _wkv(t=4, dk=3, dw=1, k_dtype=F32):
@@ -123,6 +208,20 @@ FA_REFUSALS = {
                      ValueError, "CUDA device"),
     "dh192_dv128": (*_qkv(t=16, h=16, kv=16, dh=192, dv=128), {}, ValueError, "CUDA device"),
     "cpu_tensors": (*_qkv(t=128), {}, ValueError, "CUDA device"),
+    # calls the "split" design would take: the same refusals
+    "split_float16": (*_qkv(t=1, s=64, dtypes=(BF, torch.float16, torch.float16)),
+                      _decode(64, pos=40), TypeError, "must be one of"),
+    "split_dh_not_multiple_of_4": (*_qkv(t=1, s=64, dh=66), _decode(64, pos=40), ValueError,
+                                   "multiples of 4"),
+    "split_dv264_too_wide": (*_qkv(t=1, s=64, dv=264), _decode(64, pos=40), ValueError,
+                             "limit of 256"),
+    "split_kv_heads_not_dividing": (*_qkv(t=1, s=64, h=7, kv=2), _decode(64, pos=40),
+                                    ValueError, "do not pair"),
+    "split_caches_differ": (_qkv(t=1, s=64)[0], _qkv(t=1, s=64)[1],
+                            _qkv(t=1, s=65)[2], _decode(64, pos=40), ValueError, "do not pair"),
+    "split_decode_cpu_tensors": (*_qkv(t=1, s=1024, dtypes=(BF, F32, F32)),
+                                 _decode(1024, ring=True), ValueError, "CUDA device"),
+    "split_short_prompt_cpu_tensors": (*_qkv(t=12), {}, ValueError, "CUDA device"),
 }
 
 

@@ -2,14 +2,15 @@
 """How much the float64 checks of ``chip_smoke.py`` can see in the 3xTF32
 kernels: plant faults in ``cross_dot``, ``fused_second_order``,
 ``fused_first_order``, ``per_sample_moment``, ``predictive_var`` and
-``batch_l2`` and read every check.
+``batch_l2`` (and read an older ``sq_matmul``) and read every check.
 
-    python3 tools/cross_dot_fault.py [FAULT ...]
+    python3 tools/cross_dot_fault.py [FAULT ...] [--csrc DIR]
 
 Needs one CUDA card and nvcc.  Builds the sources as they are and a copy
-for each fault named (every fault when none is), with the fault planted,
-under ``build/fault/cross_dot/<name>/`` (the sources themselves are not
-touched):
+for each fault named (every fault when none is, none when only ``--csrc``
+is given), with the fault planted, under
+``build/fault/cross_dot/<name>/`` (the sources themselves are not touched),
+one nvcc each, all at once:
 
 * ``split_skipped`` (cross_dot): ``split_tf32`` in ``tf32x3.cuh`` leaves
   the lo parts 0, so both stages run in 1xTF32 (hi·hi alone);
@@ -36,16 +37,24 @@ touched):
 * ``pv_partial_dropped``: the variance partial of the first warp of the
   middle tile is written as zeros.
 
+``--csrc DIR`` also builds ``DIR``'s ``sq_matmul.cu`` (with its headers;
+for example an older commit's ``src/repro_torch/kernels/csrc``, unpacked
+with ``git archive``) as the build ``csrc`` and reads it like a fault: the
+sq_matmul that carried its whole K in the tensor cores' accumulator, before
+it promoted its sums and the float64 check held it.
+
 Each build runs its kernel at ``chip_smoke.backpack_cases``' rows (3C3D at
-batch 128, inputs from seed 0 as in ``chip_smoke.py``) and prints one JSON
+batch 128, and conv3's widths at 256 and 1024 rows a sample; inputs from
+seed 0 as in ``chip_smoke.py``) and prints one JSON
 line a (build, row) with the readings ``chip_smoke.py`` limits: ``rel``
 (max |kernel − plain float32| / max |plain|, limit ``TOL``), ``rel64``
 (against the formula in float64, limit ``F64_TOL``) and ``entry_median``
 (entry by entry against float64, limit ``ENTRY_TOL``), and whether each
 holds.  A last line counts, for each build, the rows each limit fails.
 Exits non-zero if the unchanged kernels fail a limit or a planted fault
-passes every limit at every row.
+(or ``DIR``'s sq_matmul) passes every limit at every row.
 """
+import argparse
 import json
 import shutil
 import sys
@@ -121,7 +130,11 @@ def planted(csrc: Path, name: str) -> Path:
 def main() -> int:
     import torch
 
-    names = sys.argv[1:] or list(FAULTS)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("faults", nargs="*", help=f"among {list(FAULTS)}; all by default")
+    parser.add_argument("--csrc", type=Path, help="an older csrc/ whose sq_matmul to read")
+    cli = parser.parse_args()
+    names = cli.faults or ([] if cli.csrc else list(FAULTS))
     unknown = [n for n in names if n not in FAULTS]
     if unknown:
         sys.exit(f"unknown faults {unknown}; the faults are {list(FAULTS)}")
@@ -137,6 +150,7 @@ def main() -> int:
     from repro_torch.kernels import fused_second_order as fso_mod
     from repro_torch.kernels import per_sample_moment as psm_mod
     from repro_torch.kernels import predictive_var as pv_mod
+    from repro_torch.kernels import sq_matmul as sq_mod
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -152,7 +166,8 @@ def main() -> int:
                "fused_first_order": (ffo_mod, first_order),
                "per_sample_moment": (psm_mod, psm_mod.per_sample_moment_cuda),
                "predictive_var": (pv_mod, pv_mod.predictive_var_cuda),
-               "batch_l2": (l2_mod, l2_mod.batch_l2_cuda)}
+               "batch_l2": (l2_mod, l2_mod.batch_l2_cuda),
+               "sq_matmul": (sq_mod, sq_mod.sq_matmul_cuda)}
     plain = {"cross_dot": lambda A1, B1, A2, B2, **w: ref.cross_dot(
                  ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2, **w),
              "fused_second_order": ref.fused_second_order,
@@ -160,8 +175,9 @@ def main() -> int:
                  k: v[0] for k, v in ref.fused_first_order(A[None], B[None], **w).items()},
              "per_sample_moment": ref.per_sample_moment,
              "predictive_var": ref.predictive_var,
-             "batch_l2": lambda A, B, form, **w: ref.batch_l2(A, B, **w)}
-    kernels = {FAULTS[n][0] for n in names}
+             "batch_l2": lambda A, B, form, **w: ref.batch_l2(A, B, **w),
+             "sq_matmul": ref.sq_matmul}
+    kernels = {FAULTS[n][0] for n in names} | ({"sq_matmul"} if cli.csrc else set())
     rows = []  # (kernel, label, args, kw, plain float32, float64)
     for kernel, label, _, _, args, kw, *_ in backpack_cases(torch, randn, gen, l2_mod):
         if kernel in kernels:
@@ -177,6 +193,14 @@ def main() -> int:
         kernel = FAULTS[name][0]
         fault_csrc = planted(csrc, name)
         builds[name] = (kernel, fault_csrc, fault_csrc.parent / "kernels")
+    if cli.csrc:
+        older = ROOT / "build" / "fault" / "cross_dot" / "csrc" / "csrc"
+        if older.exists():
+            shutil.rmtree(older)
+        shutil.copytree(cli.csrc, older)
+        builds["csrc"] = ("sq_matmul", older, older.parent / "kernels")
+    _build.build_jobs((k, src, lib) for only, src, lib in builds.values()
+                      for k in sorted(kernels) if only in (None, k))
     ok, summary = True, {}
     for name, (only, src, lib_dir) in builds.items():
         _build.CSRC, _build.BUILD_DIR = src, lib_dir
