@@ -35,7 +35,8 @@ launch counts set to 0 just before and read just after:
   (DiagGGN), KronLaplace (KFLR) and LastLayerLaplace (kron) fitted on the
   training batch, ``glm_predictive`` on a held-out batch of 128 (3
   predictive_var launches for each full-network posterior, none for the
-  last-layer closed form), card against CPU, ``probit_predictive`` rows
+  last-layer closed form), card (float32) against the CPU in float64,
+  ``probit_predictive`` rows
   summing to 1, a finite ``log_marglik`` that ``optimize_marglik`` raises;
 * the serving path (``serve_phase``): Hymba-1.5B at full width in bfloat16,
   ``make_prefill_step`` on 4 prompts of 2048 tokens (flash_attention and wkv
@@ -55,16 +56,17 @@ library, library, kernel); they and wkv get their device time a call from
 a profiler window, taken after every row's event times so that no event
 time follows a profiler window; flash_attention's rows name the design
 that ran (``flash_attention.design``: "split" for decode, T·g < 64, with its
-split count and scratch bytes; "wgmma" for bf16 prefill at dh = dv ∈ {64,
-128}; "simt" else, the other configs' wider prefill heads included), and
-their device time's share of the bound.  bf16 attention and wkv outputs are
+split count and scratch bytes; "wgmma" for bf16 prefill at (dh, dv) ∈
+{(64, 64), (128, 128)} and at the other configs' wider heads, (120, 120),
+(192, 128) and (240, 240); "simt" else: float32), and their device time's
+share of the bound.  bf16 attention and wkv outputs are
 also held row by row (``ROW_TOL``).
 
 sq_matmul, cross_dot, fused_second_order, fused_first_order,
-per_sample_moment, predictive_var (3xTF32 on the tensor cores) and batch_l2
-(3xTF32 in its gradient form, float32 on the CUDA cores in its Gram form)
-are also held to their formula evaluated in float64 on the card,
-whole-tensor (``F64_TOL``) and entry by entry (``ENTRY_TOL``), the four with
+per_sample_moment, predictive_var, ggn_diag (3xTF32 on the tensor cores)
+and batch_l2 (3xTF32 in its gradient form, float32 on the CUDA cores in its
+Gram form) are also held to their formula evaluated in float64 on the card,
+whole-tensor (``F64_TOL``) and entry by entry (``ENTRY_TOL``), the five with
 a per-sample sum also at conv3's widths with 256 and 1024 rows a sample
 (weight 0).  cross_dot's
 one-row-set rows and fused_first_order's dot must be symmetric bit for bit,
@@ -121,7 +123,7 @@ ROW_CHECKED = ("flash_attention", "wkv")  # their y / out rows, enforced on bf16
 # depth, and most of what TOL sees there is the float32 plain version's own
 # sum order.
 F64_CHECKED = ("sq_matmul", "cross_dot", "fused_second_order", "fused_first_order",
-               "per_sample_moment", "predictive_var", "batch_l2")
+               "per_sample_moment", "predictive_var", "batch_l2", "ggn_diag")
 # max over outputs of max |kernel − f64| / max |f64|: float32 sums over up
 # to 110,592 terms read ≤ 9.4e-7 at 3C3D's shapes (H100, PERF.md), the float32
 # plain version 3e-5 where its order is long; the limit keeps 3x over the
@@ -133,9 +135,9 @@ F64_TOL = 3e-6
 # cancellation, where 1xTF32 loses ≈ 3e-5 of an entry) and over the sums of
 # squares (fused_second_order's diag, trace and kron diagonal;
 # fused_first_order's l2 and moment; per_sample_moment's, predictive_var's,
-# batch_l2's and sq_matmul's every entry), the largest of the outputs'
-# medians.  The max is printed beside it: a near-zero entry makes it large
-# for any float32 sum.  The kernels read ≤ 6.9e-7 (1xTF32, the split
+# batch_l2's, sq_matmul's and ggn_diag's every entry), the largest of the
+# outputs' medians.  The max is printed beside it: a near-zero entry makes it
+# large for any float32 sum.  The kernels read ≤ 6.9e-7 (1xTF32, the split
 # skipped, 1e-5 to 5e-4); the limit keeps 3x over them.
 ENTRY_TOL = 2.5e-6
 # The serving path: Hymba-1.5B (32 layers, 3 global, 29 with a window of
@@ -242,22 +244,29 @@ def kernel_events(torch, prof):
             and not e.key.startswith(("Memcpy", "Memset"))]
 
 
-def device_per_call(torch, fn, iters=10):
+def device_per_call(torch, fn, iters=10, windows=3):
     """Device ms a call of ``fn`` (the sum of its kernels' times in one
     torch.profiler window of ``iters`` calls, after one warm-up call), and
     each kernel's share by name: where a call is short, CUDA events time the
-    host that issues it."""
+    host that issues it.  A window in which the profiler recorded no kernel
+    is taken again, up to ``windows`` in all; then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = kernel_events(torch, prof)
-    return (sum(device_us(e) for e in events) / 1e3 / iters,
-            {e.key[:80]: device_us(e) / 1e3 / iters for e in events})
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = kernel_events(torch, prof)
+        total = sum(device_us(e) for e in events)
+        if total > 0:
+            return (total / 1e3 / iters,
+                    {e.key[:80]: device_us(e) / 1e3 / iters for e in events})
+        print("device_per_call: a profiler window recorded no kernel; taken again",
+              file=sys.stderr, flush=True)
+    fail(f"the profiler recorded no kernel in {windows} windows of {iters} calls")
 
 
 def attention_mask(torch, t, s, window, q_positions=None, k_positions=None):
@@ -369,8 +378,9 @@ def wkv_cases(torch, randn, dtype, tag, tol, peak):
 
 
 def wide_attention_cases(torch, randn, pos, ring, glob):
-    """flash_attention's "simt" design at the head widths of the other
-    configs, off the serving path (weight 0), bf16 queries: h2o-danube3-4b's
+    """flash_attention at the head widths of the other configs, off the
+    serving path (weight 0), bf16 queries ("wgmma" in prefill, "split" in
+    decode): h2o-danube3-4b's
     dh 120 (32 heads over 8, window 8192), deepseek-v2-lite's MLA (dh 192,
     dv 128, 16 heads) and gemma3-12b's dh 240 (16 heads over 8, window 1024)
     in prefill of 4×2048; CodeQwen1.5-7B's dh 128 (32 heads, no GQA) and
@@ -518,6 +528,9 @@ def backpack_cases(torch, randn, gen, l2_mod):
         add("cross_dot", f"{name} ntk A[{N},{r},{a}] S[10,{N},{r},{b}]", 0, 0,
             (A[None], S, A[None], S), {}, flops,
             4 * (N * r * a + 10 * N * r * b + 10 * N * N), flops)
+        add("ggn_diag", f"{name} exact A[{N},{r},{a}] S[10,{N},{r},{b}]", 0, 0, (A, S), {},
+            10 * N * (2 * r * a * b + 2 * a * b), 4 * (N * r * a + 10 * N * r * b + a * b),
+            10 * N * 2 * r * a * b)
         W = torch.rand(a, b, device="cuda", generator=deep)
         add("predictive_var", f"{name} diag Sigma A[{N},{r},{a}] S[10,{N},{r},{b}]", 0, 0,
             (A, S, W), {}, 2 * 10 * N * r * a * b + 3 * 10 * N * a * b,
@@ -933,10 +946,11 @@ def main():
                  "bit for bit")
         if kernel in ROW_CHECKED and tol == BF16_TOL and not extra["row_rel_err"] <= ROW_TOL:
             fail(f"{kernel} {label}: row error {extra['row_rel_err']:.3e} above {ROW_TOL}")
-        # decode takes the split-KV design; bf16 prefill at dh = dv ∈ {64,
-        # 128} the tensor cores; float32 and the wider prefill heads "simt"
+        # decode takes the split-KV design; bf16 prefill, at every width the
+        # configs use, the tensor cores; float32 prefill "simt"
         want_design = ("split" if "decode" in label.split()
-                       else "wgmma" if label.startswith("prefill bf16") else "simt")
+                       else "wgmma" if label.startswith(("prefill bf16", "wide prefill bf16"))
+                       else "simt")
         if kernel == "flash_attention" and extra["design"] != want_design:
             fail(f"flash_attention {label}: design {extra['design']}, not {want_design}")
         agg = per_kernel[kernel]
@@ -1221,7 +1235,10 @@ def main():
 
     # -- 10. the Laplace posterior on the parameters the KFAC steps trained --
     map_params = trained["kfac"]
-    cpu_map = tree_map(lambda p: p.cpu(), map_params)
+    # The CPU reference fits and predicts in float64 (the MAP, x and x_out
+    # cast, the same loss), so the check reads the card's float32 errors and
+    # not a second set of the CPU's (PERF.md §6, PR 22).
+    cpu_map = tree_map(lambda p: p.cpu().double(), map_params)
     x_out = torch.randn(N, 32, 32, 3, device="cuda", generator=gen)  # held out
     posteriors = (("diag", "diag", False), ("kron", "kron", False),
                   ("last_layer_kron", "kron", True))
@@ -1246,9 +1263,9 @@ def main():
             if per_call != (0 if last else 3):
                 fail(f"laplace {label}: glm_predictive launched predictive_var {per_call} times")
         probs = probit_predictive(mean, var)
-        cpu_post = fit_posterior(model, cpu_map, x.cpu(), y.cpu(), loss, structure=structure,
-                                 last_layer=last)
-        cpu_mean, cpu_var = glm_predictive(model, cpu_map, cpu_post, x_out.cpu())
+        cpu_post = fit_posterior(model, cpu_map, x.cpu().double(), y.cpu(), loss,
+                                 structure=structure, last_layer=last)
+        cpu_mean, cpu_var = glm_predictive(model, cpu_map, cpu_post, x_out.cpu().double())
         ev = log_marglik(post).item()
         t0 = time.perf_counter()
         tuned, mres = optimize_marglik(post, n_steps=100, lr=0.1)
@@ -1272,9 +1289,10 @@ def main():
             fail(f"laplace {label}: probit rows do not sum to 1")
         if not (math.isfinite(ev) and ev_tuned > ev):
             fail(f"laplace {label}: evidence {ev} not finite or not raised ({ev_tuned})")
-        err = {"mean": (mean.cpu() - cpu_mean).abs().max().item() / cpu_mean.abs().max().item(),
-               "var": (var.cpu() - cpu_var).abs().max().item() / cpu_var.abs().max().item()}
-        record["laplace"][label]["card_vs_cpu"] = check_errs(f"laplace {label} card vs cpu", err)
+        err = {k: (got.cpu().double() - want).abs().max().item() / want.abs().max().item()
+               for k, got, want in (("mean", mean, cpu_mean), ("var", var, cpu_var))}
+        record["laplace"][label]["card_vs_cpu"] = check_errs(
+            f"laplace {label} card (float32) vs cpu (float64)", err)
     laplace_launches = ops.launch_counts()
     say("laplace_launches", launches=laplace_launches)
     for structure in ("diag", "kron"):  # the full-network predictives, one call each

@@ -32,6 +32,18 @@ import torch
 import torch.nn.functional as F
 
 
+def _f32_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32, or float64 where ``x`` is float64: a reference computed in
+    float64 on the CPU stays float64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 (bfloat16 and float16 widened), or float64 kept
+    (:func:`_f32_dtype`)."""
+    return x.to(_f32_dtype(x))
+
+
 def _uniform(rng: torch.Generator, shape) -> torch.Tensor:
     return torch.rand(shape, generator=rng, device=rng.device)
 
@@ -52,13 +64,13 @@ class CrossEntropyLoss:
 
     def value(self, z, y):
         mask, m = self._mask_and_m(y)
-        logp = torch.log_softmax(z.float(), dim=-1)
+        logp = torch.log_softmax(_f32(z), dim=-1)
         picked = torch.gather(logp, -1, y.clamp_min(0)[..., None])[..., 0]
         return -(picked * mask).sum() / m
 
     def grad(self, z, y):
         mask, m = self._mask_and_m(y)
-        p = torch.softmax(z.float(), dim=-1)
+        p = torch.softmax(_f32(z), dim=-1)
         onehot = F.one_hot(y.clamp_min(0), z.shape[-1]).to(p.dtype)
         g = (p - onehot) * mask[..., None] / m
         return g.to(z.dtype)
@@ -80,7 +92,7 @@ class CrossEntropyLoss:
         mask, m = self._mask_and_m(y)
         C, N = z.shape[-1], z.shape[0]
         U = z.numel() // (N * C)
-        p = torch.softmax(z.reshape(N, U, C).float(), dim=-1)
+        p = torch.softmax(_f32(z.reshape(N, U, C)), dim=-1)
         maskf = mask.reshape(N, U).to(p.dtype)
         cols = lo + torch.arange(size, device=z.device)
         valid = (cols < U * C).to(p.dtype)
@@ -100,7 +112,7 @@ class CrossEntropyLoss:
         """MC factor from ``k`` sampled classes per position (see the module
         doc for what ``rng`` may be)."""
         mask, m = self._mask_and_m(y)
-        p = torch.softmax(z.float(), dim=-1)
+        p = torch.softmax(_f32(z), dim=-1)
         if isinstance(rng, torch.Generator):
             # Inverse-CDF sampling from uniforms drawn on the generator.
             u = _uniform(rng, (k,) + tuple(y.shape)).to(z.device)
@@ -119,7 +131,7 @@ class CrossEntropyLoss:
     def hessian_mean(self, z, y):
         """(1/m) Σ ∇²ℓ — KFRA initialization (Eq. 24b). [C, C]."""
         mask, m = self._mask_and_m(y)
-        p = torch.softmax(z.float(), dim=-1) * mask[..., None]
+        p = torch.softmax(_f32(z), dim=-1) * mask[..., None]
         pf = p.reshape(-1, z.shape[-1])
         H = torch.diag(pf.sum(0)) - pf.T @ pf
         return H / m
@@ -135,10 +147,10 @@ class MSELoss:
         return max(y.numel() // y.shape[-1], 1)
 
     def value(self, z, y):
-        return 0.5 * ((z.float() - y) ** 2).sum() / self._m(y)
+        return 0.5 * ((_f32(z) - y) ** 2).sum() / self._m(y)
 
     def grad(self, z, y):
-        return ((z.float() - y) / self._m(y)).to(z.dtype)
+        return ((_f32(z) - y) / self._m(y)).to(z.dtype)
 
     def n_exact_cols(self, z):
         C = z.shape[-1]

@@ -42,11 +42,8 @@ from .extensions import (
     first_order_mask,
     second_order_mask,
 )
+from .loss_hessian import _f32
 from .tree import tree_leaves, tree_map, tree_map_with_path
-
-
-def _f32(x):
-    return x.float()
 
 
 def _nra(x):

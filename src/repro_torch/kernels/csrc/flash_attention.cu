@@ -16,21 +16,30 @@
 // Bound on the H100: operations (2·dh + 2·dv per seen (query, key) pair).  At
 // Hymba-1.5B's prefill (4×2048 tokens, 25 heads, dh 64) that is 53.7 GFLOP a
 // global layer and 40.3 GFLOP a window-1024 one: 0.054 and 0.041 ms at 989
-// TFLOP/s bf16.  Three designs; the wrapper picks one (flash_attention.design):
+// TFLOP/s bf16 (the padded columns of the wider instances are work the
+// bound does not count).  Three designs; the wrapper picks one
+// (flash_attention.design):
 //
-// "wgmma" — bf16 q, k, v, positions arange, dh = dv ∈ {64, 128}, T ≤ S and
-// T·g ≥ 64 rows a KV head (prefill).  Every row then sees its own key, so no
-// row is fully masked.  The tensor cores are the bound's only way in:
+// "wgmma" — bf16 q, k, v, positions arange, T ≤ S and T·g ≥ 64 rows a KV
+// head (prefill), at the head widths the configs use: (dh, dv) = (64, 64),
+// (128, 128), (120, 120), (192, 128) (MLA) and (240, 240), zero-padded to
+// the instances (DK, DV) = (64, 64), (128, 128), (192, 128), (256, 256).
+// Every row then sees its own key, so no row is fully masked.  The tensor
+// cores are the bound's only way in:
 //   * one block per (n, kv head, 128 query rows (t, j) of the g query heads
 //     of that KV head), so each K/V tile in shared memory serves all g heads;
-//     two warpgroups of 64 rows (wgmma's M), two blocks an SM at dh 64;
+//     two warpgroups of 64 rows (wgmma's M), two blocks an SM at (64, 64);
 //   * Q is read once, with 16-byte loads, into a 128-byte-swizzled tile (the
-//     (t, j) rows of g = 5 heads are no rectangular TMA box);
+//     (t, j) rows of g = 5 heads are no rectangular TMA box); its chunks
+//     past dh are written as zeros, never read (the last row's would lie
+//     past q's end);
 //   * K and V tiles of 64 keys come by TMA (cp.async.bulk.tensor, 4-d maps of
-//     [N, S, KV, dh], 128-byte swizzle, one 64-wide column half a copy) into
-//     a ring of 3 stages, each with a "full" mbarrier (bytes arrived) and an
-//     "empty" one (both warpgroups done); thread 0 refills a stage two tiles
-//     ahead; past S the copy fills zeros;
+//     [N, S, KV, dh] and [N, S, KV, dv], 128-byte swizzle, one 64-wide column
+//     half a copy: DK/64 for K, DV/64 for V) into a ring of 3 stages (2 at
+//     (256, 256), whose 3 would not fit in 227 KB), each with a "full"
+//     mbarrier (bytes arrived) and an "empty" one (both warpgroups done);
+//     thread 0 refills a stage STAGES − 1 tiles ahead; past S, and past dh
+//     or dv in a column half, the copy fills zeros;
 //   * S = Q·Kᵀ by wgmma m64n64k16, both operands from shared memory (K
 //     K-major), float32 accumulators in registers; the online softmax works
 //     on the accumulator fragment (row max by quad shuffles, exp2 with the
@@ -39,12 +48,17 @@
 //     and the causal end of the block's rows are visited;
 //   * P goes to bf16 in registers and is wgmma's A operand for O += P·V, V
 //     read from shared memory in the transposed (MN-major) form; O stays in
-//     float32 registers and is written as bf16 once.
+//     float32 registers (DV/2 a thread) and is written as bf16 once, its
+//     columns below dv;
+//   * at DV = 128 the softmax of tile i + 1 overlaps O += P·V of tile i:
+//     both products are issued together and the softmax waits for S alone
+//     (wgmma.wait_group 1); at (64, 64) and (256, 256) each tile waits for
+//     its S, then its P·V.
 // "split" — T·g < 64 rows a KV head (decode, short prompts), any dtypes,
 // positions and widths "simt" takes; bound by bytes; its note is below.
 // "simt" — everything else (float32, bf16 queries against a float32 cache,
-// given positions, fully masked rows, any dh and dv that are multiples of 4
-// up to 256, dh ≠ dv allowed), on CUDA cores, all arithmetic float32:
+// given positions, fully masked rows, any other dh and dv that are
+// multiples of 4 up to 256), on CUDA cores, all arithmetic float32:
 //   * one block per (n, kv head, tile of query rows), the rows taken as
 //     (t, j) for the g = H/KV query heads j of that KV head, so the g heads
 //     share each K/V tile, as the Pallas kernel's [bq, g, dh] block does;
@@ -83,7 +97,6 @@ using hopper::smem_u32;
 using hopper::sw128_desc;
 using hopper::wgmma_commit;
 using hopper::wgmma_fence;
-using hopper::wgmma_wait_all;
 
 constexpr int THREADS = 128;
 constexpr int SIMT_MAX_DIM = 256;  // the widest "simt" instance
@@ -301,25 +314,30 @@ int dispatch(int q_bf16, int kv_bf16, const void* q, const void* k, const void* 
 
 constexpr int TC_BM = 128;          // query rows a block: two warpgroups of 64
 constexpr int TC_BK = 64;           // keys a tile
-constexpr int TC_STAGES = 3;        // K/V ring depth
 constexpr int TC_THREADS = 256;     // two warpgroups; thread 0 also issues the copies
 constexpr int HALF_ROWS_BYTES = 128;  // one 64-wide bf16 column half of a row
 
-template <int DH>
+// Shared memory of the instance (DK, DV): Q's DK/64 column halves, then a
+// ring of K/V stages, each DK/64 K halves then DV/64 V halves, then the
+// stages' "full" and "empty" mbarriers.  Three stages, two at (256, 256),
+// where three would take 64 + 3 × 64 KB > 227 KB.
+template <int DK, int DV>
 struct TcSmem {
-  static constexpr int HALVES = DH / 64;
+  static constexpr int KH = DK / 64, VH = DV / 64;
+  static constexpr int STAGES = DK + DV > 384 ? 2 : 3;
   static constexpr int Q_HALF = TC_BM * HALF_ROWS_BYTES;   // 16 KB
   static constexpr int KV_HALF = TC_BK * HALF_ROWS_BYTES;  // 8 KB
-  static constexpr int Q_BYTES = HALVES * Q_HALF;
-  static constexpr int STAGE_BYTES = 2 * HALVES * KV_HALF;  // K halves, then V halves
-  static constexpr int BAR_OFF = Q_BYTES + TC_STAGES * STAGE_BYTES;
-  static constexpr int BYTES = BAR_OFF + 2 * TC_STAGES * 8;
+  static constexpr int Q_BYTES = KH * Q_HALF;
+  static constexpr int STAGE_BYTES = (KH + VH) * KV_HALF;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
   // +1024: the dynamic window is aligned by hand to the 128-byte swizzle's
   // 1024-byte repeat.
   static constexpr int ALLOC = BYTES + 1024;
+  static_assert(ALLOC <= 232448, "one block's shared memory on the H100");
 };
 
-// One box {64 columns, 1 head, TC_BK keys, 1 sequence} of a [N, S, KV, dh]
+// One box {64 columns, 1 head, TC_BK keys, 1 sequence} of a [N, S, KV, d]
 // tensor into shared memory, completing `bytes` on the barrier.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
@@ -334,6 +352,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Keeps a register A operand alive, unchanged, until the wait of the wgmma
+// that reads it.
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 #define WG_D32                                                                           \
@@ -383,22 +415,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Whether the instance overlaps the softmax of tile i + 1 with O += P·V of
+// tile i (below): where P's second buffer fits beside O's DV/2 registers.
+template <int DV>
+constexpr bool TC_OVERLAP = DV == 128;
+
 // Grid (row tiles, N·KV), TC_THREADS threads.  Rows r = t·g + j of one (n, kv
 // head); block x takes rows [128·(tiles − 1 − x), +128): the longest causal
-// tiles start first.  At dh 64 two blocks share an SM (≤ 128 registers).
-template <int DH>
-__global__ void __launch_bounds__(TC_THREADS, DH == 64 ? 2 : 1)
+// tiles start first.  The instance (DK, DV) takes q, k of width dh ≤ DK and
+// v of width dv ≤ DV, zero-padded to the instance: Q's 16-byte chunks past
+// dh are written as zeros, TMA fills K's and V's columns past dh and dv with
+// zeros, and only the columns below dv are stored.  At (64, 64) two blocks
+// share an SM (≤ 128 registers); the wider instances take one.
+template <int DK, int DV>
+__global__ void __launch_bounds__(TC_THREADS, DK == 64 ? 2 : 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                 const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out, int T,
-                int S, int H, int KV, int causal, int has_window, long long window,
-                float scale_log2) {
-  using L = TcSmem<DH>;
-  constexpr int HALVES = L::HALVES;
+                int S, int H, int KV, int dh, int dv, int causal, int has_window,
+                long long window, float scale_log2) {
+  using L = TcSmem<DK, DV>;
+  constexpr int KH = L::KH, VH = L::VH, STAGES = L::STAGES;
+  constexpr bool OVERLAP = TC_OVERLAP<DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sbase = smem_raw + (base - raw);
-  const uint32_t full_bar = base + L::BAR_OFF, empty_bar = full_bar + 8 * TC_STAGES;
+  const uint32_t full_bar = base + L::BAR_OFF, empty_bar = full_bar + 8 * STAGES;
 
   const int g = H / KV;
   const int n = blockIdx.y / KV, kvh = blockIdx.y % KV;
@@ -407,21 +449,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
   const int tid = threadIdx.x;
 
   if (tid == 0) {
-    for (int s = 0; s < TC_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_bar + 8 * s, 1);
       mbar_init(empty_bar + 8 * s, 8);  // one arrival per warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // Q: 16-byte loads into the swizzled tile (chunk c of row r at
-  // r·128 + ((c ^ r%8)·16) of its column half); rows past T·g are zeros.
-  for (int e = tid; e < TC_BM * (DH / 8); e += TC_THREADS) {
-    const int r = e / (DH / 8), c = e % (DH / 8);
+  // r·128 + ((c ^ r%8)·16) of its column half); rows past T·g and chunks
+  // past dh are zeros, never read.
+  for (int e = tid; e < TC_BM * (DK / 8); e += TC_THREADS) {
+    const int r = e / (DK / 8), c = e % (DK / 8);
     const long long row = r0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rows) {
+    if (row < rows && 8 * c < dh) {
       const long long t = row / g, j = row % g;
-      const long long off = (((long long)n * T + t) * H + (long long)kvh * g + j) * DH + 8 * c;
+      const long long off = (((long long)n * T + t) * H + (long long)kvh * g + j) * dh + 8 * c;
       val = *reinterpret_cast<const uint4*>(q + off);
     }
     const int h = c / 8, cc = c % 8;
@@ -439,22 +482,23 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
   const int ntiles = (int)((k_hi - k_lo + TC_BK - 1) / TC_BK);
 
   // Tile `it` into its stage, once both warpgroups released the tile that
-  // stage held before (thread 0 only).
+  // stage held before (thread 0 only): DK/64 K boxes and DV/64 V boxes, the
+  // barrier expecting all their bytes (TMA counts the zeros it fills).
   auto load = [&](int it) {
-    const int stage = it % TC_STAGES;
-    if (it >= TC_STAGES) mbar_wait(empty_bar + 8 * stage, ((it / TC_STAGES) & 1) ^ 1);
+    const int stage = it % STAGES;
+    if (it >= STAGES) mbar_wait(empty_bar + 8 * stage, ((it / STAGES) & 1) ^ 1);
     const uint32_t fb = full_bar + 8 * stage;
     mbar_expect_tx(fb, L::STAGE_BYTES);
     const uint32_t st = base + L::Q_BYTES + stage * L::STAGE_BYTES;
     const int s0 = (int)(k_lo + (long long)it * TC_BK);
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h) {
-      tma_load_4d(st + h * L::KV_HALF, &kmap, fb, 64 * h, kvh, s0, n);
-      tma_load_4d(st + (HALVES + h) * L::KV_HALF, &vmap, fb, 64 * h, kvh, s0, n);
-    }
+    for (int h = 0; h < KH; ++h) tma_load_4d(st + h * L::KV_HALF, &kmap, fb, 64 * h, kvh, s0, n);
+#pragma unroll
+    for (int h = 0; h < VH; ++h)
+      tma_load_4d(st + (KH + h) * L::KV_HALF, &vmap, fb, 64 * h, kvh, s0, n);
   };
   if (tid == 0)
-    for (int it = 0; it < TC_STAGES - 1 && it < ntiles; ++it) load(it);
+    for (int it = 0; it < STAGES - 1 && it < ntiles; ++it) load(it);
 
   // Warpgroup wg takes rows 64·wg… of the block; a thread holds two of them.
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
@@ -467,38 +511,50 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
     valid[i] = row < rows;
     trow[i] = row / g;
   }
-  float o[HALVES][32];
+  float o[VH][32];
   float sacc[32];
 #pragma unroll
   for (int x = 0; x < 32; ++x) {
     sacc[x] = 0.f;
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h) o[h][x] = 0.f;
+    for (int h = 0; h < VH; ++h) o[h][x] = 0.f;
   }
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const uint32_t q_wg = base + 64 * wg * HALF_ROWS_BYTES;
+  auto stage_addr = [&](int it) { return base + L::Q_BYTES + (it % STAGES) * L::STAGE_BYTES; };
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int stage = it % TC_STAGES;
-    const long long s0 = k_lo + (long long)it * TC_BK;
-    const uint32_t st = base + L::Q_BYTES + stage * L::STAGE_BYTES;
-    // Refill the stage of tile it − 1 with tile it + STAGES − 1.
-    if (tid == 0 && it + TC_STAGES - 1 < ntiles) load(it + TC_STAGES - 1);
-    mbar_wait(full_bar + 8 * stage, (it / TC_STAGES) & 1);
-
-    // S = Q·Kᵀ over dh in steps of 16 (32 bytes inside a 128-byte row).
+  // S = Q·Kᵀ of tile `it` over DK in steps of 16 (32 bytes inside a
+  // 128-byte row), issued and committed as one group.
+  auto issue_s = [&](int it) {
+    const uint32_t st = stage_addr(it);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const int h = kk / 4, off = 32 * (kk % 4);
       wgmma_ss(sacc, sw128_desc(q_wg + h * L::Q_HALF + off),
                sw128_desc(st + h * L::KV_HALF + off), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(sacc);
-
-    // Online softmax on the fragment; the mask only where the tile straddles.
+  };
+  // O += P·V of tile `it`: V [key, dv] is B in MN-major form; 16 keys are
+  // two 1024-byte swizzle groups.  One committed group.
+  auto issue_pv = [&](int it, const uint32_t (&pa)[4][4]) {
+    const uint32_t st = stage_addr(it);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < VH; ++h)
+        wgmma_rs(o[h], pa[kk], sw128_desc(st + (KH + h) * L::KV_HALF + 2048 * kk));
+    wgmma_commit();
+  };
+  // The online softmax of tile `it` on the fragment (the mask only where the
+  // tile straddles): the new max, corr = 2^(m_old − m_new) for O (its caller
+  // rescales O), l rescaled and summed, and P in bf16 as wgmma's register A
+  // operand: keys 16kk..16kk+15 are accumulator columns of j = 2kk, 2kk + 1,
+  // already in A's layout.
+  auto softmax = [&](int it, uint32_t (&pa)[4][4], float (&corr)[2]) {
+    const long long s0 = k_lo + (long long)it * TC_BK;
     const bool inside = (!causal || s0 + TC_BK - 1 <= t_lo) &&
                         (!has_window || t_hi - s0 < window) && s0 + TC_BK <= S;
     float mx[2] = {m[0], m[1]};
@@ -524,20 +580,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       mref[i] = mx[i] == -INFINITY ? 0.f : mx[i];  // a row with nothing seen yet
-      const float corr = fast_exp2(m[i] - mref[i]);  // 0 while m = −inf
+      corr[i] = fast_exp2(m[i] - mref[i]);         // 0 while m = −inf
       m[i] = mx[i];
-      l[i] *= corr;
-#pragma unroll
-      for (int h = 0; h < HALVES; ++h)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          o[h][4 * jj + 2 * i] *= corr;
-          o[h][4 * jj + 2 * i + 1] *= corr;
-        }
+      l[i] *= corr[i];
     }
-    // P in bf16 as wgmma's register A operand: keys 16kk..16kk+15 are
-    // accumulator columns of j = 2kk, 2kk + 1, already in A's layout.
-    uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       float p[8];
@@ -552,24 +598,84 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
       pa[kk][2] = pack_bf16(p[4], p[5]);
       pa[kk][3] = pack_bf16(p[6], p[7]);
     }
-
-    // O += P·V: V [key, dv] is B in MN-major form; 16 keys are two 1024-byte
-    // swizzle groups.
-    wgmma_fence();
+  };
+  auto rescale = [&](const float (&corr)[2]) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int h = 0; h < HALVES; ++h)
-        wgmma_rs(o[h], pa[kk], sw128_desc(st + (HALVES + h) * L::KV_HALF + 2048 * kk));
-    wgmma_commit();
-    wgmma_wait_all();
+      for (int h = 0; h < VH; ++h)
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h) fence_regs(o[h]);
+        for (int jj = 0; jj < 8; ++jj) {
+          o[h][4 * jj + 2 * i] *= corr[i];
+          o[h][4 * jj + 2 * i + 1] *= corr[i];
+        }
+  };
+  auto release = [&](int it) {  // both warpgroups' warps free tile it's stage
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar + 8 * stage);
+    if (lane == 0) mbar_arrive(empty_bar + 8 * (it % STAGES));
+  };
+
+  uint32_t pa[4][4];
+  float corr[2];
+  if constexpr (!OVERLAP) {
+    // Each tile in turn: S, its softmax, then O += P·V.
+    for (int it = 0; it < ntiles; ++it) {
+      // Refill the stage of tile it − 1 with tile it + STAGES − 1.
+      if (tid == 0 && it + STAGES - 1 < ntiles) load(it + STAGES - 1);
+      mbar_wait(full_bar + 8 * (it % STAGES), (it / STAGES) & 1);
+      issue_s(it);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      softmax(it, pa, corr);
+      rescale(corr);
+      issue_pv(it, pa);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < VH; ++h) fence_regs(o[h]);
+      release(it);
+    }
+  } else {
+    // P of tile 0 first; then, a tile at a time, S of tile it + 1 and O +=
+    // P·V of tile it go to the tensor cores together, the softmax of tile
+    // it + 1 runs while P·V does (wait_group 1: S is the older group), and
+    // O is rescaled once P·V is in; the last tile's P·V goes alone.  One S
+    // accumulator serves: P is taken from it before the next S is issued;
+    // P has two buffers, the one P·V reads and the one the softmax writes.
+    // The loop issues both groups on every path (the last tile peeled), so
+    // ptxas can see which group a wait retires.
+    mbar_wait(full_bar, 0);
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    softmax(0, pa, corr);
+    for (int it = 0; it + 1 < ntiles; ++it) {
+      if (tid == 0 && it + STAGES - 1 < ntiles) load(it + STAGES - 1);
+      mbar_wait(full_bar + 8 * ((it + 1) % STAGES), ((it + 1) / STAGES) & 1);
+      issue_s(it + 1);
+      issue_pv(it, pa);
+      uint32_t pn[4][4];
+      float cn[2];
+      wgmma_wait<1>();
+      fence_regs(sacc);
+      softmax(it + 1, pn, cn);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < VH; ++h) fence_regs(o[h]);
+      fence_regs(pa);
+      release(it);
+      rescale(cn);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) pa[kk][x] = pn[kk][x];
+    }
+    issue_pv(ntiles - 1, pa);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < VH; ++h) fence_regs(o[h]);
   }
 
-  // Row sums over the quad, then O / l as bf16 pairs.
+  // Row sums over the quad, then O / l as bf16 pairs, the columns below dv.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -577,27 +683,29 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant_
     if (!valid[i]) continue;
     const long long row = r0 + 64 * wg + 16 * warp + lane / 4 + 8 * i;
     const long long t = row / g, j = row % g;
-    __nv_bfloat16* dst = out + (((long long)n * T + t) * H + (long long)kvh * g + j) * DH;
+    __nv_bfloat16* dst = out + (((long long)n * T + t) * H + (long long)kvh * g + j) * dv;
     const float inv = 1.f / l[i];
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h)
+    for (int h = 0; h < VH; ++h)
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int col = 64 * h + 8 * jj + 2 * quad;
-        *reinterpret_cast<uint32_t*>(dst + col) =
-            pack_bf16(o[h][4 * jj + 2 * i] * inv, o[h][4 * jj + 2 * i + 1] * inv);
+        if (col < dv)
+          *reinterpret_cast<uint32_t*>(dst + col) =
+              pack_bf16(o[h][4 * jj + 2 * i] * inv, o[h][4 * jj + 2 * i + 1] * inv);
       }
   }
 }
 
-// The map of a bf16 [N, S, KV, dh] tensor, boxes of {64, 1, TC_BK, 1},
-// 128-byte swizzle, zeros past the edges.
-bool kv_map(CUtensorMap* map, const void* x, int N, int S, int KV, int dh) {
+// The map of a bf16 [N, S, KV, d] tensor, boxes of {64, 1, TC_BK, 1},
+// 128-byte swizzle, zeros past the edges (columns d… of a box past d
+// included).
+bool kv_map(CUtensorMap* map, const void* x, int N, int S, int KV, int d) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)KV, (cuuint64_t)S, (cuuint64_t)N};
-  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)KV * dh * 2,
-                                 (cuuint64_t)S * KV * dh * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)KV, (cuuint64_t)S, (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)KV * d * 2,
+                                 (cuuint64_t)S * KV * d * 2};
   const cuuint32_t box[4] = {64, 1, TC_BK, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
@@ -606,25 +714,26 @@ bool kv_map(CUtensorMap* map, const void* x, int N, int S, int KV, int dh) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DK, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int N, int T, int S, int H,
-              int KV, int causal, int has_window, long long window, float scale,
+              int KV, int dh, int dv, int causal, int has_window, long long window, float scale,
               cudaStream_t stream) {
   CUtensorMap kmap, vmap;
-  if (!kv_map(&kmap, k, N, S, KV, DH) || !kv_map(&vmap, v, N, S, KV, DH))
+  if (!kv_map(&kmap, k, N, S, KV, dh) || !kv_map(&vmap, v, N, S, KV, dv))
     return (int)cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, TcSmem<DH>::ALLOC);
+        flash_tc_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TcSmem<DK, DV>::ALLOC);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const long long rows = (long long)T * (H / KV);
   dim3 grid((unsigned)((rows + TC_BM - 1) / TC_BM), (unsigned)(N * KV));
-  flash_tc_kernel<DH><<<grid, TC_THREADS, TcSmem<DH>::ALLOC, stream>>>(
+  flash_tc_kernel<DK, DV><<<grid, TC_THREADS, TcSmem<DK, DV>::ALLOC, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), T, S,
-      H, KV, causal, has_window, window, scale * 1.4426950408889634f);
+      H, KV, dh, dv, causal, has_window, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -1089,20 +1198,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 #undef FA_ARGS
 }
 
-// The "wgmma" design: q, k, v, out bf16 [N,T,H,dh], [N,S,KV,dh] (twice),
-// [N,T,H,dh], dh ∈ {64, 128}, T ≤ S, positions arange, window ≥ 1 when set;
-// 16-byte aligned.  Returns a cudaError_t.
+// The "wgmma" design: q, k, v, out bf16 [N,T,H,dh], [N,S,KV,dh], [N,S,KV,dv],
+// [N,T,H,dv], T ≤ S, positions arange, window ≥ 1 when set, 16-byte
+// aligned; dh and dv multiples of 8 whose widths rounded up to 64 are an
+// instance: (64, 64), (128, 128), (192, 128) or (256, 256).  Returns a
+// cudaError_t.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
-                                         int N, int T, int S, int H, int KV, int dh, int causal,
-                                         int has_window, long long window, float scale,
-                                         cudaStream_t stream) {
+                                         int N, int T, int S, int H, int KV, int dh, int dv,
+                                         int causal, int has_window, long long window,
+                                         float scale, cudaStream_t stream) {
   if (KV <= 0 || H % KV || N * KV > 65535 || T > S || (has_window && window < 1) ||
+      dh <= 0 || dv <= 0 || dh % 8 || dv % 8 ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
-  if (dh == 64)
-    return launch_tc<64>(q, k, v, out, N, T, S, H, KV, causal, has_window, window, scale, stream);
-  if (dh == 128)
-    return launch_tc<128>(q, k, v, out, N, T, S, H, KV, causal, has_window, window, scale, stream);
+#define TC_ARGS q, k, v, out, N, T, S, H, KV, dh, dv, causal, has_window, window, scale, stream
+  const int dk_inst = (dh + 63) / 64 * 64, dv_inst = (dv + 63) / 64 * 64;
+  if (dk_inst == 64 && dv_inst == 64) return launch_tc<64, 64>(TC_ARGS);
+  if (dk_inst == 128 && dv_inst == 128) return launch_tc<128, 128>(TC_ARGS);
+  if (dk_inst == 192 && dv_inst == 128) return launch_tc<192, 128>(TC_ARGS);
+  if (dk_inst == 256 && dv_inst == 256) return launch_tc<256, 256>(TC_ARGS);
+#undef TC_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

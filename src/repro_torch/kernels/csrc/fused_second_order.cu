@@ -13,7 +13,7 @@
 // the tensor cores in 3xTF32 (tf32x3.cuh: hi/lo splits, three products a
 // k-step, within ≈ 2^-22 of float32 products), so the bound is 3 ×
 // operations / 495 TFLOP/s rather than operations / 67.  Design:
-//   * diag/trace (rowprod.cuh): t_cᵀ = S_cnᵀ A_n by wgmma m64n48k8, S's 64
+//   * diag/trace (rowprod.cuh, its sq_launch, which ggn_diag shares): t_cᵀ = S_cnᵀ A_n by wgmma m64n48k8, S's 64
 //     b-columns as M, 48 a-columns as N, R as K.  A block of two
 //     warpgroups takes a (64 b x 48 a) tile and a group of samples; for each
 //     sample it streams R in stages of 32 rows through a 2-stage ring: every
@@ -50,38 +50,15 @@
 
 namespace {
 
-using rowprod::Args;
-using rowprod::Shape;
-
-template <int CW, bool SPLIT_A>
-rowprod::Fn sqt_masked(bool diag, bool trace) {
-  using rowprod::DIAG, rowprod::TRACE, rowprod::kernel;
-  return diag && trace ? kernel<CW, SPLIT_A, DIAG | TRACE>
-         : diag        ? kernel<CW, SPLIT_A, DIAG>
-                       : kernel<CW, SPLIT_A, TRACE>;
-}
-
-rowprod::Fn sqt_instance(const Shape& sh, bool diag, bool trace) {
-  return sh.split_a ? sqt_masked<1, true>(diag, trace) : sqt_masked<5, false>(diag, trace);
-}
-
 struct Plan {
-  Shape shape;
-  int tiles, groups, group_size, diag_parts;
+  rowprod::SqPlan sq;  // diag and trace
   int kron_splits;
   long long kron_chunk;
 };
 
 Plan plan(int C, int N, int R, int a, int b, bool diag, bool trace, bool kron) {
   Plan p{};
-  if (diag || trace) {
-    p.shape = rowprod::shape_for(C);
-    p.tiles = (int)(bp::cdiv(b, rowprod::BS) * bp::cdiv(a, p.shape.na()));
-    p.group_size = rowprod::group_size(sqt_instance(p.shape, diag, trace), p.shape, p.tiles, N,
-                                       bp::cdiv(C, p.shape.classes()) * bp::cdiv(R, rowprod::RS));
-    p.groups = (int)bp::cdiv(N, p.group_size);
-    p.diag_parts = p.groups * (p.shape.split_a ? 1 : 2);
-  }
+  if (diag || trace) p.sq = rowprod::sq_plan(C, N, R, a, b, diag, trace);
   if (kron) {  // pieces of at least 512 rows, about two blocks an SM
     const long long rows = (long long)C * N * R;
     const tf32x3::XtyTile t = tf32x3::xty_tile(b, b);
@@ -95,14 +72,10 @@ Plan plan(int C, int N, int R, int a, int b, bool diag, bool trace, bool kron) {
   return p;
 }
 
-struct Scratch {
-  long long diag, trace, kron;
-};
-
-Scratch scratch_floats(const Plan& p, int N, int a, int b, bool diag, bool trace, bool kron) {
-  return {diag && p.diag_parts > 1 ? (long long)p.diag_parts * a * b : 0,
-          trace ? (long long)p.tiles * N : 0,
-          kron && p.kron_splits > 1 ? (long long)p.kron_splits * b * b : 0};
+// Scratch floats: the t kernel's partials (none without diag or trace), then
+// kron's.
+long long kron_scratch(const Plan& p, int b) {
+  return p.kron_splits > 1 ? (long long)p.kron_splits * b * b : 0;
 }
 
 }  // namespace
@@ -111,8 +84,7 @@ extern "C" long long fused_second_order_scratch_floats(int C, int N, int R, int 
                                                        int want_diag, int want_kron,
                                                        int want_trace) {
   const Plan p = plan(C, N, R, a, b, want_diag, want_trace, want_kron);
-  const Scratch s = scratch_floats(p, N, a, b, want_diag, want_trace, want_kron);
-  return s.diag + s.trace + s.kron;
+  return p.sq.scratch(N, a, b) + kron_scratch(p, b);
 }
 
 extern "C" int fused_second_order_launch(const float* A, const float* S, int C, int N, int R,
@@ -120,32 +92,9 @@ extern "C" int fused_second_order_launch(const float* A, const float* S, int C, 
                                          int want_trace, float* diag, float* kron, float* trace,
                                          float* scratch, cudaStream_t stream) {
   const Plan p = plan(C, N, R, a, b, want_diag, want_trace, want_kron);
-  const Scratch s = scratch_floats(p, N, a, b, want_diag, want_trace, want_kron);
-  float* diag_part = p.diag_parts > 1 ? scratch : diag;
-  float* trace_part = scratch + s.diag;
-  float* kron_part = scratch + s.diag + s.trace;
-  if (want_diag || want_trace) {
-    const Shape& sh = p.shape;
-    const dim3 grid((unsigned)p.tiles, (unsigned)p.groups);
-    const rowprod::Fn fn = sqt_instance(sh, want_diag, want_trace);
-    Args args{};
-    args.A = A;
-    args.S = S;
-    args.C = C;
-    args.N = N;
-    args.R = R;
-    args.a = a;
-    args.b = b;
-    args.group_size = p.group_size;
-    args.diag_part = diag_part;
-    args.trace_part = trace_part;
-    CUtensorMap smap{};
-    args.tma = rowprod::s_map(&smap, S, C, N, R, b);
-    fn<<<grid, rowprod::THREADS, sh.smem_bytes(), stream>>>(smap, args);
-    if (want_diag && p.diag_parts > 1)
-      bp::launch_sum_partials(diag_part, diag, 1, p.diag_parts, (long long)a * b, stream);
-    if (want_trace) bp::launch_sum_partials(trace_part, trace, 1, p.tiles, N, stream);
-  }
+  float* kron_part = scratch + p.sq.scratch(N, a, b);
+  if (want_diag || want_trace)
+    rowprod::sq_launch(p.sq, A, S, C, N, R, a, b, diag, trace, scratch, stream);
   if (want_kron) {
     tf32x3::XtyArgs x{};
     x.X = x.Y = S;

@@ -1,9 +1,10 @@
 // Per-sample products on the tensor cores in 3xTF32: t[c, n] = A_nᵀ S_cn
 // over the R rows of sample n, for the C classes of S [C, N, R, b] against
 // one A_n [R, a] each, A_n staged and split once for every class.
-// fused_second_order squares t into the GGN diagonal and the per-sample
-// trace; cross_dot's form stage stores it as the per-sample gradients G of
-// the NTK's classes and GGNGram's class-major rows; predictive_var sums each
+// fused_second_order and ggn_diag square t into the GGN diagonal (and the
+// former into the per-sample trace), both through sq_launch below;
+// cross_dot's form stage stores it as the per-sample gradients G of the
+// NTK's classes and GGNGram's class-major rows; predictive_var sums each
 // class's squares [· Σ] into the GLM predictive variance.  The design is in
 // fused_second_order.cu's source note.
 #pragma once
@@ -342,5 +343,79 @@ inline int group_size(Fn fn, const Shape& sh, long long tiles, long long samples
 // One class (the MC sweep) or ten (fewer or more classes take blocks of
 // ten, zeros past C).
 inline Shape shape_for(int C) { return C == 1 ? Shape{1, true} : Shape{5, false}; }
+
+// ---------------------------------------------------------------------------
+// The squared sums of t, diag [a, b] = Σ_cn t∘t and trace [N] = Σ_cab t∘t:
+// fused_second_order's diag and trace, and ggn_diag (diag alone).  One t
+// kernel launch over (tiles, sample groups), each warpgroup of ten classes
+// (each block of one) writing its own diag partial and each tile its trace
+// partial, then the partials added in a fixed order: deterministic, no
+// atomics.
+// ---------------------------------------------------------------------------
+
+template <int CW, bool SPLIT_A>
+Fn sq_masked(bool diag, bool trace) {
+  return diag && trace ? kernel<CW, SPLIT_A, DIAG | TRACE>
+         : diag        ? kernel<CW, SPLIT_A, DIAG>
+                       : kernel<CW, SPLIT_A, TRACE>;
+}
+
+inline Fn sq_instance(const Shape& sh, bool diag, bool trace) {
+  return sh.split_a ? sq_masked<1, true>(diag, trace) : sq_masked<5, false>(diag, trace);
+}
+
+struct SqPlan {
+  Shape shape;
+  bool diag, trace;
+  int tiles, groups, group_size, diag_parts;
+  // Scratch floats: the diag partials (none where there is one), then the
+  // trace partials.
+  long long diag_scratch(int a, int b) const {
+    return diag && diag_parts > 1 ? (long long)diag_parts * a * b : 0;
+  }
+  long long scratch(int N, int a, int b) const {
+    return diag_scratch(a, b) + (trace ? (long long)tiles * N : 0);
+  }
+};
+
+inline SqPlan sq_plan(int C, int N, int R, int a, int b, bool diag, bool trace) {
+  SqPlan p{};
+  p.diag = diag;
+  p.trace = trace;
+  p.shape = shape_for(C);
+  p.tiles = (int)(bp::cdiv(b, BS) * bp::cdiv(a, p.shape.na()));
+  p.group_size = group_size(sq_instance(p.shape, diag, trace), p.shape, p.tiles, N,
+                            bp::cdiv(C, p.shape.classes()) * bp::cdiv(R, RS));
+  p.groups = (int)bp::cdiv(N, p.group_size);
+  p.diag_parts = p.groups * (p.shape.split_a ? 1 : 2);
+  return p;
+}
+
+// A [N, R, a], S [C, N, R, b] float32 → the plan's diag [a, b] and trace
+// [N]; scratch holds p.scratch(N, a, b) floats.
+inline void sq_launch(const SqPlan& p, const float* A, const float* S, int C, int N, int R, int a,
+                      int b, float* diag, float* trace, float* scratch, cudaStream_t stream) {
+  float* diag_part = p.diag_parts > 1 ? scratch : diag;
+  float* trace_part = scratch + p.diag_scratch(a, b);
+  Args args{};
+  args.A = A;
+  args.S = S;
+  args.C = C;
+  args.N = N;
+  args.R = R;
+  args.a = a;
+  args.b = b;
+  args.group_size = p.group_size;
+  args.diag_part = diag_part;
+  args.trace_part = trace_part;
+  CUtensorMap smap{};
+  args.tma = s_map(&smap, S, C, N, R, b);
+  const dim3 grid((unsigned)p.tiles, (unsigned)p.groups);
+  sq_instance(p.shape, p.diag, p.trace)<<<grid, THREADS, p.shape.smem_bytes(), stream>>>(smap,
+                                                                                        args);
+  if (p.diag && p.diag_parts > 1)
+    bp::launch_sum_partials(diag_part, diag, 1, p.diag_parts, (long long)a * b, stream);
+  if (p.trace) bp::launch_sum_partials(trace_part, trace, 1, p.tiles, N, stream);
+}
 
 }  // namespace rowprod

@@ -12,9 +12,10 @@ at most ``SIMT_MAX_HEAD_DIM`` = 256, and may differ.  The source holds three
 designs and :func:`design` picks one: ``"split"`` (fewer than 64 query rows
 a KV head: decode and short prompts, the keys split over blocks whose
 partials the last block to arrive merges, float32 on CUDA cores), ``"wgmma"`` (bf16
-prefill with dh = dv ∈ {64, 128}, on the tensor cores, TMA-fed) or
-``"simt"`` (everything else, float32 on CUDA cores); the CUDA-core designs
-have instances for widths up to 64, 128 and 256.  The source note in the
+prefill with (dh, dv) in ``TC_HEAD_DIMS``, on the tensor cores, TMA-fed,
+the widths zero-padded to its instances (64, 64), (128, 128), (192, 128)
+and (256, 256)) or ``"simt"`` (everything else, float32 on CUDA cores); the
+CUDA-core designs have instances for widths up to 64, 128 and 256.  The source note in the
 ``.cu`` file says what bounds each on the H100; the plain version is
 :func:`repro_torch.kernels.ref.flash_attention`.
 """
@@ -31,7 +32,9 @@ from repro_torch.kernels import _build
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:78"
 DTYPES = (torch.float32, torch.bfloat16)
-TC_HEAD_DIMS = (64, 128)  # head widths of the "wgmma" design
+# (dh, dv) of the "wgmma" design: Hymba-1.5B's and InternVL2's 64, CodeQwen's
+# 128, h2o-danube3's 120, DeepSeek-V2-Lite's MLA 192/128, Gemma3's 240.
+TC_HEAD_DIMS = ((64, 64), (128, 128), (120, 120), (192, 128), (240, 240))
 SIMT_MAX_HEAD_DIM = 256   # the widest CUDA-core instance (q and acc split over lanes above 64)
 SPLIT_BELOW_ROWS = 64     # T·g below this takes the "split" design
 # "split": each block takes a split of the keys; the splits are sized so that
@@ -54,7 +57,7 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_launch.restype = I
     lib.flash_attention_split_launch.argtypes = [P] * 8 + [I] * 9 + [L, F] + [I] * 3 + [P]
     lib.flash_attention_split_launch.restype = I
-    lib.flash_attention_tc_launch.argtypes = [P] * 4 + [I] * 8 + [L, F, P]
+    lib.flash_attention_tc_launch.argtypes = [P] * 4 + [I] * 9 + [L, F, P]
     lib.flash_attention_tc_launch.restype = I
     return lib
 
@@ -81,16 +84,18 @@ def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
     """Which kernel design a call takes: ``"split"`` when the T·g rows of a
     KV head are fewer than 64 (decode, short prompts; any dtypes, positions
     and window); ``"wgmma"`` when q, k and v are all bfloat16, no positions
-    are given, dh = dv ∈ {64, 128}, T ≤ S (every row then sees its own key),
-    ``window`` is None or ≥ 1 and the tensors are 16-byte aligned (bf16
-    prefill); else ``"simt"``."""
+    are given, (dh, dv) is in ``TC_HEAD_DIMS``, T ≤ S (every row then sees
+    its own key), ``window`` is None or ≥ 1 and the tensors are 16-byte
+    aligned (bf16 prefill); else ``"simt"`` (dh 32 or 96, dh 64 with dv 128,
+    float32, given positions).  A call given to "wgmma" that fails to build
+    or launch raises: it does not drop to "simt"."""
     n, t, h, dh = q.shape
     s, kv, dv = k.shape[1], k.shape[2], v.shape[-1]
     if t * (h // kv) < SPLIT_BELOW_ROWS:
         return "split"
     tc = (q.dtype == k.dtype == v.dtype == torch.bfloat16
           and q_positions is None and k_positions is None
-          and dh == dv and dh in TC_HEAD_DIMS and t <= s
+          and (dh, dv) in TC_HEAD_DIMS and t <= s
           and (window is None or window >= 1)
           and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
     return "wgmma" if tc else "simt"
@@ -152,7 +157,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if which == "wgmma":
             code = lib.flash_attention_tc_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                n, t, s, h, kv, dh, *common, stream)
+                n, t, s, h, kv, dh, dv, *common, stream)
         elif which == "split":
             groups = -(-t * (h // kv) // SPLIT_ROWS)
             chunk = split_keys(s, n * kv * groups,

@@ -3,9 +3,10 @@
 Replaces the Pallas kernel ``ggn_diag_pallas``
 (``src/repro/kernels/ggn_diag.py:34``).  Neither package's engine calls it
 (the fused second-order kernel computes the same diagonal); it is the
-diag-only launch of that kernel's code under its own entry and counter.  The
-source note in the ``.cu`` file says what bounds it on the H100; the plain
-version is :func:`repro_torch.kernels.ref.ggn_diag`.
+diag-only launch of that kernel's 3xTF32 t kernel (``csrc/rowprod.cuh``)
+under its own entry and counter.  The source note in the ``.cu`` file says
+what bounds it on the H100; the plain version is
+:func:`repro_torch.kernels.ref.ggn_diag`.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ REPLACES = "src/repro/kernels/ggn_diag.py:34"
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ggn_diag")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ggn_diag_scratch_floats.argtypes = [I, I, I]
+    lib.ggn_diag_scratch_floats.argtypes = [I] * 5
     lib.ggn_diag_scratch_floats.restype = L
     lib.ggn_diag_launch.argtypes = [P, P, I, I, I, I, I, P, P, P]
     lib.ggn_diag_launch.restype = I
@@ -43,7 +44,7 @@ def ggn_diag_cuda(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     with torch.cuda.device(A.device):
         out = torch.empty((a, b), device=A.device, dtype=torch.float32)
-        scratch = torch.empty(lib.ggn_diag_scratch_floats(n, a, b),
+        scratch = torch.empty(lib.ggn_diag_scratch_floats(c, n, r, a, b),
                               device=A.device, dtype=torch.float32)
         code = lib.ggn_diag_launch(
             A.data_ptr(), S.data_ptr(), c, n, r, a, b, out.data_ptr(),

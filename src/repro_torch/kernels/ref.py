@@ -1,54 +1,69 @@
 """Plain PyTorch versions of the kernels: what each kernel computes.
 
 The CPU path of :mod:`repro_torch.kernels.ops` runs these, and the card's
-kernels are held against them.  Ports of ``src/repro/kernels/ref.py``.
+kernels are held against them.  Ports of ``src/repro/kernels/ref.py``.  The
+reductions compute in ``dtype``: by default float32, or float64 where every
+input is float64 (a reference computed in float64 on the CPU); float64 is
+also the exact formula the card checks hold the kernels to.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 
-def sq_matmul(A: torch.Tensor, B: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+def _dtype(dtype: Optional[torch.dtype], *xs) -> torch.dtype:
+    if dtype is not None:
+        return dtype
+    wide = all(x.dtype == torch.float64 for x in xs if x is not None)
+    return torch.float64 if wide else torch.float32
+
+
+def sq_matmul(A: torch.Tensor, B: torch.Tensor, dtype=None) -> torch.Tensor:
     """C[a,b] = Σ_n A²[n,a] B²[n,b] — the paper's (A∘A)ᵀ(B∘B) (App. A.1),
     in ``dtype`` (float64: the exact formula of the card checks)."""
+    dtype = _dtype(dtype, A, B)
     Af, Bf = A.to(dtype), B.to(dtype)
     return (Af * Af).T @ (Bf * Bf)
 
 
-def per_sample_moment(A: torch.Tensor, B: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+def per_sample_moment(A: torch.Tensor, B: torch.Tensor, dtype=None) -> torch.Tensor:
     """M[a,b] = Σ_n (Σ_r A[n,r,a] B[n,r,b])² — the sequence second moment.
 
     A: [N, R, a], B: [N, R, b] → [a, b] in ``dtype`` (float64: the exact
     formula of the card checks).
     """
+    dtype = _dtype(dtype, A, B)
     g = torch.einsum("nra,nrb->nab", A.to(dtype), B.to(dtype))
     return (g * g).sum(dim=0)
 
 
-def batch_l2(A: torch.Tensor, B: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+def batch_l2(A: torch.Tensor, B: torch.Tensor, dtype=None) -> torch.Tensor:
     """l2[n] = Σ_rs (A_n A_nᵀ)[r,s] (B_n B_nᵀ)[r,s] — the Gram trick.
 
     A: [N, R, a], B: [N, R, b] → [N] in ``dtype`` (float64: the exact
     formula of the card checks).
     """
+    dtype = _dtype(dtype, A, B)
     Af, Bf = A.to(dtype), B.to(dtype)
     ga = torch.einsum("nra,nsa->nrs", Af, Af)
     gb = torch.einsum("nrb,nsb->nrs", Bf, Bf)
     return (ga * gb).sum(dim=(1, 2))
 
 
-def ggn_diag(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+def ggn_diag(A: torch.Tensor, S: torch.Tensor, dtype=None) -> torch.Tensor:
     """diag[a,b] = Σ_{c,n} (Σ_r A[n,r,a] S[c,n,r,b])² (Eq. 19/22).
 
-    A: [N, R, a], S: [C, N, R, b] → [a, b] float32.
+    A: [N, R, a], S: [C, N, R, b] → [a, b] in ``dtype`` (float64: the exact
+    formula of the card checks).
     """
-    t = torch.einsum("nra,cnrb->cnab", A.float(), S.float())
+    dtype = _dtype(dtype, A, S)
+    t = torch.einsum("nra,cnrb->cnab", A.to(dtype), S.to(dtype))
     return (t * t).sum(dim=(0, 1))
 
 
-def cross_dot(A1, B1, A2, B2, dtype=torch.float32) -> torch.Tensor:
+def cross_dot(A1, B1, A2, B2, dtype=None) -> torch.Tensor:
     """out[e,n,m] = ⟨G1[e,n], G2[e,m]⟩ for G = A_nᵀB_n — cross-block Gram.
 
     A1/B1: [E, N1, R, a/b], A2/B2: [E, N2, R, a/b] → [E, N1, N2] in
@@ -57,12 +72,13 @@ def cross_dot(A1, B1, A2, B2, dtype=torch.float32) -> torch.Tensor:
     BatchDot Gram: two row sets, a leading group axis E (classes for the
     class-wise NTK).
     """
+    dtype = _dtype(dtype, A1, B1, A2, B2)
     g1 = torch.einsum("enra,enrb->enab", A1.to(dtype), B1.to(dtype))
     g2 = torch.einsum("emra,emrb->emab", A2.to(dtype), B2.to(dtype))
     return torch.einsum("enab,emab->enm", g1, g2)
 
 
-def predictive_var(A, S, Sigma=None, dtype=torch.float32) -> torch.Tensor:
+def predictive_var(A, S, Sigma=None, dtype=None) -> torch.Tensor:
     """var[c,n] = Σ_ab (Σ_r A[n,r,a] S[c,n,r,b])² [· Sigma[a,b]].
 
     A: [N, R, a], S: [C, N, R, b], Sigma: [a, b] → [C, N] in ``dtype``
@@ -70,6 +86,7 @@ def predictive_var(A, S, Sigma=None, dtype=torch.float32) -> torch.Tensor:
     variance of one layer, with the per-sample Jacobian J[c,n] = A_nᵀS_cn
     formed, squared, weighted and reduced.
     """
+    dtype = _dtype(dtype, A, S, Sigma)
     t = torch.einsum("nra,cnrb->cnab", A.to(dtype), S.to(dtype))
     t2 = t * t
     if Sigma is not None:
@@ -78,13 +95,14 @@ def predictive_var(A, S, Sigma=None, dtype=torch.float32) -> torch.Tensor:
 
 
 def fused_second_order(A, S, want_diag=True, want_kron=False,
-                       want_trace=False, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                       want_trace=False, dtype=None) -> Dict[str, torch.Tensor]:
     """t[c,n] = A_nᵀ S_cn, reduced.
 
     A: [N, R, a], S: [C, N, R, b] → dict of requested stats in ``dtype``
     (float32; float64 for the card checks of the 3xTF32 kernel): diag
     [a, b] · kron [b, b] (unscaled SᵀS) · trace [N].
     """
+    dtype = _dtype(dtype, A, S)
     Af, Sf = A.to(dtype), S.to(dtype)
     out = {}
     if want_diag or want_trace:
@@ -101,13 +119,14 @@ def fused_second_order(A, S, want_diag=True, want_kron=False,
 
 
 def fused_first_order(A, B, want_l2=True, want_moment=False,
-                      want_dot=False, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                      want_dot=False, dtype=None) -> Dict[str, torch.Tensor]:
     """Materialize G[e,n] = A_nᵀB_n, reduce.
 
     A: [E, N, R, a], B: [E, N, R, b] → dict of requested stats
     (l2 [E, N] · moment [E, a, b] · dot [E, N, N]), all in ``dtype``
     (float32; float64 is the exact formula the card checks hold to).
     """
+    dtype = _dtype(dtype, A, B)
     Af, Bf = A.to(dtype), B.to(dtype)
     g = torch.einsum("enra,enrb->enab", Af, Bf)
     out = {}

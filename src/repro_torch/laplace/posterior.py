@@ -39,7 +39,7 @@ import torch
 from repro_torch.core import kron as K
 from repro_torch.core.engine import plan_for_batch, plan_sweeps
 from repro_torch.core.extensions import KFAC, KFLR, DiagGGN, DiagGGNMC, ExtensionConfig
-from repro_torch.core.loss_hessian import CrossEntropyLoss, MSELoss
+from repro_torch.core.loss_hessian import CrossEntropyLoss, MSELoss, _f32, _f32_dtype
 from repro_torch.core.module import Dense, Sequential
 from repro_torch.core.tree import tree_leaves, tree_map, tree_structure, tree_unflatten
 
@@ -69,10 +69,11 @@ def _likelihood_of(loss) -> str:
     return "regression" if isinstance(loss, MSELoss) else "classification"
 
 
-def _scalar(v, device) -> torch.Tensor:
-    """A float32 scalar on ``device`` (a hyperparameter: a number, or a
-    tensor that autograd follows)."""
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A scalar on ``like``'s device, in float32 or in float64 where ``like``
+    is float64 (a hyperparameter: a number, or a tensor that autograd
+    follows)."""
+    return torch.as_tensor(v, dtype=_f32_dtype(like), device=like.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,7 +231,7 @@ def _normal_draws(rng, mean, n_samples):
         raise ValueError(f"sample: {len(draws)} draws for {len(leaves)} parameter leaves")
     out = []
     for m, d in zip(leaves, draws):
-        d = torch.as_tensor(d, dtype=torch.float32).to(m.device)
+        d = torch.as_tensor(d, dtype=_f32_dtype(m)).to(m.device)
         if tuple(d.shape) != (n_samples,) + tuple(m.shape):
             raise ValueError(f"sample: draws of shape {tuple(d.shape)} for a leaf of "
                              f"shape {tuple(m.shape)} and {n_samples} samples")
@@ -252,10 +253,15 @@ class _EvidenceMixin:
     def device(self) -> torch.device:
         return tree_leaves(self.mean)[0].device
 
+    @property
+    def _like(self) -> torch.Tensor:
+        """A leaf of the mean: its device, and float64 if the fit was."""
+        return tree_leaves(self.mean)[0]
+
     def _curv_scale(self, sigma_noise=None):
         """Mean-loss curvature → sum-loss likelihood Hessian: M (/σ²)."""
-        s = _scalar(self.sigma_noise if sigma_noise is None else sigma_noise, self.device)
-        m = _scalar(self.n_data, self.device)
+        s = _scalar(self.sigma_noise if sigma_noise is None else sigma_noise, self._like)
+        m = _scalar(self.n_data, self._like)
         return m / (s * s) if self.likelihood == "regression" else m
 
     def n_params(self) -> int:
@@ -263,14 +269,14 @@ class _EvidenceMixin:
 
     def scatter(self, prior_prec=None):
         d = self.prior_prec if prior_prec is None else prior_prec
-        sq = sum((leaf.float() ** 2).sum() for leaf in tree_leaves(self.mean))
-        return _scalar(d, self.device) * sq
+        sq = sum((_f32(leaf) ** 2).sum() for leaf in tree_leaves(self.mean))
+        return _scalar(d, self._like) * sq
 
     def log_lik(self, sigma_noise=None):
-        s = _scalar(self.sigma_noise if sigma_noise is None else sigma_noise, self.device)
-        m = _scalar(self.n_data, self.device)
+        s = _scalar(self.sigma_noise if sigma_noise is None else sigma_noise, self._like)
+        m = _scalar(self.n_data, self._like)
         if self.likelihood == "regression":
-            n_out = _scalar(self.n_data * self.n_outputs, self.device)
+            n_out = _scalar(self.n_data * self.n_outputs, self._like)
             return (-m * self.loss_map / (s * s) - n_out * torch.log(s)
                     - 0.5 * n_out * math.log(2.0 * math.pi))
         return -m * self.loss_map
@@ -317,7 +323,7 @@ class DiagLaplace(_EvidenceMixin):
                 "DiagLaplace: curvature tree does not cover every parameter; "
                 "the engine emits GGN diagonals for Dense/Conv2d layers — for "
                 "other models fit with last_layer=True")
-        return cls(mean=params, curv=tree_map(lambda c: c.float(), curv),
+        return cls(mean=params, curv=tree_map(_f32, curv),
                    n_data=_n_units(loss, y), loss_map=float(res.loss),
                    likelihood=_likelihood_of(loss), n_outputs=int(res.logits.shape[-1]),
                    prior_prec=float(o.prior_prec))
@@ -332,7 +338,7 @@ class DiagLaplace(_EvidenceMixin):
         """log det P − P_dim · log δ  (the evidence's Occam term), summed as
         Σ log1p(curv·(M/σ²)/δ): the same quantity without the cancellation
         of two sums of P_dim terms in float32."""
-        d = _scalar(self.prior_prec if prior_prec is None else prior_prec, self.device)
+        d = _scalar(self.prior_prec if prior_prec is None else prior_prec, self._like)
         scale = self._curv_scale(sigma_noise)
         return sum(torch.log1p(leaf * scale / d).sum() for leaf in tree_leaves(self.curv))
 
@@ -341,7 +347,7 @@ class DiagLaplace(_EvidenceMixin):
         a ``torch.Generator`` or the standard-normal draws (a params-shaped
         tree, each leaf ``[K, *leaf.shape]``)."""
         eps = _normal_draws(rng, self.mean, n_samples)
-        out = [m.float()[None] + e * torch.rsqrt(p)[None]
+        out = [_f32(m)[None] + e * torch.rsqrt(p)[None]
                for m, p, e in zip(tree_leaves(self.mean), tree_leaves(self.precision()), eps)]
         return tree_unflatten(self.mean, out)
 
@@ -400,23 +406,23 @@ class KronLaplace(_EvidenceMixin):
         ``(None, M·B/σ² + δ I)``."""
         d = self.prior_prec if prior_prec is None else prior_prec
         s = self.sigma_noise if sigma_noise is None else sigma_noise
-        B = block["B"].float() * self._curv_scale(s)
+        B = _f32(block["B"]) * self._curv_scale(s)
         if B.dim() != 2:
             raise LaplaceStructureError(
                 "KronLaplace: scan-stacked Kronecker factors (B.ndim==3) "
                 "are not supported — fit with last_layer=True")
         A = block.get("A", block.get("A_diag"))
-        eye_b = torch.eye(B.shape[0], dtype=torch.float32, device=B.device)
-        d = _scalar(d, B.device)
+        eye_b = torch.eye(B.shape[0], dtype=B.dtype, device=B.device)
+        d = _scalar(d, B)
         if A is None:
             return None, B + d * eye_b
-        A = A.float()
+        A = _f32(A)
         pi = K.pi_factor(A, B)
         sd = torch.sqrt(d)
         if A.dim() == 1:
             Ad = A + pi * sd
         else:
-            Ad = A + pi * sd * torch.eye(A.shape[0], dtype=torch.float32, device=A.device)
+            Ad = A + pi * sd * torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
         return Ad, B + (sd / pi) * eye_b
 
     def log_det_ratio(self, prior_prec=None, sigma_noise=None):
@@ -432,7 +438,7 @@ class KronLaplace(_EvidenceMixin):
                 terms.append(Bd.shape[0] * _logdet(Ad) + Ad.shape[0] * _logdet(Bd))
 
         _map_kron(block_ld, self.mean, self.kron)
-        return sum(terms) - self.n_params() * torch.log(_scalar(d, self.device))
+        return sum(terms) - self.n_params() * torch.log(_scalar(d, self._like))
 
     def sample(self, rng, n_samples: int = 1):
         """θ = θ* + A'^{-1/2} E B'^{-1/2} per weight block (matrix normal),
@@ -442,7 +448,7 @@ class KronLaplace(_EvidenceMixin):
 
         def block_sample(mean_leaf, block, e):
             Ad, Bd = self.damped_factors(block)
-            m = mean_leaf.float()[None]
+            m = _f32(mean_leaf)[None]
             SB = _inv_sqrt_psd(Bd)
             if Ad is None:
                 return m + torch.einsum("ij,kj->ki", SB, e)

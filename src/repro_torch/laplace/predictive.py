@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from repro_torch.core.loss_hessian import _f32_dtype
 from repro_torch.core.module import Dense, Sequential, _f32, _nra
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops as kops
@@ -52,7 +53,7 @@ def _output_factor(z):
             "for sequence models slice features to one position and use the "
             "last-layer posterior's head directly")
     n, c = z.shape
-    eye = torch.eye(c, dtype=torch.float32, device=z.device)
+    eye = torch.eye(c, dtype=_f32_dtype(z), device=z.device)
     return eye[:, None, :].expand(c, n, c)
 
 
@@ -197,7 +198,7 @@ def glm_predictive(model, params, posterior, x, *, use_kernels: bool = True):
         return _dense_glm_closed_form(model, params, posterior, x)
     z, tape = model.forward_tape(params, x)
     S0 = _output_factor(z)
-    var0 = torch.zeros((z.shape[-1], z.shape[0]), dtype=torch.float32, device=z.device)
+    var0 = torch.zeros((z.shape[-1], z.shape[0]), dtype=_f32_dtype(z), device=z.device)
     _, var = _var_sweep(model, params, tape, S0, posterior.layer_blocks(), posterior,
                         use_kernels, var0)
     return z, var.T
@@ -209,7 +210,7 @@ def mc_predictive(model, params, posterior, x, rng, n_samples: int = 30):
     variance [N, C]) of the sampled outputs.  ``rng`` is what the
     posterior's ``sample`` takes (a ``torch.Generator`` or the draws)."""
     thetas = posterior.sample(rng, n_samples)
-    zs = torch.stack([model.call(tree_map(lambda leaf, k=k: leaf[k], thetas), x).float()
+    zs = torch.stack([_f32(model.call(tree_map(lambda leaf, k=k: leaf[k], thetas), x))
                       for k in range(n_samples)])
     return zs.mean(dim=0), zs.var(dim=0, unbiased=False)
 

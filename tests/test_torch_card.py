@@ -14,8 +14,10 @@ language models' two kernels, ``flash_attention`` and ``wkv``, are held in
 float32 and bfloat16, with a fully masked row, T = 1 decode against ring and
 global caches, ragged tiles and chunks, and Hymba's [N, T, H, 1] decay;
 flash_attention's tensor-core design ("wgmma") at g = 5 and 1, dh 64 and
-128, with and without a causal mask and a window, its CUDA-core design
-at the configs' wider heads (120, 128, 192 with dv 128, 240), and its
+128, with and without a causal mask and a window, and at the configs' wider
+heads in bf16 (120, 192 with dv 128, 240: T < S, rows off the block, a
+window of 1, the same bits from call to call), its CUDA-core design at
+those heads in float32, and its
 split-KV design ("split", T·g < 64) at Hymba-1.5B's full decode shapes, a
 fully masked row, S off the splits, dh 128 and 256 and short prompts, the
 same bits from call to call; wkv also at
@@ -23,7 +25,7 @@ Hymba's full prefill width and at a dv off its column slice, held row by
 row in bf16; sq_matmul's and wkv's calls give the same bits from call to
 call; the reduced Hymba serves on the card as on the CPU.  The 3xTF32
 kernels, cross_dot, fused_second_order, fused_first_order,
-per_sample_moment and predictive_var, and batch_l2 in both its forms, are
+per_sample_moment, predictive_var and ggn_diag, and batch_l2 in both its forms, are
 also held to their formula in float64
 (``chip_smoke.F64_TOL`` whole-tensor, ``ENTRY_TOL`` entry by entry), off the
 3C3D shapes too (shared, per-group and fewer-row A sides, C = 1, 3, 10 and
@@ -212,7 +214,9 @@ def test_card_ggn_diag(cuda, layer, classes):
     n, r, a, b = CONV[layer]
     A = torch.randn(n, r, a, device="cuda", generator=cuda)
     S = torch.randn(classes, n, r, b, device="cuda", generator=cuda)
-    _card_close({"out": ops.ggn_diag(A, S)}, {"out": ref.ggn_diag(A, S)})
+    got = {"out": ops.ggn_diag(A, S)}
+    _card_close(got, {"out": ref.ggn_diag(A, S)})
+    _f64_close("ggn_diag", got, {"out": ref.ggn_diag(A, S, dtype=torch.float64)})
 
 
 # (C, N, R, a, b) of the Gram family's cross_dot calls at the conv layers.
@@ -355,7 +359,7 @@ CONV3_DEEP = {"conv3_r256": (128, 256, 864, 128), "conv3_r1024": (128, 1024, 864
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["cross_dot", "fused_first_order", "per_sample_moment",
-                                    "predictive_var"])
+                                    "predictive_var", "ggn_diag"])
 @pytest.mark.parametrize("case", sorted(CONV3_DEEP))
 def test_card_conv3_widths_deep_rows(cuda, case, kernel):
     n, r, a, b = CONV3_DEEP[case]
@@ -375,6 +379,10 @@ def test_card_conv3_widths_deep_rows(cuda, case, kernel):
         B = torch.randn(n, r, b, device="cuda", generator=cuda)
         got = {"out": ops.per_sample_moment(A, B)}
         want, want64 = (ref.per_sample_moment(A, B, dtype=d) for d in (torch.float32, torch.float64))
+    elif kernel == "ggn_diag":
+        S = torch.randn(10, n, r, b, device="cuda", generator=cuda)
+        got = {"out": ops.ggn_diag(A, S)}
+        want, want64 = (ref.ggn_diag(A, S, dtype=d) for d in (torch.float32, torch.float64))
     else:
         S = torch.randn(10, n, r, b, device="cuda", generator=cuda)
         W = torch.rand(a, b, device="cuda", generator=cuda)
@@ -575,10 +583,11 @@ def test_card_flash_attention_wgmma(cuda, case):
     assert _row_rel(got, want) < ROW_TOL
 
 
-# The "simt" design at the head widths of the configs: dh 120 with a window
-# (h2o-danube3), 128 (codeqwen1.5, internvl2), 192 with dv 128 (MLA), 240
-# with GQA (gemma3); prefill with rows off the block, and decode against a
-# cache with positions (bf16 queries against a float32 cache).
+# The head widths of the configs: dh 120 with a window (h2o-danube3), 128
+# (codeqwen1.5, internvl2), 192 with dv 128 (MLA), 240 with GQA (gemma3);
+# prefill with rows off the block ("wgmma" in bf16, "simt" in float32), and
+# decode against a cache with positions ("split": bf16 queries against a
+# float32 cache).
 WIDE_ATTN = {  # (H, KV, dh, dv, window)
     "dh120_window": (8, 2, 120, 120, 16),
     "dh128": (8, 2, 128, 128, None),
@@ -592,6 +601,8 @@ WIDE_ATTN = {  # (H, KV, dh, dv, window)
 @pytest.mark.parametrize("mode", ["prefill", "decode"])
 @pytest.mark.parametrize("width", sorted(WIDE_ATTN))
 def test_card_flash_attention_wide(cuda, width, mode, dtype):
+    from repro_torch.kernels.flash_attention import design
+
     h, kv, dh, dv, window = WIDE_ATTN[width]
     n, s = 2, 150
     t = s if mode == "prefill" else 1
@@ -605,6 +616,10 @@ def test_card_flash_attention_wide(cuda, width, mode, dtype):
         kp[121:] = -1
         kw.update(q_positions=torch.tensor([120], device="cuda", dtype=torch.int32),
                   k_positions=kp)
+    want_design = ("split" if mode == "decode" else
+                   "wgmma" if dtype == torch.bfloat16 else "simt")
+    assert design(q, k, v, kw["window"], kw.get("q_positions"),
+                  kw.get("k_positions")) == want_design
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -614,6 +629,46 @@ def test_card_flash_attention_wide(cuda, width, mode, dtype):
     assert _rel(got, want) < (CARD_TOL if dtype == torch.float32 else BF16_TOL)
     if dtype == torch.bfloat16:
         assert _row_rel(got, want) < ROW_TOL
+
+
+# The "wgmma" design's wide instances, (128, 128) for dh 120, (192, 128) for
+# MLA, (256, 256) for dh 240: T < S, rows a KV head off the 128-row block,
+# a window of 1 (each row sees its own key alone: its own value), not
+# causal; two calls give the same bits.
+WIDE_TC_ATTN = {  # (N, T, S, H, KV, dh, dv, causal, window)
+    "dh120_t_below_s": (1, 100, 170, 8, 2, 120, 120, True, None),
+    "dh120_window1": (2, 70, 70, 8, 2, 120, 120, True, 1),
+    "mla_rows_off_block": (1, 77, 77, 16, 16, 192, 128, True, None),
+    "mla_t_below_s_window": (1, 90, 200, 4, 4, 192, 128, True, 50),
+    "mla_noncausal": (1, 70, 90, 2, 2, 192, 128, False, None),
+    "dh240_window1": (1, 64, 64, 4, 2, 240, 240, True, 1),
+    "dh240_t_below_s_window": (1, 100, 300, 8, 4, 240, 240, True, 64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WIDE_TC_ATTN))
+def test_card_flash_attention_wide_wgmma(cuda, case):
+    from repro_torch.kernels.flash_attention import design
+
+    n, t, s, h, kv, dh, dv, causal, window = WIDE_TC_ATTN[case]
+    q = torch.randn(n, t, h, dh, device="cuda", generator=cuda).bfloat16()
+    k = torch.randn(n, s, kv, dh, device="cuda", generator=cuda).bfloat16()
+    v = torch.randn(n, s, kv, dv, device="cuda", generator=cuda).bfloat16()
+    assert design(q, k, v, window) == "wgmma"
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 2
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (n, t, h, dv)
+    assert _rel(got, want) < BF16_TOL
+    assert _row_rel(got, want) < ROW_TOL
+    assert torch.equal(got, again)
+    if window == 1:  # row t sees key t alone
+        own = v[:, :t].repeat_interleave(h // kv, 2)
+        assert torch.equal(got, own)
 
 
 # The "split" design (T·g < 64 rows a KV head): Hymba-1.5B's decode at full

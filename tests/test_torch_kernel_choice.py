@@ -4,7 +4,8 @@ touches a card.
 
 ``flash_attention.design`` is pure (shapes, dtypes, positions, window,
 alignment): fewer than 64 query rows a KV head (decode, short prompts) go to
-the split-KV design ("split"), bf16 prefill to the tensor-core design
+the split-KV design ("split"), bf16 prefill at every head width the
+configs use (64, 128, 120, MLA's 192/128, 240) to the tensor-core design
 ("wgmma"), the rest to the CUDA-core one ("simt"); ``split_keys`` sizes the
 "split" design's grid.  The wrappers check dtypes, dimensions and the pairing of shapes before the device
 (``_build.check_input``, then ``_build.check_devices``), so CPU tensors
@@ -109,6 +110,29 @@ DESIGNS = {
     "short_prompt_g5": (_qkv(t=12), 1024, {}, "split"),
     "short_prompt_t_above_s": (_qkv(t=12, s=5), None, {}, "split"),
     "short_prompt_window_0": (_qkv(t=4), 0, {}, "split"),
+    # the configs' wider heads: "wgmma" in bf16 prefill (instances (128,
+    # 128), (192, 128), (256, 256), zero-padded), "simt" with positions or
+    # in float32, "split" below 64 rows a KV head
+    "dh120_prefill": (_qkv(t=256, h=32, kv=8, dh=120), 8192, {}, "wgmma"),
+    "mla_prefill": (_qkv(t=256, h=16, kv=16, dh=192, dv=128), None, {}, "wgmma"),
+    "dh240_prefill": (_qkv(t=256, h=16, kv=8, dh=240), 1024, {}, "wgmma"),
+    "dh120_t_below_s": (_qkv(t=100, s=300, h=32, kv=8, dh=120), None, {}, "wgmma"),
+    "mla_window_1": (_qkv(t=128, h=16, kv=16, dh=192, dv=128), 1, {}, "wgmma"),
+    "dh120_positions": (_qkv(t=128, h=32, kv=8, dh=120), None, _positions(128, 128), "simt"),
+    "mla_positions": (_qkv(t=128, h=16, kv=16, dh=192, dv=128), None, _positions(128, 128),
+                      "simt"),
+    "dh240_positions": (_qkv(t=128, h=16, kv=8, dh=240), 1024, _positions(128, 128), "simt"),
+    "dh120_float32": (_qkv(t=256, h=32, kv=8, dh=120, dtypes=(F32, F32, F32)), None, {},
+                      "simt"),
+    "mla_float32": (_qkv(t=256, h=16, kv=16, dh=192, dv=128, dtypes=(F32, F32, F32)), None, {},
+                    "simt"),
+    "dh240_float32": (_qkv(t=256, h=16, kv=8, dh=240, dtypes=(F32, F32, F32)), None, {},
+                      "simt"),
+    "dh120_short_prompt": (_qkv(t=15, h=32, kv=8, dh=120), None, {}, "split"),
+    "mla_short_prompt": (_qkv(t=63, h=16, kv=16, dh=192, dv=128), None, {}, "split"),
+    "dh240_short_prompt": (_qkv(t=31, h=16, kv=8, dh=240), 1024, {}, "split"),
+    "dh120_dv64": (_qkv(t=128, dh=120, dv=64), None, {}, "simt"),
+    "dh192_dv192": (_qkv(t=128, dh=192), None, {}, "simt"),
 }
 
 
@@ -120,6 +144,14 @@ def test_flash_attention_design(case):
 
 def test_flash_attention_design_needs_16_byte_alignment():
     q, k, v = _qkv(t=128)
+    flat = torch.zeros(q.numel() + 8, dtype=BF)
+    assert design(flat[1:1 + q.numel()].view(q.shape), k, v) == "simt"  # 2 bytes off
+    assert design(flat[8:8 + q.numel()].view(q.shape), k, v) == "wgmma"  # 16 bytes off
+
+
+@pytest.mark.parametrize("dh,dv", [(120, 120), (192, 128), (240, 240)])
+def test_flash_attention_design_wide_heads_need_16_byte_alignment(dh, dv):
+    q, k, v = _qkv(t=128, h=8, kv=4, dh=dh, dv=dv)
     flat = torch.zeros(q.numel() + 8, dtype=BF)
     assert design(flat[1:1 + q.numel()].view(q.shape), k, v) == "simt"  # 2 bytes off
     assert design(flat[8:8 + q.numel()].view(q.shape), k, v) == "wgmma"  # 16 bytes off

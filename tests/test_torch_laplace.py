@@ -59,7 +59,7 @@ from repro_torch.core import (
     MSELoss,
     Sequential,
 )
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops
 
 STRUCTURES = {"diag": ("diag", False), "kron": ("kron", False),
@@ -272,6 +272,43 @@ def test_glm_predictive_matches_jax(name, structure, use_kernels):
     assert (var > 0).all()
     _close(tl.probit_predictive(mean, var), jl.probit_predictive(jmean, jvar), atol=1e-7)
     _close(tl.probit_predictive(mean, var).sum(-1), np.ones(len(s["x2"])))
+
+
+F64_PARAMS = [(n, s) for n in ("mlp", "c2d2") for s in STRUCTURES]
+
+
+@pytest.mark.parametrize("name,structure", F64_PARAMS, ids=[f"{n}-{s}" for n, s in F64_PARAMS])
+def test_float64_fit_and_predictive_follow_their_inputs(name, structure):
+    """A float64 MAP and batch (the CPU reference of the card's Laplace
+    check) fit, weigh the evidence and predict in float64, and agree with
+    JAX's float32 chain to its rounding (rtol 1e-4; the diagonal evidence
+    against JAX's formula in float64); ``optimize_marglik`` (float32 Adam
+    state) still raises the evidence."""
+    s = setup(name)
+    jpost, _ = fits(name, structure)
+    st, last = STRUCTURES[structure]
+    p64 = tree_map(lambda v: v.double(), s["tp"])
+    y = torch.from_numpy(s["y"])
+    y = y.double() if y.is_floating_point() else y
+    post = tl.fit_posterior(s["tm"], p64, torch.from_numpy(s["x"]).double(), y, s["tloss"],
+                            structure=st, last_layer=last,
+                            options=tl.FitOptions(prior_prec=PRIOR))
+    inner = _inner(post)
+    curv = inner.curv if structure.endswith("diag") else inner.kron
+    assert all(leaf.dtype == torch.float64 for leaf in tree_leaves(curv))
+    ev = tl.log_marglik(post)
+    assert ev.dtype == torch.float64
+    ji = _inner(jpost)  # a diagonal evidence in float64 (JAX's cancels in float32)
+    _close(ev, _diag_evidence64(ji, np.log(PRIOR))[0] if isinstance(ji, jl.DiagLaplace)
+           else jl.log_marglik(jpost), rtol=1e-4)
+    mean, var = tl.glm_predictive(s["tm"], p64, post, torch.from_numpy(s["x2"]).double())
+    assert mean.dtype == var.dtype == torch.float64
+    jmean, jvar = jl.glm_predictive(s["jm"], s["jp"], jpost, jnp.asarray(s["x2"]),
+                                    use_kernels=False)
+    _close(mean, jmean, rtol=1e-4, atol=1e-6)
+    _close(var, jvar, rtol=1e-4)
+    tuned, res = tl.optimize_marglik(post, n_steps=5, lr=0.1)
+    assert tl.log_marglik(tuned).item() > ev.item()
 
 
 def test_glm_predictive_calls_predictive_var(monkeypatch):

@@ -99,6 +99,9 @@ SDPA_CASES = {
     "dh128_ring": dict(t=1, s=8, kv=2, g=2, window=8, ring=True, dh=128),
     "dh192_dv128": dict(t=9, s=9, kv=2, g=1, dh=192, dv=128),
     "dh240_gqa": dict(t=9, s=9, kv=1, g=2, dh=240),
+    # h2o-danube3's dh 120 at g = 4 with a window, T·g = 72 ≥ 64 rows a KV
+    # head: the shape the card gives the "wgmma" design
+    "dh120_g4_window": dict(t=18, s=18, kv=2, g=4, window=7, dh=120),
 }
 
 

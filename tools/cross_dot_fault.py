@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """How much the float64 checks of ``chip_smoke.py`` can see in the 3xTF32
 kernels: plant faults in ``cross_dot``, ``fused_second_order``,
-``fused_first_order``, ``per_sample_moment``, ``predictive_var`` and
-``batch_l2`` (and read an older ``sq_matmul``) and read every check.
+``fused_first_order``, ``per_sample_moment``, ``predictive_var``,
+``ggn_diag`` and ``batch_l2`` (and read an older ``sq_matmul``) and read
+every check.
 
     python3 tools/cross_dot_fault.py [FAULT ...] [--csrc DIR]
 
@@ -35,7 +36,11 @@ one nvcc each, all at once:
 * ``pv_unpromoted``: the t kernel carries each class's whole sum for a
   sample in the tensor cores' accumulator;
 * ``pv_partial_dropped``: the variance partial of the first warp of the
-  middle tile is written as zeros.
+  middle tile is written as zeros;
+* ``gd_split_skipped``, ``gd_unpromoted`` (ggn_diag): the split fault, and
+  the t kernel carrying each class's whole sum for a sample in the tensor
+  cores' accumulator, on the t kernel's path ggn_diag shares with
+  fused_second_order (``rowprod::sq_launch``).
 
 ``--csrc DIR`` also builds ``DIR``'s ``sq_matmul.cu`` (with its headers;
 for example an older commit's ``src/repro_torch/kernels/csrc``, unpacked
@@ -110,6 +115,8 @@ FAULTS = {
     "pv_unpromoted": ("predictive_var", PV_UNPROMOTED),
     "pv_partial_dropped": ("predictive_var", PV_DROPPED),
     "l2_split_skipped": ("batch_l2", [SPLIT]),
+    "gd_split_skipped": ("ggn_diag", [SPLIT]),
+    "gd_unpromoted": ("ggn_diag", PV_UNPROMOTED),
 }
 
 
@@ -148,6 +155,7 @@ def main() -> int:
     from repro_torch.kernels import cross_dot as cd_mod
     from repro_torch.kernels import fused_first_order as ffo_mod
     from repro_torch.kernels import fused_second_order as fso_mod
+    from repro_torch.kernels import ggn_diag as gd_mod
     from repro_torch.kernels import per_sample_moment as psm_mod
     from repro_torch.kernels import predictive_var as pv_mod
     from repro_torch.kernels import sq_matmul as sq_mod
@@ -167,6 +175,7 @@ def main() -> int:
                "per_sample_moment": (psm_mod, psm_mod.per_sample_moment_cuda),
                "predictive_var": (pv_mod, pv_mod.predictive_var_cuda),
                "batch_l2": (l2_mod, l2_mod.batch_l2_cuda),
+               "ggn_diag": (gd_mod, gd_mod.ggn_diag_cuda),
                "sq_matmul": (sq_mod, sq_mod.sq_matmul_cuda)}
     plain = {"cross_dot": lambda A1, B1, A2, B2, **w: ref.cross_dot(
                  ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2, **w),
@@ -176,6 +185,7 @@ def main() -> int:
              "per_sample_moment": ref.per_sample_moment,
              "predictive_var": ref.predictive_var,
              "batch_l2": lambda A, B, form, **w: ref.batch_l2(A, B, **w),
+             "ggn_diag": ref.ggn_diag,
              "sq_matmul": ref.sq_matmul}
     kernels = {FAULTS[n][0] for n in names} | ({"sq_matmul"} if cli.csrc else set())
     rows = []  # (kernel, label, args, kw, plain float32, float64)

@@ -14,6 +14,14 @@ each, all at once:
 * ``row_sum`` ("wgmma"): the softmax's row sum leaves out the weights of
   keys 1536–1599 while O += P·V keeps them, so the rows that see those keys
   come out a few percent too large;
+* ``pad_unzeroed`` ("wgmma", the wide heads): Q's 16-byte chunks past dh
+  are read from memory (the next head's values) instead of written as zeros
+  (a row's last chunk stays zero where it would read past q's end).  TMA
+  fills K's columns past dh with zeros, so the padding meets zeros in every
+  logit: the fault is expected to give the unchanged kernel's bits at dh
+  120, and MLA's 192 has no padding;
+* ``dv_stride`` ("wgmma", the wide heads): the output rows are strided by
+  the instance's DK instead of dv (stores past the output's end dropped);
 * ``split_dropped`` ("split"): the last block's merge leaves out the
   partial of the middle split (splits / 2), from both its sums;
 * ``split_max_unapplied`` ("split"): the merge adds the middle split's
@@ -21,8 +29,12 @@ each, all at once:
   row's.
 
 Each "wgmma" build runs flash_attention at Hymba-1.5B's bf16 prefill shapes
-(q [4,2048,25,64], k/v [4,2048,5,64], no window and a window of 1024) and at
-CodeQwen1.5-7B's dh 128 ([4,2048,32,128]); each "split" build at Hymba's
+(q [4,2048,25,64], k/v [4,2048,5,64], no window and a window of 1024), at
+CodeQwen1.5-7B's dh 128 ([4,2048,32,128]) and at ``chip_smoke.py``'s wide
+prefill rows (h2o-danube3-4b's dh 120, 32 heads over 8, window 8192;
+deepseek-v2-lite's MLA, dh 192, dv 128, 16 heads; gemma3-12b's dh 240, 16
+heads over 8, window 1024), ``pad_unzeroed`` and ``dv_stride`` at the dh
+120 and MLA rows alone; each "split" build at Hymba's
 decode rows of ``chip_smoke.py`` (bf16 q [4,1,25,64] at position 1500
 against float32 caches: a ring of 1024 that wrapped, window 1024, and a
 global cache of 2048 with the slots past 1500 empty); the unchanged build
@@ -30,8 +42,9 @@ at all of them.  Inputs are standard normal from seed 0.  It prints one JSON
 line a (build, shape) with the two readings
 ``chip_smoke.py`` limits: ``rel`` (max |kernel − plain| / max |plain|,
 limit ``BF16_TOL``) and ``row_rel`` (the same within each output row, limit
-``ROW_TOL``), and whether each limit holds.  Exits non-zero if the
-unchanged kernel fails a limit or a planted fault passes ``ROW_TOL``.
+``ROW_TOL``), whether each limit holds, and whether the bits equal the
+unchanged build's.  Exits non-zero if the unchanged kernel fails a limit, a
+planted fault passes ``ROW_TOL``, or ``pad_unzeroed`` changes a bit.
 """
 import json
 import shutil
@@ -42,8 +55,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-# design: (anchor in flash_attention.cu, replacement), ...; each anchor
-# occurs once.
+# name: (design, ((anchor in flash_attention.cu, replacement), ...)); each
+# anchor occurs once.
+WIDE = ("h2o-danube3 dh120", "deepseek-v2-lite mla")  # the shapes of the padding faults
+NEUTRAL = ("pad_unzeroed",)  # faults the design makes harmless: the bits must not change
 FAULTS = {
     "skip_tile": ("wgmma", (
         ("if (!inside) {", "if (true) {"),
@@ -55,6 +70,16 @@ FAULTS = {
          "            s0 + 16 * kk + 8 * (e / 4) + 2 * quad + e % 2 >= 1600)\n"
          "          l[i] += p[e];"),
     )),
+    "pad_unzeroed": ("wgmma", (
+        ("    if (row < rows && 8 * c < dh) {",
+         "    if (row < rows && (8 * c < dh || row + 1 < rows)) {"),
+    )),
+    "dv_stride": ("wgmma", (
+        ("(((long long)n * T + t) * H + (long long)kvh * g + j) * dv;",
+         "(((long long)n * T + t) * H + (long long)kvh * g + j) * DK;"),
+        ("        if (col < dv)\n",
+         "        if (col < dv && dst + col < out + (long long)(gridDim.y / KV) * T * H * dv)\n"),
+    )),
     "split_dropped": ("split", (
         ("      const float w = mlx.x == -INFINITY ? 0.f : expf(mlx.x - mn);",
          "      const float w = mlx.x == -INFINITY || x == splits / 2 ? 0.f : expf(mlx.x - mn);"),
@@ -64,13 +89,16 @@ FAULTS = {
          "      const float w = mlx.x == -INFINITY ? 0.f : x == splits / 2 ? 1.f : expf(mlx.x - mn);"),
     )),
 }
-SHAPES = {  # design: {label: (N, T, H, KV, dh, window, cache)}
-    "wgmma": {"hymba global": (4, 2048, 25, 5, 64, None, None),
-              "hymba window 1024": (4, 2048, 25, 5, 64, 1024, None),
-              "codeqwen dh128": (4, 2048, 32, 32, 128, None, None)},
+SHAPES = {  # design: {label: (N, T, H, KV, dh, dv, window, cache)}
+    "wgmma": {"hymba global": (4, 2048, 25, 5, 64, 64, None, None),
+              "hymba window 1024": (4, 2048, 25, 5, 64, 64, 1024, None),
+              "codeqwen dh128": (4, 2048, 32, 32, 128, 128, None, None),
+              "h2o-danube3 dh120": (4, 2048, 32, 8, 120, 120, 8192, None),
+              "deepseek-v2-lite mla": (4, 2048, 16, 16, 192, 128, None, None),
+              "gemma3 dh240": (4, 2048, 16, 8, 240, 240, 1024, None)},
     # decode at position 1500, bf16 queries against float32 caches
-    "split": {"hymba decode ring 1024": (4, 1, 25, 5, 64, 1024, ("ring", 1024)),
-              "hymba decode global 2048": (4, 1, 25, 5, 64, None, ("global", 2048))},
+    "split": {"hymba decode ring 1024": (4, 1, 25, 5, 64, 64, 1024, ("ring", 1024)),
+              "hymba decode global 2048": (4, 1, 25, 5, 64, 64, None, ("global", 2048))},
 }
 POSITION = 1500
 
@@ -104,10 +132,10 @@ def main() -> int:
     i32 = dict(device="cuda", dtype=torch.int32)
     inputs = {}  # label: (design, q, k, v, kwargs, plain output)
     for which, shapes in SHAPES.items():
-        for label, (n, t, h, kv, dh, window, cache) in shapes.items():
+        for label, (n, t, h, kv, dh, dv, window, cache) in shapes.items():
             if cache is None:
-                q, k, v = (torch.randn(n, t, x, dh, device="cuda", generator=gen).bfloat16()
-                           for x in (h, kv, kv))
+                q, k, v = (torch.randn(n, t, x, d, device="cuda", generator=gen).bfloat16()
+                           for x, d in ((h, dh), (kv, dh), (kv, dv)))
                 kw = dict(window=window)
             else:  # the float32 cache of chip_smoke.py's decode rows
                 kind, s = cache
@@ -131,22 +159,29 @@ def main() -> int:
         builds[name] = (which, fault_csrc, fault_csrc.parent / "kernels")
     _build.build_jobs(("flash_attention", src, lib) for _, src, lib in builds.values())
     ok = True
+    unchanged = {}  # label: the unchanged build's output
     for name, (only, src_dir, lib_dir) in builds.items():
         _build.CSRC, _build.BUILD_DIR = src_dir, lib_dir
         fa._lib.cache_clear()
         for label, (which, q, k, v, kw, want) in inputs.items():
-            if only not in (None, which):
+            if only not in (None, which) or (
+                    name in ("pad_unzeroed", "dv_stride") and label not in WIDE):
                 continue
             got = fa.flash_attention_cuda(q, k, v, **kw)
             torch.cuda.synchronize()
             d = (got.float() - want.float()).abs()
             rel = (d.max() / want.float().abs().max()).item()
             row = row_rel_err(got, want)
+            if name == "unchanged":
+                unchanged[label] = got
             line = dict(build=name, design=which, shape=label, rel=rel,
-                        rel_passes=rel <= BF16_TOL, row_rel=row, row_passes=row <= ROW_TOL)
+                        rel_passes=rel <= BF16_TOL, row_rel=row, row_passes=row <= ROW_TOL,
+                        same_bits=torch.equal(got, unchanged[label]))
             print(json.dumps(line), flush=True)
             if name == "unchanged":
                 ok &= line["rel_passes"] and line["row_passes"]
+            elif name in NEUTRAL:
+                ok &= line["same_bits"]
             else:
                 ok &= not line["row_passes"]
     _build.CSRC, _build.BUILD_DIR = csrc, build_dir

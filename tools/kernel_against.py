@@ -4,17 +4,22 @@ kernel's rows of ``chip_smoke.py``: whether they give the same bits, and
 their times in turns.
 
     python3 tools/kernel_against.py --kernel NAME --csrc DIR [--bits] [--iters K]
+                                    [--rows PREFIX ...]
 
-Needs one CUDA card and nvcc.  ``NAME`` is ``wkv``, ``sq_matmul``,
-``cross_dot``, ``fused_second_order``, ``fused_first_order``,
+Needs one CUDA card and nvcc.  ``NAME`` is ``wkv``, ``flash_attention``,
+``sq_matmul``, ``cross_dot``, ``fused_second_order``, ``fused_first_order``,
 ``per_sample_moment``, ``predictive_var``, ``batch_l2`` or ``ggn_diag``.  ``DIR`` holds the older
 ``NAME.cu`` and its headers (for example the ``src/repro_torch/kernels/csrc``
 of an older commit, unpacked with ``git archive``); it is built under
 ``build/against/NAME/``, this checkout's source under ``build/kernels/``.  The
 rows are ``chip_smoke.wkv_cases`` in bfloat16 and float32 for wkv
 (Hymba-1.5B's SSD in prefill of 4×2048 and in decode, T = 1; RWKV6-3B's
-widths) and ``chip_smoke.backpack_cases``' rows of the kernel for the others
-(3C3D at batch 128), on inputs drawn from seed 0 as in ``chip_smoke.py``.
+widths), ``chip_smoke.lm_kernel_cases``' flash_attention rows (Hymba-1.5B's
+prefill and decode, CodeQwen1.5-7B's dh 128, the wide heads) and
+``chip_smoke.backpack_cases``' rows of the kernel for the others (3C3D at
+batch 128), on inputs drawn from seed 0 as in ``chip_smoke.py``; ``--rows``
+keeps the rows whose label starts with one of the prefixes (for example
+``decode``, ``"prefill bf16"``, ``"wide prefill"``).
 For each row it prints one JSON line: whether every output of the two
 builds is equal to the bit (``torch.equal``); each build's event ms a launch
 (``--iters`` launches after 2, default 100), taken in three rounds of turns
@@ -24,7 +29,9 @@ scratch, from ``max_memory_allocated``); and, after every row's event
 times, each build's device ms a launch from a profiler window of 10
 launches, in all and by kernel name.  An older source whose scratch query
 lacks the row count R (fused_first_order and per_sample_moment before
-their 3xTF32 designs) is called without it.  Both builds are called through the same wrapper
+their 3xTF32 designs; ggn_diag before it, the class count C too) is called
+without them.  An older flash_attention whose "wgmma" launch takes no dv
+(dh = dv then) is called without it.  Both builds are called through the same wrapper
 (``NAME_cuda``), so the host's share of an event time is the same for both.
 With ``--bits`` (a source whose arithmetic was not meant to change) it exits
 non-zero if a row's bits differ.
@@ -41,26 +48,33 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("wkv", "sq_matmul", "cross_dot", "fused_second_order", "fused_first_order",
-           "per_sample_moment", "predictive_var", "batch_l2", "ggn_diag")
-# The scratch queries that gained R, and where it stands among their arguments.
-R_JOINED = {"fused_first_order": 2, "per_sample_moment": 1}
+KERNELS = ("wkv", "flash_attention", "sq_matmul", "cross_dot", "fused_second_order",
+           "fused_first_order", "per_sample_moment", "predictive_var", "batch_l2", "ggn_diag")
+# The C entries that gained arguments: (function, the parameter whose absence
+# marks the older source, where the new arguments stand in the call).
+JOINED = {"fused_first_order": ("fused_first_order_scratch_floats", "int R", (2,)),
+          "per_sample_moment": ("per_sample_moment_scratch_floats", "int R", (1,)),
+          "ggn_diag": ("ggn_diag_scratch_floats", "int R", (0, 2)),
+          "flash_attention": ("flash_attention_tc_launch", "int dv", (10,))}
 
 
-def without_r(lib, src: Path, name: str):
+def as_called(lib, src: Path, name: str):
     """``lib`` as this checkout's wrapper calls it: where the older source's
-    scratch query takes no R, it is dropped from the call."""
-    fn = f"{name}_scratch_floats"
-    params = re.search(rf"{fn}\(([^)]*)\)", (src / f"{name}.cu").read_text())
-    if name not in R_JOINED or "int R" in params.group(1):
+    entry lacks arguments this checkout's passes, they are dropped from the
+    call."""
+    if name not in JOINED:
         return lib
-    query, at = getattr(lib, fn), R_JOINED[name]
-    query.argtypes = query.argtypes[:at] + query.argtypes[at + 1:]
+    fn, marker, at = JOINED[name]
+    params = re.search(rf"{fn}\(([^)]*)\)", (src / f"{name}.cu").read_text())
+    if marker in params.group(1):
+        return lib
+    entry = getattr(lib, fn)
+    entry.argtypes = [t for i, t in enumerate(entry.argtypes) if i not in at]
 
     class Older:
         def __getattr__(self, attr):
             if attr == fn:
-                return lambda *a: query(*a[:at], *a[at + 1:])
+                return lambda *a: entry(*(x for i, x in enumerate(a) if i not in at))
             return getattr(lib, attr)
 
     return Older()
@@ -83,13 +97,15 @@ def main() -> int:
     parser.add_argument("--bits", action="store_true",
                         help="exit non-zero unless every row's bits are equal")
     parser.add_argument("--iters", type=int, default=100)
+    parser.add_argument("--rows", nargs="*", default=[""],
+                        help="keep the rows whose label starts with one of these")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAILED: no CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     from chip_smoke import (BF16_TOL, PEAK_BF16, PEAK_FLOPS, TOL, backpack_cases,
-                            device_per_call, wkv_cases)
+                            device_per_call, lm_kernel_cases, wkv_cases)
     from repro_torch.kernels import _build
     from repro_torch.kernels import batch_l2 as l2_mod
 
@@ -109,7 +125,7 @@ def main() -> int:
         _build.CSRC, _build.BUILD_DIR = src, lib_dir
         mod._lib.cache_clear()
         try:
-            return without_r(mod._lib(), src, name)
+            return as_called(mod._lib(), src, name)
         finally:
             _build.CSRC, _build.BUILD_DIR = saved
             mod._lib.cache_clear()
@@ -145,8 +161,11 @@ def main() -> int:
         cases = [c for dtype, tag, tol, peak in ((torch.bfloat16, "bf16", BF16_TOL, PEAK_BF16),
                                                  (torch.float32, "fp32", TOL, PEAK_FLOPS))
                  for c in wkv_cases(torch, randn, dtype, tag, tol, peak)]
+    elif name == "flash_attention":
+        cases = [c for c in lm_kernel_cases(torch, randn, gen) if c[0] == name]
     else:
         cases = [c for c in backpack_cases(torch, randn, gen, l2_mod) if c[0] == name]
+    cases = [c for c in cases if c[1].startswith(tuple(args.rows))]
     rows = []
     for _, label, _, _, xs, kw, *_ in cases:
         outs = {w: outputs(call(w, xs, kw)) for w in libs}
