@@ -6,8 +6,8 @@
 Builds the ten Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all at once) and holds each against its plain PyTorch
 version at the shapes its path gives it: BackPACK's on 3C3D at batch 128, and
-Hymba-1.5B's serving shapes for flash_attention and wkv.  Then it drives six
-paths through the entry points a user calls, five on 3C3D (CIFAR-10 shapes,
+Hymba-1.5B's serving shapes for flash_attention and wkv.  Then it drives seven
+paths through the entry points a user calls, six on 3C3D (CIFAR-10 shapes,
 full width, random weights from a seed) and one on Hymba-1.5B, each with the
 launch counts set to 0 just before and read just after:
 
@@ -31,6 +31,16 @@ launch counts set to 0 just before and read just after:
   and nothing else, compared card against CPU, with the NTK symmetric, its
   diagonal ≥ 0 and the class-wise kernel summing to it; then the
   kernel-space natural gradient ``kernel_ngd_direction`` card against CPU;
+* the accumulated lane (``accumulated_phase``): ``plan_for_batch`` with a
+  ``microbatch_size`` on the main path's ten extensions at n = 450 in four
+  slices (fused_first_order 12, fused_second_order 24, sq_matmul 36 and,
+  in the six pair passes, cross_dot 18 on two row sets, nothing else)
+  against the monolithic ``run`` at n = 450, BatchDot symmetric bit for
+  bit, its peak memory below the monolithic call's; the Gram family at
+  n = 256 in two slices (cross_dot 12 on one row set, 6 on two) against the
+  monolithic Gram ``run``; the main path checkpointed, killed before work
+  unit 5 and resumed to the uninterrupted run's bits; both calls timed in
+  turns and profiled;
 * the Laplace posterior on the parameters the KFAC steps trained: DiagLaplace
   (DiagGGN), KronLaplace (KFLR) and LastLayerLaplace (kron) fitted on the
   training batch, ``glm_predictive`` on a held-out batch of 128 (3
@@ -160,6 +170,22 @@ PER_EXTENSION_LAUNCHES = {"per_sample_moment": 9, "batch_l2": 3, "sq_matmul": 9}
 # rows a sample of the weight-0 rows at conv3's widths (a = 864, b = 128)
 CONV3_DEEP_ROWS = (256, 1024)
 TRAIN_STEPS = 10
+# The accumulated lane: the main path's ten extensions at n = 450 in slices of
+# at most 113 (k = 4: three of 113 and a tail of 111, then 3 + 3 pair
+# passes), the Gram family at n = 256 in two slices of 128 (one pair pass),
+# and the interrupt before work unit 5 (four slices and one pair pass done).
+ACC = dict(n=450, microbatch=113, slices=4, pairs=6, gram_n=256, gram_microbatch=128,
+           fail_at=5)
+# Its launches: each slice runs the fused main path (per slice 3 conv ×
+# fused_first_order; 3 conv × 2 sweeps × fused_second_order; 3 dense × the
+# moment and both diagonals in sq_matmul), each pair pass BatchDot alone:
+# its cross block through cross_dot on two row sets at the 3 conv layers (the
+# dense layers take the rank-1 closed form), nothing else.
+ACC_LAUNCHES = {"fused_first_order": 3 * 4, "fused_second_order": 6 * 4, "sq_matmul": 9 * 4,
+                "cross_dot": 3 * 6}
+# The Gram family in two slices: per slice the NTK pair (one jac sweep) and
+# GGNGram at 3 conv layers on one row set, per pair pass the same on two.
+ACC_GRAM_ROW_SETS = {"one": 2 * 3 * 2, "two": 1 * 3 * 2}
 # (curvature, extensions, lr, damping): ten steps on one fixed batch
 # reduce the loss with these (chosen on the CPU at the same size).
 TRAIN = (("kfac", ("kfac",), 0.2, 0.1),
@@ -571,7 +597,209 @@ def backpack_cases(torch, randn, gen, l2_mod):
                 2 * 10 * N * r * a * b + (2 + (sigma is not None)) * 10 * N * a * b,
                 4 * (N * r * a + 10 * N * r * b + 10 * N + (a * b if sigma is not None else 0)),
                 2 * 10 * N * r * a * b)
+
+    # The accumulated lane's pair passes (``accumulated_phase``): BatchDot's
+    # cross block, E = 1 and each side its own A, of two slices of one batch
+    # (n = 450 in slices of 113, the tail 111: three pair passes at each
+    # shape a call, the launches its weight), and the NTK's E = 10 groups
+    # over one shared A at n = 256 in two slices of 128 (weight 0; S's
+    # slices are strided, so the call's copy of them is timed with it).
+    # Operations: G on both sides (2·R·a·b a row) and the N1·N2 pairs (2·a·b
+    # each).  Drawn from a generator of their own.
+    pair = torch.Generator(device="cuda").manual_seed(2)
+    m = ACC["microbatch"]
+    for name, (r, a, b) in conv.items():
+        for n1, n2 in ((m, m), (m, ACC["n"] - (ACC["slices"] - 1) * m)):
+            A, B = (torch.randn(n1 + n2, r, w, device="cuda", generator=pair) for w in (a, b))
+            flops = 2 * (n1 + n2) * r * a * b + 2 * n1 * n2 * a * b
+            add("cross_dot", f"{name} two row sets batch_dot pair A[{n1}+{n2},{r},{a}] "
+                f"B[{n1}+{n2},{r},{b}]", 3, 3,
+                (A[None, :n1], B[None, :n1], A[None, n1:], B[None, n1:]), {}, flops,
+                4 * ((n1 + n2) * r * (a + b) + n1 * n2), flops)
+    r, a, b = conv["conv2"]
+    h = ACC["gram_microbatch"]
+    A, S = (torch.randn(*shape, device="cuda", generator=pair)
+            for shape in ((2 * h, r, a), (10, 2 * h, r, b)))
+    flops = 2 * 10 * 2 * h * r * a * b + 2 * 10 * h * h * a * b
+    add("cross_dot", f"conv2 two row sets ntk pair A[{h}+{h},{r},{a}] S[10,{h}+{h},{r},{b}]",
+        0, 0, (A[None, :h], S[:, :h], A[None, h:], S[:, h:]), {}, flops,
+        4 * (2 * h * r * a + 10 * 2 * h * r * b + 10 * h * h), flops)
     return cases
+
+
+def row_set_spy(ops, kinds):
+    """Wrap the cross_dot kernel's launcher to count its launches on one row
+    set (both sides the same tensors, the kernel's symmetric route) and on
+    two; returns the function that restores it."""
+    launch = ops.cross_dot_cuda
+
+    def spy(A1, B1, A2, B2):
+        one = (A1.data_ptr() == A2.data_ptr() and A1.shape == A2.shape
+               and B1.data_ptr() == B2.data_ptr() and B1.shape == B2.shape)
+        kinds["one" if one else "two"] += 1
+        return launch(A1, B1, A2, B2)
+
+    ops.cross_dot_cuda = spy
+    return lambda: setattr(ops, "cross_dot_cuda", launch)
+
+
+def accumulated_phase(torch, ops, model, params, loss, exts, gram_exts, rel_errs, check_errs):
+    """The accumulated lane on 3C3D at full width, through ``plan_for_batch``
+    with a ``microbatch_size``: the main path's ten extensions at n = 450 in
+    four slices (launch counts ``ACC_LAUNCHES``, every cross_dot on two row
+    sets) against the monolithic ``run`` at n = 450 under ``TOL``, BatchDot
+    symmetric bit for bit, its peak memory (above what was allocated when
+    it started) below the monolithic call's; the Gram family at n = 256 in
+    two slices (cross_dot 12 times on one row set, 6 on two) against the
+    monolithic Gram ``run``; the main path checkpointed after every work
+    unit, killed before unit 5 and resumed: the uninterrupted run's bits;
+    and the wall time, device time and idle share of the accumulated and
+    the monolithic call, in turns."""
+    import tempfile
+
+    from repro_torch.core import AccumulatedSweepPlan, ExtensionConfig, ntk_total, plan_for_batch
+    from repro_torch.core import run as run_sweep
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.train.checkpoint import SweepCheckpointer
+    from repro_torch.train.fault import FailureInjector, SimulatedFailure
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = ACC["n"]
+    x = torch.randn(n, 32, 32, 3, device="cuda", generator=gen)
+    y = torch.randint(0, 10, (n,), device="cuda", generator=gen)
+    cfg = ExtensionConfig(mc_seed=0)
+    plan = plan_for_batch(exts, cfg, n, microbatch_size=ACC["microbatch"])
+    if not (isinstance(plan, AccumulatedSweepPlan) and plan.num_microbatches == ACC["slices"]):
+        fail(f"accumulated: plan_for_batch gave {type(plan).__name__}, not 4 slices")
+    out = dict(model="c3d3", batch=n, microbatch=ACC["microbatch"], describe=plan.describe())
+
+    def acc_call():
+        return plan.run(model, params, x, y, loss, cfg=cfg)
+
+    def mono_call():
+        return run_sweep(model, params, x, y, loss, extensions=exts, cfg=cfg)
+
+    def measured(call):
+        """(result, wall s, peak bytes above the start, peak bytes)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        return res, wall, peak - base, peak
+
+    # -- the main path in slices, against the monolithic call -------------------
+    ops.reset_launch_counts()
+    mono, out["mono_first_s"], out["mono_peak_bytes"], out["mono_max_memory_allocated"] = \
+        measured(mono_call)
+    mono_launches = ops.launch_counts()
+    kinds = {"one": 0, "two": 0}
+    restore = row_set_spy(ops, kinds)
+    try:
+        ops.reset_launch_counts()
+        acc, out["acc_first_s"], out["acc_peak_bytes"], out["acc_max_memory_allocated"] = \
+            measured(acc_call)
+        launches = ops.launch_counts()
+    finally:
+        restore()
+    out.update(launches=launches, mono_launches=mono_launches, cross_dot_row_sets=dict(kinds))
+    say("accumulated", **out)
+    want = {k: ACC_LAUNCHES.get(k, 0) for k in ops.KERNELS}
+    if launches != want:
+        fail(f"accumulated: launched {launches}, not {want}")
+    if kinds != {"one": 0, "two": ACC_LAUNCHES["cross_dot"]}:
+        fail(f"accumulated: cross_dot launches by row sets {kinds}, not all on two")
+    out["compare"] = check_errs(f"accumulated n={n} k={ACC['slices']} vs monolithic (card)",
+                                rel_errs(acc, mono, exts))
+    if not all(torch.equal(d, d.T) for d in tree_leaves(acc.ext["batch_dot"])):
+        fail("accumulated: BatchDot's [n, n] blocks are not symmetric bit for bit")
+    if not out["acc_peak_bytes"] < out["mono_peak_bytes"]:
+        fail(f"accumulated: peak {out['acc_peak_bytes']} bytes, not below the monolithic "
+             f"call's {out['mono_peak_bytes']}")
+    del mono
+
+    # -- the Gram family in two slices ------------------------------------------
+    ng = ACC["gram_n"]
+    xg, yg = x[:ng], y[:ng]
+    gplan = plan_for_batch(gram_exts, cfg, ng, microbatch_size=ACC["gram_microbatch"])
+    gkinds = {"one": 0, "two": 0}
+    restore = row_set_spy(ops, gkinds)
+    try:
+        ops.reset_launch_counts()
+        gacc = gplan.run(model, params, xg, yg, loss, cfg=cfg)
+        torch.cuda.synchronize()
+        glaunches = ops.launch_counts()
+    finally:
+        restore()
+    gmono = run_sweep(model, params, xg, yg, loss, extensions=gram_exts, cfg=cfg)
+    ntk = ntk_total(gacc.ext["ntk"])
+    gram = dict(batch=ng, microbatch=ACC["gram_microbatch"], launches=glaunches,
+                cross_dot_row_sets=gkinds, ntk_symmetric=bool(torch.equal(ntk, ntk.T)),
+                ntk_min_diagonal=torch.diagonal(ntk).min().item())
+    say("accumulated_gram", **gram)
+    if glaunches != {k: sum(ACC_GRAM_ROW_SETS.values()) if k == "cross_dot" else 0
+                     for k in ops.KERNELS} or gkinds != ACC_GRAM_ROW_SETS:
+        fail(f"accumulated gram: launched {glaunches}, by row sets {gkinds}, not "
+             f"{ACC_GRAM_ROW_SETS}")
+    if not (gram["ntk_symmetric"] and gram["ntk_min_diagonal"] >= 0):
+        fail("accumulated gram: the NTK is not symmetric with a diagonal >= 0")
+    gram["compare"] = check_errs(f"accumulated gram n={ng} k=2 vs monolithic (card)",
+                                 rel_errs(gacc, gmono, gram_exts))
+    out["gram"] = gram
+    del gacc, gmono, ntk
+
+    # -- interrupt and resume ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        store = SweepCheckpointer(tmp, keep=1)
+        t0 = time.perf_counter()
+        try:
+            plan.run_checkpointed(model, params, x, y, loss, cfg=cfg, checkpointer=store,
+                                  checkpoint_every=1,
+                                  injector=FailureInjector(fail_at_step=ACC["fail_at"]))
+            fail("accumulated: the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        killed_s = time.perf_counter() - t0
+        if store.latest() != ACC["fail_at"]:
+            fail(f"accumulated: last snapshot at {store.latest()}, not {ACC['fail_at']}")
+        t0 = time.perf_counter()
+        resumed = plan.resume(model, params, x, y, loss, store, cfg=cfg)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        snapshot_bytes = os.path.getsize(os.path.join(tmp, f"step_{store.latest():08d}",
+                                                      "arrays.npz"))
+    parts = [("loss", [resumed.loss], [acc.loss]), ("logits", [resumed.logits], [acc.logits]),
+             ("grads", tree_leaves(resumed.grads), tree_leaves(acc.grads))]
+    parts += [(e.name, tree_leaves(resumed.ext[e.name]), tree_leaves(acc.ext[e.name]))
+              for e in exts]
+    differ = [key for key, gs, ws in parts
+              if not all(torch.equal(g, w) for g, w in zip(gs, ws, strict=True))]
+    out["resume"] = dict(fail_at=ACC["fail_at"], killed_s=killed_s, resume_s=resume_s,
+                         snapshot_bytes=snapshot_bytes, differ=differ)
+    say("accumulated_resume", **out["resume"])
+    if differ:
+        fail(f"accumulated: resume after the failure differs from the uninterrupted run in "
+             f"{differ}")
+    del resumed, acc
+
+    # -- times, in turns ------------------------------------------------------------
+    walls = {"accumulated": [], "monolithic": []}
+    for route in ("accumulated", "monolithic", "monolithic", "accumulated"):
+        call = acc_call if route == "accumulated" else mono_call
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls[route].append((time.perf_counter() - t0) * 1e3)
+    out["wall_ms"] = walls
+    for route, call in (("accumulated", acc_call), ("monolithic", mono_call)):
+        prof = profiled(call)
+        prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+        out[f"profile_{route}"] = prof
+        say("profile_accumulated", route=route, **prof)
+    return out
 
 
 def serve_phase(torch, ops):
@@ -1233,6 +1461,10 @@ def main():
     say("profile_gram", **record["profile_gram"])
     del res_g, ntk, K, K2
 
+    # -- 9b. the accumulated lane: the main path and the Gram family in slices
+    record["accumulated"] = accumulated_phase(torch, ops, model, params, loss, exts, gram_exts,
+                                              rel_errs, check_errs)
+
     # -- 10. the Laplace posterior on the parameters the KFAC steps trained --
     map_params = trained["kfac"]
     # The CPU reference fits and predicts in float64 (the MAP, x and x_out
@@ -1307,11 +1539,13 @@ def main():
     # -- 12. the kernel table -------------------------------------------------
     # launches: each kernel's count on its path (the fused main path's three
     # run calls; the per-extension route's three for its own kernels; the
-    # gram path's one run call; the Laplace path's diag and kron predictives;
+    # gram path's one run call and the accumulated main path's pair passes;
+    # the Laplace path's diag and kron predictives;
     # the serving path's checked prefill call and its generate call).
     path_launches = dict(launches, per_sample_moment=pe_launches["per_sample_moment"],
                          batch_l2=pe_launches["batch_l2"],
-                         cross_dot=gram_launches["cross_dot"],
+                         cross_dot=gram_launches["cross_dot"]
+                         + record["accumulated"]["launches"]["cross_dot"],
                          predictive_var=laplace_launches["predictive_var"],
                          flash_attention=record["serve"]["launches"]["flash_attention"],
                          wkv=record["serve"]["launches"]["wkv"])

@@ -11,18 +11,23 @@ exposes
   * ``sqrt_hessian_chunk(z, y, lo, size)`` — columns ``[lo, lo+size)`` of it,
   * ``sqrt_hessian_mc(rng, z, y, k)`` — Monte-Carlo factor ``S̃`` (Eq. 20),
                                  shape ``[k, *z.shape]``,
-  * ``hessian_mean(z, y)``     — batch-averaged loss Hessian (KFRA Eq. 24b).
+  * ``hessian_mean(z, y)``     — batch-averaged loss Hessian (KFRA Eq. 24b),
+  * ``num_units(y)``           — the raw mask-aware count M (no ≥ 1 clamp).
 
 The 1/M of the mean is folded into the factors as 1/sqrt(M).  Port of
 ``src/repro/core/loss_hessian.py``.
 
-MC draws.  ``rng`` of :meth:`sqrt_hessian_mc` is either a
-``torch.Generator`` or a tensor holding the draws themselves: class indices
-``[k, *y.shape]`` for cross-entropy, ±1 signs ``[k, *z.shape]`` for MSE.
-PyTorch cannot reproduce JAX's threefry streams, so the parity tests pass
-JAX's draws in this way.  Generator draws are made on the generator's device
-and moved to ``z``'s, so one CPU generator seeded alike gives the same draws
-for a CPU and a CUDA run.
+MC draws.  ``rng`` of :meth:`sqrt_hessian_mc` is a ``torch.Generator``, the
+uniforms drawn from one ahead (:class:`MCUniforms`), or a tensor holding the
+draws themselves: class indices ``[k, *y.shape]`` for cross-entropy, ±1
+signs ``[k, *z.shape]`` for MSE.  PyTorch cannot reproduce JAX's threefry
+streams, so the parity tests pass JAX's draws in this way.  Generator draws
+are uniforms ``[k, *y.shape]`` (for MSE ``y`` has ``z``'s shape) made on the
+generator's device and moved to ``z``'s, so one CPU generator seeded alike
+gives the same draws for a CPU and a CUDA run.  The accumulated lane draws
+them once for the whole batch (:func:`draw_uniforms`, the same call and
+shape as one monolithic sweep) and hands each slice its columns, so a sweep
+in slices draws what the monolithic sweep draws.
 """
 from __future__ import annotations
 
@@ -48,6 +53,37 @@ def _uniform(rng: torch.Generator, shape) -> torch.Tensor:
     return torch.rand(shape, generator=rng, device=rng.device)
 
 
+class MCUniforms:
+    """Uniforms in [0, 1), ``u [k, *y.shape]``, from which
+    :meth:`CrossEntropyLoss.sqrt_hessian_mc` and
+    :meth:`MSELoss.sqrt_hessian_mc` make their draws as they make them
+    from a generator; :meth:`rows` takes the columns of a slice of the
+    batch."""
+
+    def __init__(self, u: torch.Tensor):
+        self.u = u
+
+    def rows(self, lo: int, n: int) -> "MCUniforms":
+        return MCUniforms(self.u[:, lo:lo + n])
+
+
+def draw_uniforms(rng: torch.Generator, y, k: int) -> MCUniforms:
+    """The uniforms a generator gives one MC sweep over targets ``y``."""
+    return MCUniforms(_uniform(rng, (k,) + tuple(y.shape)))
+
+
+def _mc_uniforms(rng, shape):
+    """``rng``'s uniforms of ``shape``, or None where it holds draws."""
+    if isinstance(rng, torch.Generator):
+        return _uniform(rng, shape)
+    if isinstance(rng, MCUniforms):
+        if tuple(rng.u.shape) != tuple(shape):
+            raise ValueError(f"MC uniforms must have shape {tuple(shape)}, "
+                             f"got {tuple(rng.u.shape)}")
+        return rng.u
+    return None
+
+
 class CrossEntropyLoss:
     """Softmax cross-entropy over the last axis of ``z``; integer targets.
 
@@ -61,6 +97,11 @@ class CrossEntropyLoss:
         mask = y >= 0
         m = mask.sum().clamp_min(1).float()
         return mask, m
+
+    def num_units(self, y):
+        """Raw mask-aware unit count (no ≥ 1 clamp: a fully masked slice
+        reports 0); the accumulated lane rescales a slice's factors by it."""
+        return (y >= 0).sum().float()
 
     def value(self, z, y):
         mask, m = self._mask_and_m(y)
@@ -113,9 +154,10 @@ class CrossEntropyLoss:
         doc for what ``rng`` may be)."""
         mask, m = self._mask_and_m(y)
         p = torch.softmax(_f32(z), dim=-1)
-        if isinstance(rng, torch.Generator):
-            # Inverse-CDF sampling from uniforms drawn on the generator.
-            u = _uniform(rng, (k,) + tuple(y.shape)).to(z.device)
+        u = _mc_uniforms(rng, (k,) + tuple(y.shape))
+        if u is not None:
+            # Inverse-CDF sampling from the uniforms.
+            u = u.to(z.device)
             cdf = torch.cumsum(p, dim=-1)
             yhat = (u[..., None] > cdf[None]).sum(-1).clamp_max(z.shape[-1] - 1)
         else:
@@ -145,6 +187,10 @@ class MSELoss:
     @staticmethod
     def _m(y):
         return max(y.numel() // y.shape[-1], 1)
+
+    def num_units(self, y):
+        """M of the 1/M mean normalization (see CrossEntropyLoss)."""
+        return torch.tensor(float(self._m(y)), device=y.device)
 
     def value(self, z, y):
         return 0.5 * ((_f32(z) - y) ** 2).sum() / self._m(y)
@@ -179,8 +225,9 @@ class MSELoss:
         doc for what ``rng`` may be."""
         m = self._m(y)
         shape = (k,) + tuple(z.shape)
-        if isinstance(rng, torch.Generator):
-            s = (_uniform(rng, shape) < 0.5).float() * 2 - 1
+        u = _mc_uniforms(rng, shape)
+        if u is not None:
+            s = (u < 0.5).float() * 2 - 1
         else:
             s = rng.float()
             if tuple(s.shape) != shape:

@@ -27,6 +27,7 @@ the sample axis.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -114,27 +115,46 @@ def per_sample_sq_sum(A, B, chunk=8, use_kernels=False):
     return out
 
 
-def _pairwise_rows(ps):
-    """Gram rows G Gᵀ for per-sample rows ``ps`` [N, ...] → [N, N] f32."""
+def _pairwise_rows(ps, cross_split=None):
+    """Gram rows G Gᵀ for per-sample rows ``ps`` [N, ...] → [N, N] f32; with
+    ``cross_split`` (a pair pass: two slices concatenated) only the cross
+    block ``rows[:cs] @ rows[cs:]ᵀ``."""
     f = _f32(ps).reshape(ps.shape[0], -1)
+    if cross_split is not None:
+        return f[:cross_split] @ f[cross_split:].T
     return f @ f.T
 
 
-def per_sample_dots(A, B):
+def per_sample_dots(A, B, cross_split=None):
     """D[n,m] = ⟨g_n, g_m⟩ for g = A_nᵀB_n.
 
-    A: [N, R, a], B: [N, R, b] → [N, N] float32.  Takes the pairwise Gram
-    trick where its [N, N, R, R] products are fewer than the per-sample
-    gradients' N·a·b entries (dense layers), else forms g and its Gram: the
-    trick would need 137 GB at 3C3D's first convolution at N = 128.
+    A: [N, R, a], B: [N, R, b] → [N, N] float32, or the ``[cs, N − cs]``
+    cross block under ``cross_split`` (the accumulated lane's pair passes).
+    Takes the pairwise Gram trick where its [N1, N2, R, R] products are
+    fewer than the per-sample gradients' entries (dense layers), else forms
+    g and its Gram: the trick would need 137 GB at 3C3D's first convolution
+    at N = 128.
     """
     A, B = _f32(A), _f32(B)
     n, r, a = A.shape
-    if n * r * r > a * B.shape[-1]:
-        return _pairwise_rows(torch.einsum("nra,nrb->nab", A, B))
-    ga = torch.einsum("nra,msa->nmrs", A, A)
-    gb = torch.einsum("nrb,msb->nmrs", B, B)
+    cs = n if cross_split is None else cross_split
+    A1, B1 = A[:cs], B[:cs]
+    A2, B2 = (A1, B1) if cross_split is None else (A[cs:], B[cs:])
+    n1, n2 = A1.shape[0], A2.shape[0]
+    # [N1, N2, R, R] products against the N·a·b entries of the g's.
+    if n1 * n2 * r * r > n * a * B.shape[-1]:
+        g1 = torch.einsum("nra,nrb->nab", A1, B1)
+        g2 = g1 if cross_split is None else torch.einsum("nra,nrb->nab", A2, B2)
+        return g1.reshape(n1, -1) @ g2.reshape(n2, -1).T
+    ga = torch.einsum("nra,msa->nmrs", A1, A2)
+    gb = torch.einsum("nrb,msb->nmrs", B1, B2)
     return (ga * gb).sum(dim=(2, 3))
+
+
+def _pair_split(cfg):
+    """The ``cross_split`` a pairwise stat hook honours (single-device: the
+    accumulated lane's pair passes set it)."""
+    return getattr(cfg, "cross_split", None)
 
 
 def per_sample_l2(A, B, use_kernels=False):
@@ -160,13 +180,19 @@ def dense_first_order_stats(A, B, exts, cfg: ExtensionConfig, bias: bool):
     every requested weight reduction comes out of ONE fused kernel launch
     over (A, B); rank-1 (R == 1) layers take the cheaper closed forms (the
     moment through the ``sq_matmul`` kernel).  Bias stats are row sums.
+    A pair pass of the accumulated lane (``cfg.cross_split``) wants only
+    BatchDot's off-diagonal block: dot drops out of the fused mask, and the
+    block comes from ``cross_dot`` on the two row sets (the closed form
+    ``(A₁A₂ᵀ)∘(B₁B₂ᵀ)`` at rank 1).
     """
     names = {e.name for e in exts}
     mask = first_order_mask(names)
     out = {}
     Af, Bf = _f32(A).contiguous(), _f32(B).contiguous()
+    cross = _pair_split(cfg)
     rank1 = A.shape[1] == 1
-    kmask = FusedMask() if rank1 else mask
+    kmask = FusedMask() if rank1 else (
+        dataclasses.replace(mask, dot=False) if cross is not None else mask)
     fused = None
     if cfg.use_kernels and cfg.use_fused and kmask.any():
         fused = kops.fused_first_order(Af, Bf, **kmask.wants())
@@ -192,11 +218,17 @@ def dense_first_order_stats(A, B, exts, cfg: ExtensionConfig, bias: bool):
             d["b"] = (bsum * bsum).sum(-1)
         out["batch_l2"] = d
     if mask.dot:
-        dw = (fused["dot"] if fused is not None and kmask.dot
-              else per_sample_dots(Af, Bf))
+        if fused is not None and kmask.dot:
+            dw = fused["dot"]
+        elif cross is not None and rank1:
+            dw = (Af[:cross, 0] @ Af[cross:, 0].T) * (Bf[:cross, 0] @ Bf[cross:, 0].T)
+        elif cross is not None and cfg.use_kernels:
+            dw = kops.cross_dot(Af[:cross], Bf[:cross], Af[cross:], Bf[cross:])
+        else:
+            dw = per_sample_dots(Af, Bf, cross)
         d = {"w": dw}
         if bias:
-            d["b"] = _pairwise_rows(Bf.sum(dim=1))
+            d["b"] = _pairwise_rows(Bf.sum(dim=1), cross)
         out["batch_dot"] = d
     if "kfac" in names or "kflr" in names:
         n, r, a = A.shape
@@ -210,6 +242,14 @@ def _gram_of_g(G1, G2):
     return torch.einsum("cnk,cmk->cnm", G1.flatten(2), G2.flatten(2))
 
 
+def _pair_sides(Af, Sf, cross):
+    """(A1, S1, A2, S2): the one row set twice, or under ``cross`` the two
+    slices of a pair pass (A [N, R, a] on axis 0, S [C, N, R, b] on axis 1)."""
+    if cross is None:
+        return Af, Sf, Af, Sf
+    return Af[:cross], Sf[:, :cross], Af[cross:], Sf[:, cross:]
+
+
 def _dense_ntk_stats(A, S, names, cfg: ExtensionConfig, bias: bool):
     """Empirical-NTK blocks for y = x @ W (+ b) from raw-Jacobian factors.
 
@@ -217,43 +257,48 @@ def _dense_ntk_stats(A, S, names, cfg: ExtensionConfig, bias: bool):
     output Jacobian backpropagated to this layer, no loss weighting).  The
     per-class per-sample weight Jacobian is G[c,n] = A_nᵀS[c,n]; the
     class-diagonal block T[c, n, m] = ⟨G[c,n], G[c,m]⟩ is emitted as
-    [N, N, C] (``ntk_classwise``) or summed over classes, [N, N] (``ntk``).
-    Rank-1 layers take the closed form (A Aᵀ) ∘ (S_c S_cᵀ); with
+    [N, N, C] (``ntk_classwise``) or summed over classes, [N, N] (``ntk``);
+    under ``cfg.cross_split`` (a pair pass) the ``[cs, N − cs]`` cross block.
+    Rank-1 layers take the closed form (A₁A₂ᵀ) ∘ (S_c1 S_c2ᵀ); with
     ``use_kernels`` and ``use_fused`` the class axis goes through one
     ``cross_dot`` launch (E = C, the input read once for all classes).
     Without kernels T comes from whichever form has fewer elements: JAX's
-    pairwise products [N, N, R, R] and [C, N, N, R, R], or G [C, N, a, b]
-    and its Gram (the pairwise form needs more than 69 GB at 3C3D's
-    first convolution at N = 128).
+    pairwise products [N1, N2, R, R] and [C, N1, N2, R, R], or G
+    [C, N, a, b] and its Gram (the pairwise form needs more than 69 GB at
+    3C3D's first convolution at N = 128).
     """
     out = {}
     Af, Sf = _f32(A).contiguous(), _f32(S).contiguous()
     c, n, r, b = Sf.shape
     a = Af.shape[-1]
+    cross = _pair_split(cfg)
+    A1, S1, A2, S2 = _pair_sides(Af, Sf, cross)
+    n1, n2 = A1.shape[0], A2.shape[0]
     if r == 1:
-        KA = Af[:, 0] @ Af[:, 0].T                                # [N, N]
-        KS = torch.einsum("cnb,cmb->cnm", Sf[:, :, 0], Sf[:, :, 0])
-        T = KA[None] * KS                                         # [C, N, N]
+        KA = A1[:, 0] @ A2[:, 0].T                                # [N1, N2]
+        KS = torch.einsum("cnb,cmb->cnm", S1[:, :, 0], S2[:, :, 0])
+        T = KA[None] * KS                                         # [C, N1, N2]
     elif cfg.use_kernels and cfg.use_fused:
-        T = kops.cross_dot(Af[None], Sf, Af[None], Sf)
-    elif c * n * a * b < n * n * r * r * (1 + c):
-        G = torch.einsum("nra,cnrb->cnab", Af, Sf)
-        T = _gram_of_g(G, G)
+        T = kops.cross_dot(A1[None], S1, A2[None], S2)
+    elif c * n * a * b < n1 * n2 * r * r * (1 + c):
+        G1 = torch.einsum("nra,cnrb->cnab", A1, S1)
+        G2 = G1 if cross is None else torch.einsum("nra,cnrb->cnab", A2, S2)
+        T = _gram_of_g(G1, G2)
     else:
-        ga = torch.einsum("nra,msa->nmrs", Af, Af)
-        gs = torch.einsum("cnrb,cmsb->cnmrs", Sf, Sf)
+        ga = torch.einsum("nra,msa->nmrs", A1, A2)
+        gs = torch.einsum("cnrb,cmsb->cnmrs", S1, S2)
         T = torch.einsum("nmrs,cnmrs->cnm", ga, gs)
     if bias:
-        Sb = Sf.sum(dim=2)                                        # [C, N, b]
+        Sb1, Sb2 = S1.sum(dim=2), S2.sum(dim=2)                   # [C, N, b]
     if "ntk" in names:
         d = {"w": T.sum(dim=0)}
         if bias:
-            d["b"] = torch.einsum("cnb,cmb->nm", Sb, Sb)
+            d["b"] = torch.einsum("cnb,cmb->nm", Sb1, Sb2)
         out["ntk"] = d
     if "ntk_classwise" in names:
         d = {"w": T.movedim(0, -1)}
         if bias:
-            d["b"] = torch.einsum("cnb,cmb->nmc", Sb, Sb)
+            d["b"] = torch.einsum("cnb,cmb->nmc", Sb1, Sb2)
         out["ntk_classwise"] = d
     return out
 
@@ -263,7 +308,8 @@ def _dense_ggn_gram_stats(A, S, cfg: ExtensionConfig, bias: bool):
 
     A: [N, R, a] inputs, S: [C̃, N, R, b] the exact sweep's loss-scaled
     factors.  The half-sandwich row J'[(n,c)] = A_nᵀS[c,n] gives
-    T[n, m, c, c'] = ⟨J'[(n,c)], J'[(m,c')]⟩, emitted as [N, N, C̃, C̃].
+    T[n, m, c, c'] = ⟨J'[(n,c)], J'[(m,c')]⟩, emitted as [N, N, C̃, C̃]
+    (under ``cfg.cross_split`` the ``[cs, N − cs, C̃, C̃]`` cross block).
     Rank-1 layers take the closed form; with ``use_kernels`` and
     ``use_fused`` the C̃·N class-major rows go through one ``cross_dot``
     launch (E = 1, each input row read for its C̃ rows); without kernels
@@ -273,26 +319,32 @@ def _dense_ggn_gram_stats(A, S, cfg: ExtensionConfig, bias: bool):
     Af, Sf = _f32(A).contiguous(), _f32(S).contiguous()
     c, n, r, b = Sf.shape
     a = Af.shape[-1]
+    cross = _pair_split(cfg)
+    A1, S1, A2, S2 = _pair_sides(Af, Sf, cross)
+    n1, n2 = A1.shape[0], A2.shape[0]
     if r == 1:
-        KA = Af[:, 0] @ Af[:, 0].T                                # [N, N]
-        KS = torch.einsum("cnb,dmb->nmcd", Sf[:, :, 0], Sf[:, :, 0])
+        KA = A1[:, 0] @ A2[:, 0].T                                # [N1, N2]
+        KS = torch.einsum("cnb,dmb->nmcd", S1[:, :, 0], S2[:, :, 0])
         T = KA[:, :, None, None] * KS
     else:
         if cfg.use_kernels and cfg.use_fused:
-            rows = Sf.reshape(1, c * n, r, b)
-            flat = kops.cross_dot(Af[None], rows, Af[None], rows)[0]
-        elif c * n * a * b < n * n * r * (r + c * b):
-            G = torch.einsum("nra,cnrb->cnab", Af, Sf).reshape(1, c * n, a, b)
-            flat = _gram_of_g(G, G)[0]
+            rows1 = S1.reshape(1, c * n1, r, b)
+            rows2 = rows1 if cross is None else S2.reshape(1, c * n2, r, b)
+            flat = kops.cross_dot(A1[None], rows1, A2[None], rows2)[0]
+        elif c * n * a * b < n1 * n2 * r * (r + c * b):
+            G1 = torch.einsum("nra,cnrb->cnab", A1, S1).reshape(1, c * n1, a, b)
+            G2 = G1 if cross is None else torch.einsum(
+                "nra,cnrb->cnab", A2, S2).reshape(1, c * n2, a, b)
+            flat = _gram_of_g(G1, G2)[0]
         else:
-            ga = torch.einsum("nra,msa->nmrs", Af, Af)
-            flat = torch.einsum("nmrs,cnrb,dmsb->cndm", ga, Sf, Sf)
+            ga = torch.einsum("nra,msa->nmrs", A1, A2)
+            flat = torch.einsum("nmrs,cnrb,dmsb->cndm", ga, S1, S2)
         # [(c,n), (d,m)] → [n, m, c, d]
-        T = flat.reshape(c, n, c, n).permute(1, 3, 0, 2)
+        T = flat.reshape(c, n1, c, n2).permute(1, 3, 0, 2)
     d = {"w": T}
     if bias:
-        Sb = Sf.sum(dim=2)                                        # [C, N, b]
-        d["b"] = torch.einsum("cnb,dmb->nmcd", Sb, Sb)
+        Sb1, Sb2 = S1.sum(dim=2), S2.sum(dim=2)                   # [C, N, b]
+        d["b"] = torch.einsum("cnb,dmb->nmcd", Sb1, Sb2)
     return {"ggn_gram": d}
 
 

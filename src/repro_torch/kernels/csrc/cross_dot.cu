@@ -21,8 +21,9 @@
 //     The NTK's ten classes and GGNGram's class-major rows share one layer
 //     input A_p: rowprod.cuh's kernel (fused_second_order's t, with a store)
 //     stages and splits A_p once for all ten classes and runs wgmma with
-//     B's rows by TMA.  One row set against its own A, or an A a group (no
-//     call of the Gram family does either), takes xty.cuh's mma.sync ring:
+//     B's rows by TMA.  One row set against its own A (BatchDot's cross block
+//     in the accumulated lane's pair passes), or an A a group, takes
+//     xty.cuh's mma.sync ring:
 //     the tiles that pad least (xty_tile), a block walking its rows z
 //     through one cp.async ring.  The TPU kernel kept G of all rows in VMEM;
 //     1280 rows × 110,592 floats (566 MB at conv3) cannot stay on chip, so G
@@ -37,7 +38,7 @@
 //     by all 256 threads), three products a k-step.  Each stage's sum is
 //     added into float32 registers on the CUDA cores (tf32x3::promote's
 //     reason).  When both sides are one row set (every NTK and GGNGram
-//     call) only the tiles on and above the diagonal are computed and every
+//     call but the accumulated lane's pair passes) only the tiles on and above the diagonal are computed and every
 //     value is written from the one product that made it, to (m, n) and
 //     (n, m) (on a diagonal tile, from m ≤ n), so the result is symmetric bit
 //     for bit.  K is split over blocks until the blocks fill whole waves (the

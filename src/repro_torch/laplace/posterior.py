@@ -18,11 +18,10 @@ observation noise (regression only).
 * :class:`LastLayerLaplace` — either structure on the final Dense layer of a
   Sequential model, the feature extractor a point estimate.
 
-Port of ``src/repro/laplace/posterior.py``.  The fitting sweep is the
-port's single-device lane (``plan_for_batch``): a ``mesh`` or a
-``microbatch_size`` that cuts the batch into several slices raises
-``NotImplementedError``, and ``ckpt_dir`` raises
-:class:`LaplaceStructureError` as it does on a non-streamed plan in JAX.
+Port of ``src/repro/laplace/posterior.py``.  The fitting sweep runs on the
+lane ``plan_for_batch`` gives it: with ``microbatch_size`` the accumulated
+lane, and with ``ckpt_dir`` as well its checkpointed form, which resumes a
+killed fit; a ``mesh`` (the sharded lane) raises ``NotImplementedError``.
 Samples take a ``torch.Generator`` or the standard-normal draws themselves
 (a tree mirroring the parameters, each leaf with the leading sample axis),
 as the MC sweep takes its draws.
@@ -37,7 +36,7 @@ from typing import Any, ClassVar, Optional
 import torch
 
 from repro_torch.core import kron as K
-from repro_torch.core.engine import plan_for_batch, plan_sweeps
+from repro_torch.core.engine import AccumulatedSweepPlan, plan_for_batch, plan_sweeps
 from repro_torch.core.extensions import KFAC, KFLR, DiagGGN, DiagGGNMC, ExtensionConfig
 from repro_torch.core.loss_hessian import CrossEntropyLoss, MSELoss, _f32, _f32_dtype
 from repro_torch.core.module import Dense, Sequential
@@ -100,10 +99,11 @@ class FitOptions:
     mesh, shard_axes
         Batch-shard the fitting sweep (not ported yet: raises).
     microbatch_size
-        Stream it (not ported yet: raises when it cuts the batch).
+        Stream it (``SweepPlan.accumulate``).
     ckpt_dir, resume, checkpoint_every, injector
-        Preemption-safe streaming fit; needs the streamed lane, so it
-        raises :class:`LaplaceStructureError` here.
+        Preemption-safe streaming fit (``SweepStream`` snapshots in
+        ``ckpt_dir``); ``injector`` hooks a ``train.fault.FailureInjector``
+        in for tests.
     """
 
     mc: bool = False
@@ -146,19 +146,38 @@ def _merge_fit_options(options, legacy, caller):
 
 
 def _run_sweep(model, params, x, y, loss, extensions, cfg, rng, mesh, shard_axes,
-               microbatch_size=None, ckpt_dir=None):
-    """One engine sweep on the lane ``plan_for_batch`` gives this batch."""
+               microbatch_size=None, ckpt_dir=None, resume=False, checkpoint_every=1,
+               injector=None):
+    """One engine sweep on the lane ``plan_for_batch`` gives this batch.
+
+    With ``microbatch_size`` (the argument, or ``cfg.microbatch_size``) the
+    curvature is folded over ``ceil(N / microbatch_size)`` slices.  With
+    ``ckpt_dir`` the accumulated sweep runs checkpointed
+    (``AccumulatedSweepPlan.run_checkpointed``): snapshots land in
+    ``ckpt_dir`` every ``checkpoint_every`` work units, and ``resume=True``
+    restarts a killed fit at the interrupted unit, giving the posterior of
+    an uninterrupted fit.  A sweep in one piece has no units to snapshot
+    between, so ``ckpt_dir`` without slices raises
+    :class:`LaplaceStructureError`.
+    """
     n = tree_leaves(x)[0].shape[0]
     plan = plan_for_batch(extensions, cfg, n, mesh=mesh, shard_axes=shard_axes,
                           microbatch_size=microbatch_size)
-    if ckpt_dir is not None:
+    if ckpt_dir is None:
+        return plan.run(model, params, x, y, loss, cfg=cfg, rng=rng)
+    if not isinstance(plan, AccumulatedSweepPlan):
         raise LaplaceStructureError(
             "laplace: ckpt_dir needs the streaming accumulated sweep "
             "lane — pass microbatch_size (or cfg.microbatch_size) small "
             "enough to split the fit batch into more than one slice, so "
             "the sweep has checkpointable work units "
             f"(plan: {plan.describe()})")
-    return plan.run(model, params, x, y, loss, cfg=cfg, rng=rng)
+    from repro_torch.train.checkpoint import SweepCheckpointer
+
+    return plan.run_checkpointed(
+        model, params, x, y, loss, cfg=cfg, rng=rng,
+        checkpointer=SweepCheckpointer(ckpt_dir), checkpoint_every=checkpoint_every,
+        injector=injector, resume=resume)
 
 
 def _is_kron_block(node) -> bool:
@@ -315,7 +334,8 @@ class DiagLaplace(_EvidenceMixin):
                                          default=(DiagGGNMC,) if o.mc else (DiagGGN,))
         _require_structure("diag", extensions, cfg)
         res = _run_sweep(model, params, x, y, loss, extensions, cfg, rng, o.mesh,
-                         o.shard_axes, o.microbatch_size, o.ckpt_dir)
+                         o.shard_axes, o.microbatch_size, o.ckpt_dir, o.resume,
+                         o.checkpoint_every, o.injector)
         name = "diag_ggn_mc" if "diag_ggn_mc" in res.ext else "diag_ggn"
         curv = res.ext[name]
         if tree_structure(params) != tree_structure(curv):
@@ -393,7 +413,8 @@ class KronLaplace(_EvidenceMixin):
                                          default=(KFAC,) if o.mc else (KFLR,))
         _require_structure("kron", extensions, cfg)
         res = _run_sweep(model, params, x, y, loss, extensions, cfg, rng, o.mesh,
-                         o.shard_axes, o.microbatch_size, o.ckpt_dir)
+                         o.shard_axes, o.microbatch_size, o.ckpt_dir, o.resume,
+                         o.checkpoint_every, o.injector)
         kron_tree = res.ext["kfac" if "kfac" in res.ext else "kflr"]
         _map_kron(lambda m, b: None, params, kron_tree)  # every leaf owns a block
         return cls(mean=params, kron=kron_tree, n_data=_n_units(loss, y),

@@ -1,6 +1,8 @@
 """Training steps: the plain gradient step and the engine-backed extended
 step of the paper's §4, and a language model's prefill and decode steps
-(:mod:`.step`)."""
+(:mod:`.step`); npz checkpoints and the accumulated sweep's snapshot store
+(:mod:`.checkpoint`); failure injection and restart drivers (:mod:`.fault`)."""
+from . import checkpoint, fault
 from .step import (
     make_decode_step,
     make_extended_train_step,

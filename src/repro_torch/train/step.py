@@ -110,8 +110,11 @@ def make_extended_train_step(model, loss, opt, extensions,
     sweep's (a ``torch.Generator`` or the draws, see :func:`~repro_torch.
     core.engine.run`).  The curvature is the first of kfac, kflr,
     diag_ggn_mc, diag_ggn, kfra, diag_hessian among ``extensions``.  The
-    sweep lane comes from :func:`~repro_torch.core.engine.plan_for_batch`,
-    which has the single-device lane only: a ``mesh`` raises.
+    sweep lane comes from :func:`~repro_torch.core.engine.plan_for_batch`:
+    with ``cfg.microbatch_size`` the accumulated lane (gradient accumulation
+    that carries every extension along: the batch in slices of at most
+    that many samples, the identical step); a ``mesh`` raises (the sharded
+    lane is not ported yet).
     """
     cfg = cfg or ExtensionConfig()
     ext_names = {e.name for e in extensions}
@@ -119,7 +122,8 @@ def make_extended_train_step(model, loss, opt, extensions,
 
     def step(params, opt_state, batch, step_idx, rng=None):
         n = tree_leaves(batch["inputs"])[0].shape[0]
-        plan = eng.plan_for_batch(extensions, cfg, n, mesh=mesh, shard_axes=shard_axes)
+        plan = eng.plan_for_batch(extensions, cfg, n, mesh=mesh, shard_axes=shard_axes,
+                                  microbatch_size=cfg.microbatch_size)
         res = plan.run(model, params, batch["inputs"], batch["labels"], loss,
                        cfg=cfg, rng=rng)
         kw = {"curv": res.ext[curv_name]} if curv_name is not None else {}

@@ -31,7 +31,10 @@ also held to their formula in float64
 3C3D shapes too (shared, per-group and fewer-row A sides, C = 1, 3, 10 and
 13, E = 1 and 3 groups, N = 1 to 1280 rows, R = 1, widths and rows off the
 tiles, conv3's widths at 256 and 1024 rows a sample), and give the same bits
-from call to call; so is sq_matmul.
+from call to call; so is sq_matmul.  The accumulated lane: c2d2 at n = 37 in
+three slices matches the monolithic run, launching cross_dot on two row sets
+in its pair passes, resumes after an injected failure with the same bits,
+and cross_dot holds at the pair passes' 113 × 113 and 113 × 111 rows.
 """
 import itertools
 import sys
@@ -461,6 +464,103 @@ def test_card_gram_and_laplace_paths_match_cpu(cuda):
     _, cpu_var = glm_predictive(model, cpu_params, cpu_post, x.cpu())
     torch.cuda.synchronize()
     assert ((var.cpu() - cpu_var).abs().max() / cpu_var.abs().max()).item() < CARD_TOL
+
+
+# -- the accumulated lane (SweepPlan.accumulate) -----------------------------
+ACC_NAMES = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot",
+             "diag_ggn", "kflr", "ggn_trace", "diag_ggn_mc", "kfac")
+
+
+def _acc_inputs(cuda):
+    """c2d2 at img 16 and n = 37: k = 3 gives slices of 13, 13 and 11."""
+    model = papernets.c2d2(img=16, device="cuda", generator=torch.Generator().manual_seed(0))
+    x = torch.randn(37, 16, 16, 1, device="cuda", generator=cuda)
+    y = torch.randint(0, 10, (37,), device="cuda", generator=cuda)
+    return model, model.params(), x, y
+
+
+@pytest.mark.gpu
+def test_card_accumulated_run_matches_monolithic(cuda):
+    """The ten main-path extensions in three slices against the monolithic
+    run on one mc_seed: the slices launch the fused kernels, and the three
+    pair passes BatchDot's cross blocks through cross_dot on two row sets
+    (13 × 13 and 13 × 11 at both conv layers; the monolithic run launches
+    no cross_dot)."""
+    from repro_torch.core import plan_sweeps
+
+    model, params, x, y = _acc_inputs(cuda)
+    exts = tuple(by_name(n) for n in ACC_NAMES)
+    cfg = ExtensionConfig(mc_seed=0)
+    ops.reset_launch_counts()
+    mono = run(model, params, x, y, CrossEntropyLoss(), exts, cfg)
+    assert ops.launch_counts()["cross_dot"] == 0
+    ops.reset_launch_counts()
+    acc = plan_sweeps(exts, cfg).accumulate(3).run(model, params, x, y, CrossEntropyLoss(),
+                                                   cfg=cfg)
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "fused_first_order": 6, "fused_second_order": 12, "sq_matmul": 18, "cross_dot": 6}
+    torch.cuda.synchronize()
+    dot = tree_leaves(acc.ext["batch_dot"])
+    assert all(torch.equal(d, d.T) for d in dot)
+    scale = {"variance": tree_leaves(mono.ext["second_moment"])}
+    for name in ("loss", "grads") + ACC_NAMES:
+        got = [acc.loss] if name == "loss" else tree_leaves(
+            acc.grads if name == "grads" else acc.ext[name])
+        want = [mono.loss] if name == "loss" else tree_leaves(
+            mono.grads if name == "grads" else mono.ext[name])
+        for i, (a, b) in enumerate(zip(got, want, strict=True)):
+            den = (scale[name][i] if name in scale else b).abs().max()
+            assert ((a - b).abs().max() / den).item() < CARD_TOL, name
+
+
+@pytest.mark.gpu
+def test_card_accumulated_resume_same_bits(cuda, tmp_path):
+    """Killed before work unit 4 (three slices and one pair pass done) and
+    resumed from its snapshot: the uninterrupted run's bits."""
+    from repro_torch.core import plan_sweeps
+    from repro_torch.train.checkpoint import SweepCheckpointer
+    from repro_torch.train.fault import FailureInjector, SimulatedFailure
+
+    model, params, x, y = _acc_inputs(cuda)
+    exts = tuple(by_name(n) for n in ACC_NAMES)
+    cfg = ExtensionConfig(mc_seed=0)
+    plan = plan_sweeps(exts, cfg).accumulate(3)
+    args = (model, params, x, y, CrossEntropyLoss())
+    ref_res = plan.run(*args, cfg=cfg)
+    store = SweepCheckpointer(str(tmp_path / "sweep"))
+    with pytest.raises(SimulatedFailure):
+        plan.run_checkpointed(*args, cfg=cfg, checkpointer=store,
+                              injector=FailureInjector(fail_at_step=4))
+    res = plan.resume(*args, store, cfg=cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(res.loss, ref_res.loss)
+    for part in ("grads", "logits"):
+        for a, b in zip(tree_leaves(getattr(res, part)), tree_leaves(getattr(ref_res, part)),
+                        strict=True):
+            assert torch.equal(a, b), part
+    for name in ACC_NAMES:
+        for a, b in zip(tree_leaves(res.ext[name]), tree_leaves(ref_res.ext[name]), strict=True):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [(113, 113), (113, 111)], ids=["113x113", "113x111"])
+@pytest.mark.parametrize("layer", ["conv1", "conv2", "conv3"])
+def test_card_cross_dot_pair_pass(cuda, layer, rows):
+    """BatchDot's cross block of a pair pass at 3C3D's conv widths: E = 1,
+    each side its own A, two row sets of one batch (the slices of one
+    tensor, as the pair pass cuts them): float32 and float64 agreement."""
+    _, r, a, b = CONV[layer]
+    n1, n2 = rows
+    A = torch.randn(n1 + n2, r, a, device="cuda", generator=cuda)
+    B = torch.randn(n1 + n2, r, b, device="cuda", generator=cuda)
+    got = ops.cross_dot(A[:n1], B[:n1], A[n1:], B[n1:])
+    assert tuple(got.shape) == (n1, n2)
+    full = (A[None, :n1], B[None, :n1], A[None, n1:], B[None, n1:])
+    _card_close({"out": got[None]}, {"out": ref.cross_dot(*full)})
+    _f64_close("cross_dot", {"out": got[None]}, {"out": ref.cross_dot(*full, dtype=torch.float64)})
+    assert torch.equal(got, ops.cross_dot(A[:n1], B[:n1], A[n1:], B[n1:]))
 
 
 # -- attention and WKV (the language models' serving path) --------------------

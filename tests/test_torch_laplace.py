@@ -401,6 +401,46 @@ def test_fit_to_predictive_chain_matches_jax():
     _close(probs, jprobs, rtol=1e-5, atol=1e-7)
 
 
+MB_PARAMS = [("mlp", "kron", 4), ("mlp", "last_kron", 3), ("c2d2", "diag", 3),
+             ("c2d2", "kron", 3)]
+
+
+@pytest.mark.parametrize("name,structure,mb", MB_PARAMS,
+                         ids=[f"{n}-{s}-mb{m}" for n, s, m in MB_PARAMS])
+def test_fit_microbatch_matches_jax(name, structure, mb):
+    """``FitOptions(microbatch_size=...)``: the fit on the accumulated lane
+    against JAX's fit on its accumulated lane, and the port's monolithic
+    fit (rtol 3e-5, atol 3e-6 of the largest entry)."""
+    s = setup(name)
+    st, last = STRUCTURES[structure]
+    x, y = torch.from_numpy(s["x"]), torch.from_numpy(s["y"])
+    jpost = jl.fit_posterior(s["jm"], s["jp"], jnp.asarray(s["x"]), jnp.asarray(s["y"]),
+                             s["jloss"], structure=st, last_layer=last,
+                             options=jl.FitOptions(microbatch_size=mb))
+    posts = [tl.fit_posterior(s["tm"], s["tp"], x, y, s["tloss"], structure=st,
+                              last_layer=last, options=tl.FitOptions(microbatch_size=size))
+             for size in (mb, None)]
+    ji = _inner(jpost)
+    for tpost in posts:
+        ti = _inner(tpost)
+        np.testing.assert_allclose(ti.loss_map, ji.loss_map, rtol=1e-6)
+        tree, jtree = (ti.curv, ji.curv) if st == "diag" else (ti.kron, ji.kron)
+        for c, jc in zip(tree_leaves(tree), jax.tree.leaves(jtree), strict=True):
+            jc = np.asarray(jc)
+            _close(c, jc, rtol=3e-5, atol=3e-6 * np.abs(jc).max())
+
+
+def test_fit_microbatch_mc_matches_monolithic():
+    """An MC fit in slices draws what the monolithic fit draws from one
+    ``mc_seed`` (``cfg.microbatch_size`` as the size)."""
+    s = setup("c2d2")
+    args = (s["tm"], s["tp"], torch.from_numpy(s["x"]), torch.from_numpy(s["y"]), s["tloss"])
+    posts = [tl.fit_posterior(*args, structure="diag", options=tl.FitOptions(
+        mc=True, cfg=ExtensionConfig(mc_seed=0, microbatch_size=size))) for size in (3, None)]
+    for c, w in zip(tree_leaves(posts[0].curv), tree_leaves(posts[1].curv), strict=True):
+        _close(c, w, rtol=3e-5, atol=3e-6 * w.abs().max().item())
+
+
 def test_misconfigured_fits_raise():
     s = setup("mlp")
     args = (s["tm"], s["tp"], torch.from_numpy(s["x"]), torch.from_numpy(s["y"]), s["tloss"])
@@ -413,8 +453,11 @@ def test_misconfigured_fits_raise():
         tl.fit_posterior(*args, options=tl.FitOptions(ckpt_dir="unused"))
     with pytest.raises(NotImplementedError, match="sharded lane"):
         tl.fit_posterior(*args, options=tl.FitOptions(mesh=object()))
-    with pytest.raises(NotImplementedError, match="accumulated lane"):
-        tl.fit_posterior(*args, options=tl.FitOptions(microbatch_size=4))
+    # microbatch_size no longer raises: the fit runs on the accumulated lane
+    mono = tl.fit_posterior(*args, structure="diag")
+    mb = tl.fit_posterior(*args, structure="diag", options=tl.FitOptions(microbatch_size=4))
+    for c, w in zip(tree_leaves(mb.curv), tree_leaves(mono.curv), strict=True):
+        _close(c, w, rtol=3e-5, atol=3e-6)
     with pytest.raises(tl.LaplaceStructureError, match="final module to be Dense"):
         tl.posterior.split_last_dense(Sequential([Dense(3, 2, device="cpu"), Activation("relu")]),
                             ({}, ()))

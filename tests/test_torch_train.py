@@ -30,7 +30,7 @@ from repro.train import step as jstep
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import papernets as tnets
 from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, kron
-from repro_torch.core.engine import plan_for_batch
+from repro_torch.core.engine import AccumulatedSweepPlan, plan_for_batch
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.optim import optimizers, precond, schedule
 from repro_torch.train import step as tstep
@@ -185,13 +185,16 @@ def test_curvature_optimizer_rejects_unknown_backend_and_missing_curv():
 
 
 def test_plan_for_batch_single_lane_only():
+    """One slice is the single-device plan, several the accumulated lane;
+    a mesh (the sharded lane, item 12) still raises."""
     exts = (by_name("kfac"),)
     assert plan_for_batch(exts, None, 8).names == {"kfac"}
     assert plan_for_batch(exts, None, 8, microbatch_size=8).names == {"kfac"}
     with pytest.raises(NotImplementedError, match="item 12"):
         plan_for_batch(exts, None, 8, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        plan_for_batch(exts, None, 8, microbatch_size=3)
+    plan = plan_for_batch(exts, None, 8, microbatch_size=3)
+    assert isinstance(plan, AccumulatedSweepPlan)
+    assert plan.num_microbatches == 3 and plan.plan.names == {"kfac"}
 
 
 # -- train/step.py ---------------------------------------------------------------
@@ -246,6 +249,43 @@ def test_extended_train_step_matches_jax(name, use_fused):
                                        rtol=1e-4)
         _assert_trees(p, jp, rtol=1e-4, atol=1e-4)
 
+
+
+@pytest.mark.parametrize("use_fused", [True, False], ids=["fused", "per_extension"])
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_extended_train_step_microbatch_matches_jax(name, use_fused):
+    """``ExtensionConfig(microbatch_size=3)``: the step's sweep on the
+    accumulated lane, against JAX's step on its accumulated lane (the MC
+    draws JAX's, made for the whole batch; JAX keys them by sample index, so
+    its slices draw what its monolithic sweep draws) and against the port's
+    monolithic step."""
+    kw, ext_names = STEP_CASES[name]
+    case, jmodel, np_params, model, x, y = _setup(name)
+    jexts = tuple(jby_name(n) for n in ext_names)
+    exts = tuple(by_name(n) for n in ext_names)
+    jstep_fn = jax.jit(jstep.make_extended_train_step(
+        jmodel, JCrossEntropy(), jprecond.curvature_optimizer(**kw), jexts,
+        JConfig(use_kernels=True, use_fused=use_fused, mc_samples=MC, microbatch_size=3),
+        track=("variance",)))
+    steps = {mb: tstep.make_extended_train_step(
+        model, CrossEntropyLoss(), precond.curvature_optimizer(**kw), exts,
+        ExtensionConfig(use_kernels=True, use_fused=use_fused, mc_samples=MC,
+                        microbatch_size=mb), track=("variance",)) for mb in (None, 3)}
+    jp, p = _j(np_params), params_from_numpy(model, np_params, "cpu")
+    batch = {"inputs": torch.from_numpy(x), "labels": torch.from_numpy(y)}
+    jbatch = {"inputs": jnp.asarray(x), "labels": jnp.asarray(y)}
+    rng = jax.random.PRNGKey(5)
+    draws = torch.tensor(_jax_draws(case, jmodel.apply(jp, jbatch["inputs"]), rng, MC))
+    jp1, _, jm = jstep_fn(jp, jprecond.curvature_optimizer(**kw).init(jp), jbatch,
+                          jnp.int32(0), rng)
+    out = {mb: f(p, precond.curvature_optimizer(**kw).init(p), batch, 0, draws)
+           for mb, f in steps.items()}
+    p1, _, m = out[3]
+    np.testing.assert_allclose(m["loss"].numpy(), jm["loss"], rtol=1e-5)
+    if "variance_mean" in m:
+        np.testing.assert_allclose(m["variance_mean"].numpy(), jm["variance_mean"], rtol=1e-4)
+    _assert_trees(p1, jp1, rtol=2e-5, atol=2e-6)
+    _assert_trees(p1, tree_map(lambda t: t.numpy(), out[None][0]), rtol=2e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
