@@ -6,8 +6,8 @@
 Builds the ten Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all at once) and holds each against its plain PyTorch
 version at the shapes its path gives it: BackPACK's on 3C3D at batch 128, and
-Hymba-1.5B's serving shapes for flash_attention and wkv.  Then it drives seven
-paths through the entry points a user calls, six on 3C3D (CIFAR-10 shapes,
+Hymba-1.5B's serving shapes for flash_attention and wkv.  Then it drives eight
+paths through the entry points a user calls, seven on 3C3D (CIFAR-10 shapes,
 full width, random weights from a seed) and one on Hymba-1.5B, each with the
 launch counts set to 0 just before and read just after:
 
@@ -41,6 +41,20 @@ launch counts set to 0 just before and read just after:
   monolithic Gram ``run``; the main path checkpointed, killed before work
   unit 5 and resumed to the uninterrupted run's bits; both calls timed in
   turns and profiled;
+* the matrix-free lane (``matfree_phase``): ``ggn_vp`` / ``hvp`` card
+  against CPU, symmetric, against the fused route's DiagGGN coordinate by
+  coordinate and streamed in slices of 113; five ``make_cg_ngd_step`` steps
+  with CG (no kernel) and with the Gram solve (cross_dot 3 a step), the loss
+  falling and each step's first update card (float32) against the CPU in
+  float64; ``log_marglik_matfree`` by SLQ; the NTK consumers ``gp_predict``
+  (three solvers that agree; in two slices, cross_dot 6 on one row set and
+  3 on two, against the monolithic call), ``influence_scores`` /
+  ``self_influence`` card against CPU and ``select_subset`` (the same picks
+  in two slices; rows whose ReLU or max-pool pattern flips in a slice are
+  named and left out of the kernel's comparison); each call timed,
+  profiled (device activity) and its launches asserted, cross_dot held
+  against its plain version at each of the phase's shapes in the kernel
+  table; the ``ntk_apps`` launcher exits 0;
 * the Laplace posterior on the parameters the KFAC steps trained: DiagLaplace
   (DiagGGN), KronLaplace (KFLR) and LastLayerLaplace (kron) fitted on the
   training batch, ``glm_predictive`` on a held-out batch of 128 (3
@@ -186,6 +200,39 @@ ACC_LAUNCHES = {"fused_first_order": 3 * 4, "fused_second_order": 6 * 4, "sq_mat
 # The Gram family in two slices: per slice the NTK pair (one jac sweep) and
 # GGNGram at 3 conv layers on one row set, per pair pass the same on two.
 ACC_GRAM_ROW_SETS = {"one": 2 * 3 * 2, "two": 1 * 3 * 2}
+# The matrix-free lane (matfree_phase) on 3C3D at batch 128: the streamed
+# product's slice; five NGD steps a solver (CG 10 iterations, tol 0 so the
+# card and the CPU run as many; damping 10 against the GGN's top
+# eigenvalues of ≈ 100 at these weights, where lr 1 lowers the loss at every
+# step on a CPU batch of the same shape); SLQ with 4
+# probes of 20 Lanczos iterations; the float64 checks (the NGD steps' first
+# updates, SLQ) on the batch's first 16 rows, so the CPU's float64 side
+# stays short; the GP's 32 test rows and its Lanczos solver (rank 8, CG to
+# 1e-5 or 200 iterations); influence on 16 training and 8 test rows, 20 CG
+# iterations; subsets of 8 (BAIT's λ 1, about the Gram's mean diagonal).
+MATFREE = dict(microbatch=113, steps=5, cg_iters=10, ngd_cg_tol=0.0, lr=1.0, damping=10.0,
+               prior_prec=1.0, probes=4, slq_iters=20, check_rows=16, gp_test=32, rank=8,
+               cg_tol=1e-5, cg_maxiter=200, influence_train=16, influence_test=8,
+               influence_iters=20, select_k=8, bait_lam=1.0)
+# cross_dot launches by row sets: a Gram sweep (NTK or GGNGram) launches once
+# a conv layer (3), on one row set; in two slices (microbatches=2: 2 slices
+# and 1 pair pass) 2 × 3 on one and the pair pass's 3 on two.  The 'kernel'
+# NGD step runs one GGNGram sweep a step (3).
+GRAM_ONE = {"one": 3, "two": 0}
+GRAM_TWO_SLICES = {"one": 6, "two": 3}
+# The cross-check's DiagGGN run: the exact sweep at 3 conv layers
+# (fused_second_order) and at 3 dense layers (sq_matmul), nothing else.
+DIAG_LAUNCHES = {"fused_second_order": 3, "sq_matmul": 3}
+# The card's float32 against the CPU in float64 (the NGD steps' first
+# updates): within F64_FACTOR of the CPU's own float32-against-float64 reading
+# of the call (and no less than 1e-6, a few float32 steps).
+F64_FACTOR = 10
+# SLQ's card float32 against the CPU's float64: a fixed limit, 5× the card's
+# reading of 4.0e-4 (H100).  Not F64_FACTOR's rule: the CPU's float32 reads
+# 1.3e-2 to 4e-2 by its thread count, its sums over the P = 1.35M entries of
+# the Lanczos dot and norm rounding in another order, and the quadrature
+# P·Σ τ² log λ multiplies their error by P (tools/slq_reductions.py).
+SLQ_F64_TOL = 2e-3
 # (curvature, extensions, lr, damping): ten steps on one fixed batch
 # reduce the loss with these (chosen on the CPU at the same size).
 TRAIN = (("kfac", ("kfac",), 0.2, 0.1),
@@ -235,14 +282,18 @@ def medians_ms(samples):
     return {k: sorted(v)[len(v) // 2] * 1e3 for k, v in samples.items()}
 
 
-def profiled(call, groups=None):
+def profiled(call, groups=None, host_ops=True):
     """One call under torch.profiler: wall ms, summed device kernel ms, the
     top kernels by device time, and for each ``groups`` label the device ms
-    of the kernels whose name holds its text."""
+    of the kernels whose name holds its text.  ``host_ops=False`` records
+    the device's activity only: the figures read only kernels, and a call of
+    tens of thousands of small operators (SLQ, CG) takes minutes to
+    summarize with the host's recorded too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -624,6 +675,49 @@ def backpack_cases(torch, randn, gen, l2_mod):
     add("cross_dot", f"conv2 two row sets ntk pair A[{h}+{h},{r},{a}] S[10,{h}+{h},{r},{b}]",
         0, 0, (A[None, :h], S[:, :h], A[None, h:], S[:, h:]), {}, flops,
         4 * (2 * h * r * a + 10 * 2 * h * r * b + 10 * h * h), flops)
+
+    # The matrix-free phase's shapes that no row above has (``matfree_phase``;
+    # its monolithic NTK and GGNGram calls at 128 rows are the Gram rows):
+    # gp_predict's NTK over 128 + 32 rows, and in two slices of 80 each
+    # slice on one row set and the pair pass on two; select_subset's NTK
+    # (diversity) and GGNGram (BAIT: 10 class-major rows a sample) in two
+    # slices of 64, the same.  Per call and weight: a call's launches at a
+    # conv layer and the phase's (three gp_predict solvers; one two-slice
+    # call each).  Drawn from a generator of their own; the pair passes'
+    # S slices are strided, so the call's copy of them is timed with it,
+    # while GGNGram's rows are copied by the engine before its call.
+    mat = torch.Generator(device="cuda").manual_seed(3)
+    n_gp = N + MATFREE["gp_test"]
+    for name, (r, a, b) in conv.items():
+        A, S = (torch.randn(*shape, device="cuda", generator=mat)
+                for shape in ((n_gp, r, a), (10, n_gp, r, b)))
+        flops = 2 * 10 * n_gp * r * a * b + 10 * n_gp * (n_gp + 1) * a * b
+        add("cross_dot", f"{name} ntk gp A[{n_gp},{r},{a}] S[10,{n_gp},{r},{b}]", 1, 3,
+            (A[None], S, A[None], S), {}, flops,
+            4 * (n_gp * r * a + 10 * n_gp * r * b + 10 * n_gp * n_gp), flops)
+        for h, use in ((n_gp // 2, "gp"), (N // 2, "select")):
+            A1, S1 = A[:h].contiguous(), S[:, :h].contiguous()
+            flops = 2 * 10 * h * r * a * b + 10 * h * (h + 1) * a * b
+            add("cross_dot", f"{name} ntk {use} slice A[{h},{r},{a}] S[10,{h},{r},{b}]", 2, 2,
+                (A1[None], S1, A1[None], S1), {}, flops,
+                4 * (h * r * a + 10 * h * r * b + 10 * h * h), flops)
+            flops = 2 * 10 * 2 * h * r * a * b + 2 * 10 * h * h * a * b
+            add("cross_dot", f"{name} two row sets ntk {use} pair A[{h}+{h},{r},{a}] "
+                f"S[10,{h}+{h},{r},{b}]", 1, 1,
+                (A[None, :h], S[:, :h], A[None, h:2 * h], S[:, h:2 * h]), {}, flops,
+                4 * (2 * h * r * a + 10 * 2 * h * r * b + 10 * h * h), flops)
+        h = N // 2
+        rows1 = S[:, :h].reshape(1, 10 * h, r, b)
+        rows2 = S[:, h:2 * h].reshape(1, 10 * h, r, b)
+        flops = 2 * 10 * h * r * a * b + 10 * h * (10 * h + 1) * a * b
+        add("cross_dot", f"{name} ggn_gram select slice A[{h},{r},{a}] rows[{10 * h},{r},{b}]",
+            2, 2, (A[None, :h], rows1, A[None, :h], rows1), {}, flops,
+            4 * (h * r * a + 10 * h * r * b + 100 * h * h), flops)
+        flops = 2 * 10 * 2 * h * r * a * b + 2 * 100 * h * h * a * b
+        add("cross_dot", f"{name} two row sets ggn_gram select pair A[{h}+{h},{r},{a}] "
+            f"rows[{10 * h}+{10 * h},{r},{b}]", 1, 1,
+            (A[None, :h], rows1, A[None, h:2 * h], rows2), {}, flops,
+            4 * (2 * h * r * a + 2 * 10 * h * r * b + 100 * h * h), flops)
     return cases
 
 
@@ -799,6 +893,402 @@ def accumulated_phase(torch, ops, model, params, loss, exts, gram_exts, rel_errs
         prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
         out[f"profile_{route}"] = prof
         say("profile_accumulated", route=route, **prof)
+    return out
+
+
+def matfree_phase(torch, ops, model, params, x, y, loss):
+    """The matrix-free curvature lane and its NTK consumers on 3C3D at full
+    width, batch 128, through the entry points a user calls, each call with
+    the launch counts set to 0 just before and read just after (cross_dot's
+    row sets spied), timed (wall ms, peak bytes above its start) and
+    profiled once (device ms, idle share):
+
+    * ``ggn_vp`` / ``hvp`` card against CPU (``TOL``), ⟨u, Hv⟩ = ⟨Hu, v⟩,
+      ``ggn_vp(e_i)[i]`` against the fused route's DiagGGN at two
+      coordinates of each of the 12 leaves, the product streamed in slices
+      of 113 against the monolithic one (1e-5);
+    * five ``make_cg_ngd_step`` steps with each solver (CG launches no
+      kernel; the Gram solve cross_dot 3 a step): the loss falls; the
+      returned step's first parameter update on the batch's first 16 rows
+      card (float32) against the CPU in float64, within ``F64_FACTOR`` of
+      the CPU's float32 reading; CG's final residual (the step's metric)
+      against one more product at that update;
+    * ``log_marglik_matfree`` (4 probes, 20 iterations): log_det_ratio ≥ 0
+      and finite; card against CPU float64 on the first 16 rows, the same
+      probes, within ``SLQ_F64_TOL``;
+    * ``gp_predict`` on 128 + 32 rows with each solver (they agree to
+      ``TOL``; the Lanczos solve within its cg_tol or its cap reported) and
+      in two slices (cross_dot ``GRAM_TWO_SLICES``; kernel, mean and var
+      within ``TOL`` of the monolithic call's); ``influence_scores`` /
+      ``self_influence`` on 16 training rows (20 CG iterations) card against
+      CPU; ``select_subset`` diversity and BAIT of 8, the same picks in two
+      slices and the kernel as the monolithic call's to ``TOL`` (off rows
+      whose forward pattern flips in a slice, which are named); the
+      launcher on c2d2.
+    """
+    from repro_torch.core import Activation, DiagGGN, ExtensionConfig
+    from repro_torch.core import run as run_sweep
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.curv import GGNOperator, ggn_vp, hvp, lanczos_topk
+    from repro_torch.laplace import log_marglik_matfree
+    from repro_torch.nn.layers import MaxPool2d
+    from repro_torch.ntk_apps import (gp_predict, influence_scores, ntk_kernel, select_subset,
+                                      self_influence)
+    from repro_torch.optim import make_cg_ngd_step
+
+    M = MATFREE
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"calls": {}, "section_s": {}}
+    clock = [time.perf_counter()]
+
+    def section(label):
+        """Seconds since the previous section ended, kept under ``label``."""
+        now = time.perf_counter()
+        out["section_s"][label] = now - clock[0]
+        clock[0] = now
+
+    def to_cpu(tree, dtype=None):
+        return tree_map(lambda a: a.cpu().to(dtype) if dtype and a.dtype.is_floating_point
+                        else a.cpu(), tree)
+
+    def rel(got, want):
+        """max over leaves of max |got − want| / max |want| (``want`` may lie
+        on the CPU, in float64)."""
+        return max(((g.to(w.device, w.dtype) - w).abs().max()
+                    / w.abs().max().clamp_min(1e-30)).item()
+                   for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True))
+
+    def dot(a, b):
+        return sum((p * q).sum() for p, q in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+    def randn_like(tree):
+        return tree_map(lambda p: torch.randn(p.shape, device=dev, generator=gen), tree)
+
+    def call(label, fn, launches=None, rows=None):
+        """One counted, timed call of ``fn`` and one profiled call; fails
+        unless the launch counts are ``launches`` (absent kernels 0) and,
+        where ``rows`` is given, cross_dot's row sets are ``rows``."""
+        kinds = {"one": 0, "two": 0}
+        restore = row_set_spy(ops, kinds)
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            restore()
+        t0 = time.perf_counter()
+        prof = profiled(fn, host_ops=False)
+        if not prof["device_ms"] > 0:
+            fail(f"matfree {label}: the profiler recorded no kernel")
+        row = dict(wall_ms=wall, device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
+                   profile_s=time.perf_counter() - t0,
+                   idle_share=1 - prof["device_ms"] / prof["wall_ms"], peak_bytes=peak,
+                   launches={k: v for k, v in counts.items() if v}, cross_dot_row_sets=kinds,
+                   top=prof["top"][:4])
+        out["calls"][label] = row
+        say("matfree_call", label=label, **row)
+        want = {k: (launches or {}).get(k, 0) for k in ops.KERNELS}
+        if counts != want:
+            fail(f"matfree {label}: launched {counts}, not {want}")
+        if rows is not None and kinds != rows:
+            fail(f"matfree {label}: cross_dot by row sets {kinds}, not {rows}")
+        return res
+
+    def pattern(xx):
+        """Each sample's ReLU signs and max-pool picks in a forward of ``xx``."""
+        _, tapes = model.forward_tape(params, xx)
+        parts = []
+        for mod, tape in zip(model.mods, tapes):
+            if isinstance(mod, MaxPool2d):
+                parts.append(tape[1].reshape(xx.shape[0], -1))
+            elif isinstance(mod, Activation):
+                parts.append((tape > 0).reshape(xx.shape[0], -1))
+        return parts
+
+    def flipped_rows(xx):
+        """The rows whose forward pattern in two slices (the accumulated
+        lane's, ``microbatches=2``) differs from the whole batch's: float32
+        GEMMs of another row count round differently, and a pre-activation
+        within that rounding of 0 (or a max-pool near-tie) goes the other way
+        there, so that row's Jacobian is another function's."""
+        m = -(-xx.shape[0] // 2)
+        with torch.no_grad():
+            whole = pattern(xx)
+            sliced = [torch.cat(pair) for pair in zip(pattern(xx[:m]), pattern(xx[m:]))]
+        bad = torch.zeros(xx.shape[0], dtype=torch.bool, device=xx.device)
+        for a, b in zip(whole, sliced, strict=True):
+            bad |= (a != b).any(1)
+        return bad.nonzero().flatten().tolist()
+
+    def agree_off(K2, K1, rows):
+        """``rel`` of two [N, N, ...] kernels on the rows and columns not in
+        ``rows``."""
+        keep = torch.tensor([i for i in range(K1.shape[0]) if i not in rows], device=K1.device)
+        return rel(K2[keep][:, keep], K1[keep][:, keep])
+
+    def f64_check(label, card, cpu32, cpu64, limit=None, **extra):
+        """The card's float32 against the CPU's float64, within ``limit``,
+        by default F64_FACTOR of the CPU's float32 against its float64."""
+        r32, r = rel(cpu32, cpu64), rel(card, cpu64)
+        limit = limit if limit is not None else max(F64_FACTOR * r32, 1e-6)
+        row = dict(card_vs_f64=r, cpu_f32_vs_f64=r32, limit=limit, **extra)
+        say("matfree_f64", label=label, **row)
+        if not r <= limit:
+            fail(f"matfree {label}: card vs CPU float64 {r:.3e} above {limit:.3e}")
+        return row
+
+    cpu_params, cpu64_params = to_cpu(params), to_cpu(params, torch.float64)
+    xc, yc, x64 = x.cpu(), y.cpu(), x.cpu().double()
+
+    # -- products ----------------------------------------------------------------
+    v = randn_like(params)
+    prods = {}
+    for name, fn in (("ggn_vp", ggn_vp), ("hvp", hvp)):
+        card = call(name, lambda: fn(model, params, x, y, loss, v))
+        t0 = time.perf_counter()
+        want = fn(model, cpu_params, xc, yc, loss, to_cpu(v))
+        prods[name] = card
+        out[name] = dict(card_vs_cpu=rel(card, want), cpu_s=time.perf_counter() - t0)
+        say("matfree_product", name=name, tol=TOL, **out[name])
+        if not out[name]["card_vs_cpu"] <= TOL:
+            fail(f"matfree {name}: card vs CPU {out[name]['card_vs_cpu']:.3e} above {TOL}")
+    u = randn_like(params)
+    hu = hvp(model, params, x, y, loss, u)
+    uhv, huv = dot(u, prods["hvp"]).item(), dot(hu, v).item()
+    bound = (dot(u, u).sqrt() * dot(prods["hvp"], prods["hvp"]).sqrt()).item()
+    out["hvp_symmetry"] = dict(u_hv=uhv, hu_v=huv, rel=abs(uhv - huv) / bound)
+    say("matfree_symmetry", tol=TOL, **out["hvp_symmetry"])
+    if not out["hvp_symmetry"]["rel"] <= TOL:
+        fail(f"matfree: <u, Hv> = {uhv} but <Hu, v> = {huv}")
+    streamed = call("ggn_vp_streamed", lambda: ggn_vp(
+        model, params, x, y, loss, v, cfg=ExtensionConfig(microbatch_size=M["microbatch"])))
+    out["streamed_vs_monolithic"] = rel(streamed, prods["ggn_vp"])
+    say("matfree_streamed", microbatch=M["microbatch"], rel_err=out["streamed_vs_monolithic"])
+    if not out["streamed_vs_monolithic"] <= 1e-5:
+        fail(f"matfree: streamed ggn_vp {out['streamed_vs_monolithic']:.3e} from monolithic")
+
+    # ggn_vp(e_i)[i] against the fused route's DiagGGN (fused_second_order, sq_matmul)
+    diag = call("diag_ggn_run", lambda: run_sweep(model, params, x, y, loss,
+                                                  extensions=(DiagGGN,)),
+                launches=DIAG_LAUNCHES).ext["diag_ggn"]
+    leaves, dl = tree_leaves(params), tree_leaves(diag)
+    worst = 0.0
+    for j, d in enumerate(dl):
+        for i in (int(d.argmax()), int(torch.randint(d.numel(), (1,), generator=gen,
+                                                      device=dev))):
+            e = [torch.zeros_like(p) for p in leaves]
+            e[j].view(-1)[i] = 1.0
+            g = ggn_vp(model, params, x, y, loss, tree_unflatten(params, e))
+            got = tree_leaves(g)[j].reshape(-1)[i]
+            worst = max(worst, ((got - d.reshape(-1)[i]).abs() / d.max()).item())
+    out["diag_cross_check"] = dict(leaves=len(dl), coordinates=2 * len(dl), rel_err=worst)
+    say("matfree_diag_cross_check", tol=TOL, **out["diag_cross_check"])
+    if len(dl) != 12 or not worst <= TOL:
+        fail(f"matfree: ggn_vp(e_i)[i] vs DiagGGN {worst:.3e} over {len(dl)} leaves")
+    del prods, streamed, diag, hu, u, v
+    section("products")
+
+    # -- CG and the natural-gradient step --------------------------------------------
+    batch = {"inputs": x, "labels": y}
+    n = M["check_rows"]  # the rows of the float64 checks
+    out["ngd"] = {}
+    for solver in ("cg", "kernel"):
+        opt, step = make_cg_ngd_step(model, loss, lr=M["lr"], damping=M["damping"],
+                                     solver=solver, cg_iters=M["cg_iters"],
+                                     cg_tol=M["ngd_cg_tol"])
+        per_step = {"cross_dot": 3} if solver == "kernel" else {}
+        p, st, m = call(f"ngd_{solver}_step", lambda: step(params, opt.init(params), batch, 0),
+                        launches=per_step, rows=GRAM_ONE if solver == "kernel" else None)
+        losses, walls = [float(m["loss"])], []
+        ops.reset_launch_counts()
+        for i in range(1, M["steps"]):
+            t0 = time.perf_counter()
+            p, st, m = step(p, st, batch, i)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        row = dict(losses=losses, step_ms=walls, launches={k: v for k, v in counts.items() if v})
+        if solver == "cg":
+            row.update(cg_iters=m["cg_iters"], cg_resid=float(m["cg_resid"]))
+        # The first step's parameter update on the batch's first n rows: card
+        # float32, CPU float32 and float64, each through the returned step.
+        def first_update(prm, xx, yy):
+            new, _, met = step(prm, opt.init(prm), {"inputs": xx, "labels": yy}, 0)
+            return tree_map(lambda a, b: a.detach().double() - b.detach().double(), new,
+                            prm), met
+
+        got, met = first_update(params, x[:n], y[:n])
+        t0 = time.perf_counter()
+        cpu32 = first_update(cpu_params, xc[:n], yc[:n])[0]
+        cpu64 = first_update(cpu64_params, x64[:n], yc[:n])[0]
+        cpu_s = time.perf_counter() - t0
+        if solver == "cg":  # the step's final residual against one more product
+            d = tree_map(lambda u: (-u / M["lr"]).float(), got)
+            op = GGNOperator(model, params, x[:n], y[:n], loss, damping=M["damping"])
+            g = run_sweep(model, params, x[:n], y[:n], loss).grads
+            r = tree_map(torch.sub, g, op.mv(d))
+            true = (dot(r, r).sqrt() / dot(g, g).sqrt()).item()
+            row["resid"] = dict(recurrence=float(met["cg_resid"]), recomputed=true,
+                                iters=met["cg_iters"])
+            if not abs(true - row["resid"]["recurrence"]) <= 0.05 * true + 1e-6:
+                fail(f"matfree cg: recurrence residual {row['resid']['recurrence']:.4e}, "
+                     f"recomputed {true:.4e}")
+        row["update"] = f64_check(f"ngd {solver} first update, first {n} rows", got, cpu32,
+                                  cpu64, cpu_s=cpu_s)
+        out["ngd"][solver] = row
+        say("matfree_ngd", solver=solver, lr=M["lr"], damping=M["damping"], **row)
+        if counts != {k: (M["steps"] - 1) * per_step.get(k, 0) for k in ops.KERNELS}:
+            fail(f"matfree ngd {solver}: {M['steps'] - 1} steps launched {counts}")
+        if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+            fail(f"matfree ngd {solver}: the loss did not fall: {losses}")
+        del p, st, got, cpu32, cpu64
+
+    section("ngd")
+
+    # -- SLQ evidence ---------------------------------------------------------------------
+    kw = dict(prior_prec=M["prior_prec"], probes=M["probes"], iters=M["slq_iters"])
+    ev = call("log_marglik_matfree", lambda: log_marglik_matfree(model, params, x, y, loss, **kw))
+    card16 = log_marglik_matfree(model, params, x[:n], y[:n], loss, **kw)
+    t0 = time.perf_counter()
+    cpu32 = log_marglik_matfree(model, cpu_params, xc[:n], yc[:n], loss, **kw)
+    cpu64 = log_marglik_matfree(model, cpu64_params, x64[:n], yc[:n], loss, **kw)
+    cpu_s = time.perf_counter() - t0
+
+    def terms(e):
+        return [torch.tensor([e.log_det_ratio, e.log_marglik], dtype=torch.float64),
+                e.per_probe.double()]
+
+    out["slq"] = dict(log_marglik=ev.log_marglik, log_lik=ev.log_lik, scatter=ev.scatter,
+                      log_det_ratio=ev.log_det_ratio, per_probe=ev.per_probe.tolist(),
+                      check=f64_check(f"slq first {n} rows", terms(card16), terms(cpu32),
+                                      terms(cpu64), limit=SLQ_F64_TOL, cpu_s=cpu_s,
+                                      log_det_ratio=[card16.log_det_ratio,
+                                                     cpu64.log_det_ratio]))
+    say("matfree_slq", **{k: v for k, v in out["slq"].items() if k != "check"})
+    if not (math.isfinite(ev.log_marglik) and math.isfinite(ev.log_det_ratio)
+            and ev.log_det_ratio >= 0):
+        fail(f"matfree slq: log_det_ratio {ev.log_det_ratio}, evidence {ev.log_marglik}")
+
+    section("slq")
+
+    # -- the GP predictive --------------------------------------------------------------
+    x_te = torch.randn((M["gp_test"],) + tuple(x.shape[1:]), device=dev, generator=gen)
+    K = call("ntk_kernel", lambda: ntk_kernel(model, params, x, y, loss),
+             launches={"cross_dot": 3}, rows=GRAM_ONE)
+    ridge = torch.diagonal(K).mean().item()  # cond(K + λI) ≤ N + 1
+    gps, out["gp"] = {}, dict(ridge=ridge, train=x.shape[0], test=M["gp_test"])
+    for solver in ("cholesky", "eigh", "lanczos"):
+        skw = dict(ridge=ridge, solver=solver)
+        if solver == "lanczos":
+            skw.update(rank=M["rank"], cg_tol=M["cg_tol"], cg_maxiter=M["cg_maxiter"])
+        gps[solver] = call(f"gp_predict_{solver}", lambda: gp_predict(
+            model, params, x, y, x_te, loss, **skw), launches={"cross_dot": 3}, rows=GRAM_ONE)
+    info = gps["lanczos"].info
+    out["gp"]["lanczos"] = dict(iters=info.iters, resid=info.resid.item(), cg_tol=M["cg_tol"],
+                                capped=info.iters >= M["cg_maxiter"])
+    for solver in ("eigh", "lanczos"):
+        out["gp"][f"{solver}_vs_cholesky"] = {f: rel(getattr(gps[solver], f),
+                                                      getattr(gps["cholesky"], f))
+                                              for f in ("mean", "var")}
+    two = call("gp_predict_two_slices", lambda: gp_predict(
+        model, params, x, y, x_te, loss, ridge=ridge, microbatches=2),
+        launches={"cross_dot": 9}, rows=GRAM_TWO_SLICES)
+    flips = flipped_rows(torch.cat([x, x_te]))
+    mono = gps["cholesky"]
+    out["gp"]["two_slices_vs_monolithic"] = dict(
+        {f: rel(getattr(two, f), getattr(mono, f)) for f in ("kernel", "mean", "var")},
+        flipped_rows=flips)
+    say("matfree_gp", tol=TOL, **out["gp"])
+    held = (("eigh_vs_cholesky", ("mean", "var")), ("lanczos_vs_cholesky", ("mean", "var")),
+            ("two_slices_vs_monolithic", ("kernel", "mean", "var")))
+    bad = {f"{key} {f}": out["gp"][key][f] for key, fs in held for f in fs
+           if not out["gp"][key][f] <= TOL}
+    if bad or not all(torch.isfinite(gps[s].mean).all() and (gps[s].var > 0).all() for s in gps):
+        fail(f"matfree gp: solvers or slices disagree {bad}, or a non-finite / non-positive "
+             "predictive")
+    if not out["gp"]["lanczos"]["capped"] and not info.resid.item() <= M["cg_tol"]:
+        fail(f"matfree gp: the Lanczos solve stopped at {info.iters} iterations with residual "
+             f"{info.resid.item():.3e} above its cg_tol {M['cg_tol']}")
+    del gps, two, K
+    section("gp")
+
+    # -- influence ------------------------------------------------------------------------
+    nt, ne = M["influence_train"], M["influence_test"]
+    xi, yi, xt, yt = x[:nt], y[:nt], x[nt:nt + ne], y[nt:nt + ne]
+    top = lanczos_topk(GGNOperator(model, params, xi, yi, loss).mv, params, k=1, iters=8)
+    damping = 0.1 * top.eigvals[0].item()  # cond(G + δI) ≤ 11: 20 iterations converge
+    ikw = dict(damping=damping, cg_tol=0.0, cg_maxiter=M["influence_iters"])
+    inf = call("influence_scores", lambda: influence_scores(model, params, xi, yi, xt, yt, loss,
+                                                            **ikw))
+    sel = call("self_influence", lambda: self_influence(model, params, xi, yi, loss, **ikw))
+    t0 = time.perf_counter()
+    inf_cpu = influence_scores(model, cpu_params, xi.cpu(), yi.cpu(), xt.cpu(), yt.cpu(), loss,
+                               **ikw)
+    sel_cpu = self_influence(model, cpu_params, xi.cpu(), yi.cpu(), loss, **ikw)
+    out["influence"] = dict(
+        damping=damping, top_eigval=top.eigvals[0].item(), iters=[inf.iters, sel.iters],
+        cpu_iters=[inf_cpu.iters, sel_cpu.iters], cpu_s=time.perf_counter() - t0,
+        resid=[inf.resid.max().item(), sel.resid.max().item()],
+        card_vs_cpu=dict(scores=rel(inf.scores, inf_cpu.scores),
+                         self=rel(sel.scores, sel_cpu.scores)))
+    say("matfree_influence", tol=TOL, **out["influence"])
+    iters = [M["influence_iters"]] * 2
+    if not (out["influence"]["iters"] == out["influence"]["cpu_iters"] == iters
+            and max(out["influence"]["card_vs_cpu"].values()) <= TOL):
+        fail(f"matfree influence: {out['influence']}")
+
+    section("influence")
+
+    # -- subset selection ---------------------------------------------------------------
+    out["select"] = {}
+    flips = flipped_rows(x)
+    for method in ("diversity", "bait"):
+        skw = dict(method=method, lam=M["bait_lam"])
+        mono = call(f"select_{method}", lambda: select_subset(model, params, x, y, loss,
+                                                              M["select_k"], **skw),
+                    launches={"cross_dot": 3}, rows=GRAM_ONE)
+        two = call(f"select_{method}_two_slices", lambda: select_subset(
+            model, params, x, y, loss, M["select_k"], microbatches=2, **skw),
+            launches={"cross_dot": 9}, rows=GRAM_TWO_SLICES)
+        diag = torch.diagonal(mono.kernel.permute(0, 2, 1, 3).flatten(0, 1).flatten(1, 2)
+                              if mono.kernel.dim() == 4 else mono.kernel)
+        row = dict(indices=mono.indices.tolist(), two_slices=two.indices.tolist(),
+                   scores=mono.scores.tolist(), kernel_rel=rel(two.kernel, mono.kernel),
+                   flipped_rows=flips, kernel_off_flips=agree_off(two.kernel, mono.kernel, flips),
+                   kernel_mean_diagonal=diag.mean().item())
+        out["select"][method] = row
+        say("matfree_select", method=method, **row)
+        if row["indices"] != row["two_slices"] or not row["kernel_off_flips"] <= TOL:
+            fail(f"matfree select {method}: {row}")
+
+    section("select")
+
+    # -- the launcher ---------------------------------------------------------------------
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT / "src"), env.get("PYTHONPATH")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.ntk_apps", "--gp", "--model",
+                           "c2d2"], env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    out["launcher"] = dict(returncode=proc.returncode, s=time.perf_counter() - t0,
+                           stdout=proc.stdout.strip().splitlines()[:1])
+    say("matfree_launcher", **out["launcher"])
+    if proc.returncode != 0:
+        fail(f"the ntk_apps launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    section("launcher")
+    say("matfree_sections", **out["section_s"])
+    out["cross_dot_launches"] = (sum(c["launches"].get("cross_dot", 0)
+                                     for c in out["calls"].values())
+                                 + out["ngd"]["kernel"]["launches"].get("cross_dot", 0))
     return out
 
 
@@ -1465,6 +1955,9 @@ def main():
     record["accumulated"] = accumulated_phase(torch, ops, model, params, loss, exts, gram_exts,
                                               rel_errs, check_errs)
 
+    # -- 9c. the matrix-free lane and its NTK consumers --------------------------
+    record["matfree"] = matfree_phase(torch, ops, model, params, x, y, loss)
+
     # -- 10. the Laplace posterior on the parameters the KFAC steps trained --
     map_params = trained["kfac"]
     # The CPU reference fits and predicts in float64 (the MAP, x and x_out
@@ -1540,12 +2033,14 @@ def main():
     # launches: each kernel's count on its path (the fused main path's three
     # run calls; the per-extension route's three for its own kernels; the
     # gram path's one run call and the accumulated main path's pair passes;
+    # the matrix-free phase's NTK and GGNGram calls and its 'kernel' NGD steps;
     # the Laplace path's diag and kron predictives;
     # the serving path's checked prefill call and its generate call).
     path_launches = dict(launches, per_sample_moment=pe_launches["per_sample_moment"],
                          batch_l2=pe_launches["batch_l2"],
                          cross_dot=gram_launches["cross_dot"]
-                         + record["accumulated"]["launches"]["cross_dot"],
+                         + record["accumulated"]["launches"]["cross_dot"]
+                         + record["matfree"]["cross_dot_launches"],
                          predictive_var=laplace_launches["predictive_var"],
                          flash_attention=record["serve"]["launches"]["flash_attention"],
                          wkv=record["serve"]["launches"]["wkv"])

@@ -127,6 +127,15 @@ def plan_sweeps(extensions: Sequence[Extension],
     )
 
 
+def refuse_mesh(what: str, mesh, shard_axes=("data",)) -> None:
+    """Raise for a ``mesh``: the batch-sharded lane is ROADMAP queue A item
+    12, and no entry point runs another lane in its place."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}: the sharded lane (mesh over {tuple(shard_axes)}) is "
+            "not ported yet (ROADMAP queue A item 12)")
+
+
 def plan_for_batch(extensions, cfg: Optional[ExtensionConfig], n: int, mesh=None,
                    shard_axes=("data",), microbatch_size: Optional[int] = None
                    ) -> Union[SweepPlan, "AccumulatedSweepPlan"]:
@@ -139,10 +148,7 @@ def plan_for_batch(extensions, cfg: Optional[ExtensionConfig], n: int, mesh=None
     :class:`SweepPlan`.  A ``mesh`` (the batch-sharded lane, ROADMAP queue A
     item 12) raises, rather than running another lane silently.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            f"plan_for_batch: the sharded lane (mesh over {tuple(shard_axes)}) is "
-            "not ported yet (ROADMAP queue A item 12)")
+    refuse_mesh("plan_for_batch", mesh, shard_axes)
     cfg = cfg or ExtensionConfig()
     plan = plan_sweeps(extensions, cfg)
     mb = microbatch_size or cfg.microbatch_size
@@ -259,6 +265,13 @@ class _ScaledLoss:
     def hessian_mean(self, z, y):
         H = self.base.hessian_mean(z, y)
         return H * self._ratio(y, H.dtype)
+
+    def hessian_vec(self, z, y, v):
+        # Per sample, like ``grad``: the slice's 1/M_local becomes 1/M_global
+        # (the matrix-free products sum the slices' parameter-space results).
+        hv = self.base.hessian_vec(z, y, v)
+        hf = _f32(hv)
+        return (hf * self._ratio(y, hf.dtype)).to(hv.dtype)
 
 
 def _moment_triple(sum_g2, grad_sum, n):
@@ -463,9 +476,9 @@ def _sum_leaves(ext_tree, what):
     leaves = tree_leaves(ext_tree)
     if not leaves:
         raise ValueError(f"empty {what} stats tree — was the extension run?")
-    out = leaves[0].float()
+    out = _f32(leaves[0])
     for leaf in leaves[1:]:
-        out = out + leaf.float()
+        out = out + _f32(leaf)
     return out
 
 

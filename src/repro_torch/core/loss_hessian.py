@@ -12,6 +12,8 @@ exposes
   * ``sqrt_hessian_mc(rng, z, y, k)`` — Monte-Carlo factor ``S̃`` (Eq. 20),
                                  shape ``[k, *z.shape]``,
   * ``hessian_mean(z, y)``     — batch-averaged loss Hessian (KFRA Eq. 24b),
+  * ``hessian_vec(z, y, v)``   — ``∇²_z L`` applied to ``v`` (``z``'s shape),
+                                 the middle of the GGN-vector product,
   * ``num_units(y)``           — the raw mask-aware count M (no ≥ 1 clamp).
 
 The 1/M of the mean is folded into the factors as 1/sqrt(M).  Port of
@@ -178,6 +180,14 @@ class CrossEntropyLoss:
         H = torch.diag(pf.sum(0)) - pf.T @ pf
         return H / m
 
+    def hessian_vec(self, z, y, v):
+        """∇²_z L applied to v (same shape as z): (diag p − p pᵀ) v / m."""
+        mask, m = self._mask_and_m(y)
+        p = torch.softmax(_f32(z), dim=-1)
+        v32 = v.to(p.dtype)
+        hv = p * v32 - p * (p * v32).sum(-1, keepdim=True)
+        return (hv * mask[..., None] / m).to(z.dtype)
+
 
 class MSELoss:
     """0.5‖z − y‖² summed over the last axis, mean over the rest."""
@@ -237,3 +247,7 @@ class MSELoss:
     def hessian_mean(self, z, y):
         # per-position Hessian of 0.5‖z−y‖² is I; its mean over positions is I.
         return torch.eye(z.shape[-1], device=z.device)
+
+    def hessian_vec(self, z, y, v):
+        """∇²_z L applied to v: v / M, M = size(y) // y.shape[-1] as in JAX."""
+        return v / self._m(y)

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.engine import gram_total, run
 from repro_torch.core.extensions import ExtensionConfig, GGNGram
+from repro_torch.core.loss_hessian import _f32
 from repro_torch.core.tree import tree_map
 
 
@@ -78,13 +79,13 @@ def kernel_ngd_direction(model, params, inputs, targets, loss, *, damping: float
         return model.call(p, inputs)
 
     zz, Jg = torch.func.jvp(f, (primals,), (g_cov,))
-    S = loss.sqrt_hessian(zz, targets).float()               # [C̃, N, C]
-    w = torch.einsum("cnz,nz->nc", S, Jg.float()).reshape(n * c)   # J' g
+    S = _f32(loss.sqrt_hessian(zz, targets))              # [C̃, N, C]
+    w = torch.einsum("cnz,nz->nc", S, _f32(Jg)).reshape(n * c)   # J' g
     q = torch.linalg.solve(
         K2 + delta * torch.eye(n * c, dtype=K2.dtype, device=K2.device), w).reshape(n, c)
     v_z = torch.einsum("cnz,nc->nz", S, q)                    # √H (·)
     _, vjp_fn = torch.func.vjp(f, primals)
     (t,) = vjp_fn(v_z.to(zz.dtype))
     t_cov = _mask_to(t, mask)
-    d = tree_map(lambda gi, ti: (gi.float() - ti.float()) / delta, g, t_cov)
+    d = tree_map(lambda gi, ti: (_f32(gi) - _f32(ti)) / delta, g, t_cov)
     return d, res

@@ -34,7 +34,9 @@ tiles, conv3's widths at 256 and 1024 rows a sample), and give the same bits
 from call to call; so is sq_matmul.  The accumulated lane: c2d2 at n = 37 in
 three slices matches the monolithic run, launching cross_dot on two row sets
 in its pair passes, resumes after an injected failure with the same bits,
-and cross_dot holds at the pair passes' 113 × 113 and 113 × 111 rows.
+and cross_dot holds at the pair passes' 113 × 113 and 113 × 111 rows.  The
+matrix-free lane's NTK consumers (GP, selection, the Gram NGD step) launch
+cross_dot as derived, on one row set and, in two slices, on two.
 """
 import itertools
 import sys
@@ -561,6 +563,59 @@ def test_card_cross_dot_pair_pass(cuda, layer, rows):
     _card_close({"out": got[None]}, {"out": ref.cross_dot(*full)})
     _f64_close("cross_dot", {"out": got[None]}, {"out": ref.cross_dot(*full, dtype=torch.float64)})
     assert torch.equal(got, ops.cross_dot(A[:n1], B[:n1], A[n1:], B[n1:]))
+
+
+# -- the matrix-free lane's NTK consumers ------------------------------------------
+
+
+@pytest.mark.gpu
+def test_card_matfree_cross_dot_counts(cuda):
+    """The NTK consumers on c2d2 (2 conv layers) at n = 37: a monolithic NTK
+    or GGNGram sweep launches cross_dot once a conv layer on one row set; in
+    two slices (microbatches=2: slices of 19 and 18, one pair pass) 2 × 2 on
+    one row set and the pair pass's 2 on two; the 'kernel' NGD step 2; the
+    CG step none.  The streamed GP and picks match the monolithic ones."""
+    from chip_smoke import row_set_spy
+    from repro_torch.ntk_apps import gp_predict, select_subset
+    from repro_torch.optim import make_cg_ngd_step
+
+    model, params, x, y = _acc_inputs(cuda)
+    loss = CrossEntropyLoss()
+
+    def counted(fn):
+        kinds = {"one": 0, "two": 0}
+        restore = row_set_spy(ops, kinds)
+        try:
+            ops.reset_launch_counts()
+            res = fn()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+        finally:
+            restore()
+        return res, counts, kinds
+
+    one, two = {"one": 2, "two": 0}, {"one": 4, "two": 2}
+    mono, c, k = counted(lambda: gp_predict(model, params, x[:29], y[:29], x[29:], loss,
+                                            ridge=1.0))
+    assert c == {"cross_dot": 2} and k == one
+    sliced, c, k = counted(lambda: gp_predict(model, params, x[:29], y[:29], x[29:], loss,
+                                              ridge=1.0, microbatches=2))
+    assert c == {"cross_dot": 6} and k == two
+    for f in ("kernel", "mean", "var"):
+        a, b = getattr(sliced, f), getattr(mono, f)
+        assert ((a - b).abs().max() / b.abs().max()).item() < CARD_TOL, f
+    for method in ("diversity", "bait"):
+        sel, c, k = counted(lambda: select_subset(model, params, x, y, loss, 4, method=method))
+        assert c == {"cross_dot": 2} and k == one
+        sel2, c, k = counted(lambda: select_subset(model, params, x, y, loss, 4, method=method,
+                                                   microbatches=2))
+        assert c == {"cross_dot": 6} and k == two
+        assert sel.indices.tolist() == sel2.indices.tolist()
+    batch = {"inputs": x, "labels": y}
+    for solver, want in (("kernel", {"cross_dot": 2}), ("cg", {})):
+        opt, step = make_cg_ngd_step(model, loss, lr=0.1, damping=1.0, solver=solver)
+        (_, _, m), c, k = counted(lambda: step(params, opt.init(params), batch, 0))
+        assert c == want and torch.isfinite(m["loss"])
 
 
 # -- attention and WKV (the language models' serving path) --------------------

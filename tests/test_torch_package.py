@@ -6,8 +6,8 @@
   triton: kernels are built and loaded only when they launch.
 * A CUDA request without a card raises; nothing carries on on the CPU.
 * ``chip_smoke.py`` fails without a card, and outside a checkout.
-* The examples and the serving launcher run with ``--device cpu``, and ask
-  for the card by default.
+* The examples and the serving and NTK-consumer launchers run with
+  ``--device cpu``, and ask for the card by default.
 """
 import ast
 import os
@@ -46,12 +46,16 @@ def test_boundary_covers_every_subpackage():
     for pkg in ("repro_torch.core", "repro_torch.kernels", "repro_torch.laplace",
                 "repro_torch.curv", "repro_torch.optim", "repro_torch.train",
                 "repro_torch.nn", "repro_torch.serve", "repro_torch.launch",
-                "repro_torch.configs"):
+                "repro_torch.configs", "repro_torch.ntk_apps"):
         assert pkg in MODULES
     for mod in ("repro_torch.nn.functional", "repro_torch.nn.blocks", "repro_torch.nn.wired",
                 "repro_torch.nn.models", "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.configs.hymba_1_5b", "repro_torch.kernels.flash_attention",
-                "repro_torch.kernels.wkv"):
+                "repro_torch.kernels.wkv", "repro_torch.curv.products", "repro_torch.curv.cg",
+                "repro_torch.curv.logdet", "repro_torch.curv.ngd",
+                "repro_torch.ntk_apps.regression", "repro_torch.ntk_apps.influence",
+                "repro_torch.ntk_apps.selection", "repro_torch.optim.matfree",
+                "repro_torch.launch.ntk_apps"):
         assert mod in MODULES
 
 
@@ -179,3 +183,20 @@ def test_serve_launcher_asks_for_the_card_by_default(monkeypatch):
         serve.main(["--arch", "hymba-1.5b"])
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 13"):
         serve.main(["--arch", "hymba-1.5b", "--device", "cpu", "--uncertainty"])
+
+
+def test_ntk_apps_launcher_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.ntk_apps", "--gp",
+                           "--device", "cpu", "--n-train", "24", "--n-test", "6"],
+                          env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "[gp] on cpu: solver=cholesky" in proc.stdout
+
+
+def test_ntk_apps_launcher_asks_for_the_card_by_default(monkeypatch):
+    from repro_torch.launch import ntk_apps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device was requested"):
+        ntk_apps.main(["--gp"])
