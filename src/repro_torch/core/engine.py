@@ -463,6 +463,9 @@ def _combine_kron(curv_stats, kron_a_stats, name):
                     entry["A"] = a_node[k]
                 out[k] = entry
             return out
+        if isinstance(b_node, dict):  # a Wired module's children by name
+            return {k: rec(v, a_node.get(k) if isinstance(a_node, dict) else None)
+                    for k, v in b_node.items()}
         if isinstance(b_node, (tuple, list)):
             a_children = (a_node if isinstance(a_node, (tuple, list))
                           else (None,) * len(b_node))

@@ -108,13 +108,13 @@ class CrossEntropyLoss:
     def value(self, z, y):
         mask, m = self._mask_and_m(y)
         logp = torch.log_softmax(_f32(z), dim=-1)
-        picked = torch.gather(logp, -1, y.clamp_min(0)[..., None])[..., 0]
+        picked = torch.gather(logp, -1, y.long().clamp_min(0)[..., None])[..., 0]
         return -(picked * mask).sum() / m
 
     def grad(self, z, y):
         mask, m = self._mask_and_m(y)
         p = torch.softmax(_f32(z), dim=-1)
-        onehot = F.one_hot(y.clamp_min(0), z.shape[-1]).to(p.dtype)
+        onehot = F.one_hot(y.long().clamp_min(0), z.shape[-1]).to(p.dtype)
         g = (p - onehot) * mask[..., None] / m
         return g.to(z.dtype)
 

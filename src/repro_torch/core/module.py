@@ -64,13 +64,16 @@ def resolve_device(device) -> torch.device:
 def normal_param(shape, scale, device, generator=None,
                  dtype=torch.float32) -> nn.Parameter:
     """A frozen parameter of N(0, scale²) entries drawn from ``generator``
-    (a CPU generator; the draws do not depend on ``device``), drawn in
-    float32 and cast to ``dtype`` as JAX's ``init`` does.  On the ``meta``
-    device nothing is drawn (shapes only: ``ModelConfig.param_count``)."""
+    on the generator's device (a CPU generator: the draws do not depend on
+    ``device``; a CUDA one draws a large model on the card in a fraction of
+    the time), drawn in float32 and cast to ``dtype`` as JAX's ``init``
+    does.  On the ``meta`` device nothing is drawn (shapes only:
+    ``ModelConfig.param_count``)."""
     device = resolve_device(device)
     if device.type == "meta":
         return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
-    w = torch.randn(shape, generator=generator) * scale
+    w = torch.randn(shape, generator=generator,
+                    device=None if generator is None else generator.device) * scale
     return nn.Parameter(w.to(dtype).to(device), requires_grad=False)
 
 
@@ -584,14 +587,49 @@ class Dense(Module):
 
 
 # ---------------------------------------------------------------------------
-# Embedding and RMSNorm (the language models' serving side; their BackPACK
-# sweeps come with BackPACK on language models)
+# Embedding and the norms
 # ---------------------------------------------------------------------------
+
+
+def _per_sample_vector_stats(per_sample, names, cfg):
+    """First-order stats of a parameter leaf whose per-sample gradients
+    ``per_sample`` [N, ...] are formed outright (the norms' gains and
+    biases, the Embedding's rows)."""
+    stats = {}
+    sq = per_sample * per_sample
+    if "batch_grad" in names:
+        stats["batch_grad"] = per_sample
+    if "second_moment" in names or "variance" in names:
+        stats["_sum_grad2"] = sq.sum(0)
+    if "batch_l2" in names:
+        stats["batch_l2"] = sq.reshape(sq.shape[0], -1).sum(-1)
+    if "batch_dot" in names:
+        stats["batch_dot"] = _pairwise_rows(per_sample, _pair_split(cfg))
+    return stats
+
+
+def _leafwise(per_leaf):
+    """{leaf: {ext: stat}} → {ext: {leaf: stat}}."""
+    out = {}
+    for leaf, st in per_leaf.items():
+        for k, v in st.items():
+            out.setdefault(k, {})[leaf] = v
+    return out
+
+
+def _norm_diag_name(ext_prefix):
+    return "diag_ggn_mc" if ext_prefix == "mc" else "diag_ggn"
 
 
 class Embedding(Module):
     """Token embedding lookup; input int tokens [N, T] -> [N, T, d]; ``w``
-    is ``[vocab, d]``, drawn at scale d^-1/2 unless ``scale`` is given."""
+    is ``[vocab, d]``, drawn at scale d^-1/2 unless ``scale`` is given.
+
+    The sweeps scatter-add the cotangent rows into the token rows, as
+    ``src/repro/core/module.py:753-808`` does: the per-sample gradients
+    ``[N, V, d]`` for the first-order statistics, ``[N, V, d]`` a factor
+    column for the GGN diagonal, the token counts for KFAC's diagonal A.
+    The input has no cotangent (``None``)."""
 
     def __init__(self, vocab, d, dtype=torch.float32, scale=None, device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -606,10 +644,63 @@ class Embedding(Module):
     def call(self, params, x):
         return params["w"][x]
 
+    def _scatter(self, tok, rows):
+        """Per-sample scatter: tok [N, T], rows [N, T, d] → [N, V, d] f32."""
+        n = tok.shape[0]
+        out = torch.zeros((n, self.vocab, self.d), dtype=torch.float32, device=rows.device)
+        sample = torch.arange(n, device=tok.device)[:, None].expand(tok.shape)
+        out.index_put_((sample.reshape(-1), tok.reshape(-1).long()),
+                       _f32(rows).reshape(-1, self.d), accumulate=True)
+        return out
+
+    def _counts(self, tok):
+        counts = torch.zeros((self.vocab,), dtype=torch.float32, device=tok.device)
+        counts.index_add_(0, tok.reshape(-1).long(),
+                          torch.ones(tok.numel(), dtype=torch.float32, device=tok.device))
+        return counts / float(tok.numel())
+
+    def backward(self, params, tape, g, exts, cfg):
+        tok = tape
+        gw = torch.zeros((self.vocab, self.d), dtype=torch.float32, device=g.device)
+        gw.index_add_(0, tok.reshape(-1).long(), _f32(g).reshape(-1, self.d))
+        grads = {"w": gw.to(params["w"].dtype)}
+        names = {e.name for e in exts}
+        stats = {}
+        # JAX's set: BatchDot alone leaves the table's rows out too.
+        if names & {"batch_grad", "batch_l2", "second_moment", "variance"}:
+            stats = {k: {"w": v} for k, v in
+                     _per_sample_vector_stats(self._scatter(tok, g), names, cfg).items()}
+        if "kfac" in names or "kflr" in names:
+            stats["_kron_a"] = {"w": self._counts(tok)}  # diagonal A
+        return None, grads, stats
+
+    def jac_t_mat(self, params, tape, M):
+        return None
+
+    def curv_backward(self, params, tape, S, exts, cfg, ext_prefix):
+        tok = tape
+        names = {e.name for e in exts}
+        stats = {}
+        diag_name = _norm_diag_name(ext_prefix)
+        kron_name = "kfac" if ext_prefix == "mc" else "kflr"
+        if diag_name in names:
+            diag = torch.zeros((self.vocab, self.d), dtype=torch.float32, device=S.device)
+            for c in range(S.shape[0]):  # one [N, V, d] scatter a factor column
+                pg = self._scatter(tok, S[c])
+                diag += (pg * pg).sum(0)
+            stats[diag_name] = {"w": diag}
+        if kron_name in names:
+            Sf = _f32(S).reshape(-1, self.d)
+            b_fac = (Sf.T @ Sf) * float(S.shape[2])
+            stats[kron_name] = {"w": {"A_diag": self._counts(tok), "B": b_fac}}
+        return None, stats
+
 
 class RMSNorm(Module):
     """x / rms(x) · g, the mean square taken in float32 and the normalised x
-    cast back to x's dtype before the gain, as JAX's ``_norm`` does."""
+    cast back to x's dtype before the gain, as JAX's ``_norm`` does.  The
+    tape is (x̂, r); the sweeps are ``src/repro/core/module.py:830-876``'s
+    closed forms."""
 
     def __init__(self, d, eps=1e-6, dtype=torch.float32, device="cuda"):
         super().__init__()
@@ -619,10 +710,113 @@ class RMSNorm(Module):
     def params(self):
         return {"g": self.g}
 
-    def call(self, params, x):
+    def _norm(self, x):
         xf = _f32(x)
         r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + self.eps)
-        return (xf * r).to(x.dtype) * params["g"]
+        return (xf * r).to(x.dtype), r
+
+    def call(self, params, x):
+        return self._norm(x)[0] * params["g"]
+
+    def forward_tape(self, params, x):
+        xh, r = self._norm(x)
+        return xh * params["g"], (xh, r)
+
+    def _vjp_x(self, params, tape, M):
+        """The input cotangent of cotangents M [..., *x.shape]."""
+        xh, r = tape
+        u = _f32(M) * _f32(params["g"])
+        xhf = _f32(xh)
+        return (r * (u - xhf * (xhf * u).mean(dim=-1, keepdim=True))).to(M.dtype)
+
+    def backward(self, params, tape, g, exts, cfg):
+        xh, _ = tape
+        per_sample = (_f32(xh).reshape(xh.shape[0], -1, self.d)
+                      * _f32(g).reshape(g.shape[0], -1, self.d)).sum(1)  # [N, d]
+        grads = {"g": per_sample.sum(0).to(params["g"].dtype)}
+        names = {e.name for e in exts}
+        stats = {k: {"g": v} for k, v in
+                 _per_sample_vector_stats(per_sample, names, cfg).items()}
+        return self._vjp_x(params, tape, g), grads, stats
+
+    def jac_t_mat(self, params, tape, M):
+        return self._vjp_x(params, tape, M)
+
+    def curv_backward(self, params, tape, S, exts, cfg, ext_prefix):
+        xh, _ = tape
+        stats = {}
+        diag_name = _norm_diag_name(ext_prefix)
+        if diag_name in {e.name for e in exts}:
+            t = torch.einsum("nrd,cnrd->cnd", _f32(xh).reshape(xh.shape[0], -1, self.d),
+                             _f32(S).reshape(tuple(S.shape[:2]) + (-1, self.d)))
+            stats[diag_name] = {"g": (t * t).sum(dim=(0, 1))}
+        return self.jac_t_mat(params, tape, S), stats
+
+
+class LayerNorm(Module):
+    """(x − mean) / sqrt(var + eps) · g + b, mean and variance in float32 and
+    the normalised x cast back to x's dtype before the affine step, as JAX's
+    ``LayerNorm._norm`` (``src/repro/core/module.py:932-1024``).  ``g``
+    (ones) and ``b`` (zeros).  The tape is x; JAX takes ``backward`` and
+    ``jac_t_mat`` from ``jax.vjp``, the port writes their closed form."""
+
+    def __init__(self, d, eps=1e-5, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.d, self.eps = d, eps
+        self.g = full_param((d,), 1.0, device, dtype)
+        self.b = zeros_param((d,), device, dtype)
+
+    def params(self):
+        return {"b": self.b, "g": self.g}
+
+    def _stats(self, x):
+        """(x̂ in float32, 1/σ) of x."""
+        xf = _f32(x)
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        rstd = torch.rsqrt(var + self.eps)
+        return (xf - mu) * rstd, rstd
+
+    def _norm(self, x):
+        return self._stats(x)[0].to(x.dtype)
+
+    def call(self, params, x):
+        return self._norm(x) * params["g"] + params["b"]
+
+    def _vjp_x(self, params, x, M):
+        """The input cotangent of cotangents M [..., *x.shape]."""
+        xh, rstd = self._stats(x)
+        u = _f32(M) * _f32(params["g"])
+        gx = rstd * (u - u.mean(dim=-1, keepdim=True)
+                     - xh * (u * xh).mean(dim=-1, keepdim=True))
+        return gx.to(M.dtype)
+
+    def backward(self, params, tape, g, exts, cfg):
+        x = tape
+        gf = _f32(g).reshape(g.shape[0], -1, self.d)
+        per_g = (_f32(self._norm(x)).reshape(x.shape[0], -1, self.d) * gf).sum(1)
+        per_b = gf.sum(1)
+        grads = {"b": per_b.sum(0).to(params["b"].dtype),
+                 "g": per_g.sum(0).to(params["g"].dtype)}
+        names = {e.name for e in exts}
+        stats = _leafwise({"b": _per_sample_vector_stats(per_b, names, cfg),
+                           "g": _per_sample_vector_stats(per_g, names, cfg)})
+        return self._vjp_x(params, x, g), grads, stats
+
+    def jac_t_mat(self, params, tape, M):
+        return self._vjp_x(params, tape, M)
+
+    def curv_backward(self, params, tape, S, exts, cfg, ext_prefix):
+        x = tape
+        stats = {}
+        diag_name = _norm_diag_name(ext_prefix)
+        if diag_name in {e.name for e in exts}:
+            Sf = _f32(S).reshape(tuple(S.shape[:2]) + (-1, self.d))
+            t = torch.einsum("nrd,cnrd->cnd",
+                             _f32(self._norm(x)).reshape(x.shape[0], -1, self.d), Sf)
+            sb = Sf.sum(2)
+            stats[diag_name] = {"b": (sb * sb).sum(dim=(0, 1)), "g": (t * t).sum(dim=(0, 1))}
+        return self.jac_t_mat(params, x, S), stats
 
 
 # ---------------------------------------------------------------------------
@@ -799,6 +993,25 @@ def _stack(trees):
     return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
+_PER_SAMPLE_KEYS = ("batch_grad", "batch_l2", "batch_dot")
+
+
+def _swap_sample_axis(stats):
+    """A stack's stats come as [L, N, ...]; per-sample stats mirror the
+    stacked params ([L, ...]) with a *leading* sample axis, i.e. [N, L, ...]."""
+
+    def rec(node, under_ps):
+        if isinstance(node, dict):
+            return {k: rec(v, under_ps or k in _PER_SAMPLE_KEYS) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(rec(c, under_ps) for c in node)
+        if not isinstance(node, torch.Tensor):
+            return node
+        return node.movedim(0, 1) if under_ps else node
+
+    return rec(stats, False)
+
+
 class ScanStack(Module):
     """L homogeneous blocks with their parameters and decode caches stacked
     on a leading layer axis, as JAX's ``vmap``/``lax.scan`` give them (so a
@@ -809,7 +1022,13 @@ class ScanStack(Module):
     ``device`` (each drawing its own weights, which are stacked) and once on
     the ``meta`` device for the template whose ``call`` / ``decode_step`` /
     ``init_cache`` every layer runs with its own slice of the stacked trees.
-    The BackPACK sweeps through a stack come with BackPACK on language models.
+
+    The sweeps (``src/repro/core/module.py:1353-1390``) run the layers in
+    reverse with the cotangent (or factor) as the carry; grads and
+    statistics come stacked ``[L, ...]``, per-sample statistics ``[N, L,
+    ...]``.  The tape is the tuple of the layers' tapes (JAX stacks them;
+    a ``Wired`` block's tape holds its recorded graph, which does not
+    stack).
     """
 
     def __init__(self, make_block: Callable[[object], Module], n_layers: int,
@@ -830,6 +1049,32 @@ class ScanStack(Module):
         for i in range(self.L):
             x = self.block.call(_layer(params, i), x)
         return x
+
+    def forward_tape(self, params, x):
+        tapes = []
+        for i in range(self.L):
+            x, t = self.block.forward_tape(_layer(params, i), x)
+            tapes.append(t)
+        return x, tuple(tapes)
+
+    def backward(self, params, tape, g, exts, cfg):
+        grads, stats = [None] * self.L, [None] * self.L
+        for i in reversed(range(self.L)):
+            g, grads[i], stats[i] = self.block.backward(_layer(params, i), tape[i], g,
+                                                        exts, cfg)
+        return g, _stack(grads), _swap_sample_axis(_stack(stats))
+
+    def jac_t_mat(self, params, tape, M):
+        for i in reversed(range(self.L)):
+            M = self.block.jac_t_mat(_layer(params, i), tape[i], M)
+        return M
+
+    def curv_backward(self, params, tape, S, exts, cfg, ext_prefix):
+        curv = [None] * self.L
+        for i in reversed(range(self.L)):
+            S, curv[i] = self.block.curv_backward(_layer(params, i), tape[i], S, exts, cfg,
+                                                  ext_prefix)
+        return S, _stack(curv)
 
     def decode_step(self, params, x, cache):
         caches = []

@@ -15,6 +15,13 @@ namespace gram {
 constexpr int GT = 128;        // Gram output tile side: two warpgroups of 64 rows x 128
 constexpr int GK = 32;         // k a stage: one 128-byte swizzled row of each tile
 constexpr int GSTAGES = 4;
+// A block's k stages at most where the scratch allows it: one float32
+// accumulator summed over ~100K stages at the LM head's K = 2048 · 100352
+// (softmax − onehot cotangents: a few large squares among many small ones)
+// stopped taking the small ones in, 2.5e-4 off float64; at ≤ 1024 stages
+// 1.1e-6 (PERF.md §6).  No 3C3D shape's plan changes.
+constexpr long long GMAX_STEPS = 1024;
+constexpr long long GMAX_PARTIAL_FLOATS = 1LL << 28;  // the split-K scratch: 1 GiB
 constexpr int GTHREADS = 256;  // two warpgroups; thread 0 also issues the copies
 constexpr int TILE_BYTES = GT * GK * 4;        // 16 KB
 constexpr int STAGE_BYTES = 3 * TILE_BYTES;    // G1 rows, G2 rows (hi in place), G2 lo
@@ -31,21 +38,27 @@ struct GramPlan {
 };
 
 // SYM: only the tiles on and above the diagonal.  K is cut into the number
-// of splits (at least 256 k each) whose blocks fill the card's waves best
-// (one block an SM): the fewest waves a split's work, the fewest splits on
-// a tie.
+// of splits (at least 256 k each, and at least enough that a block takes
+// ≤ GMAX_STEPS stages while the partials fit GMAX_PARTIAL_FLOATS) whose
+// blocks fill the card's waves best (one block an SM): the fewest waves a
+// split's work, the fewest splits on a tie.
 inline GramPlan gram_plan(int E, int N1, int N2, long long K, bool sym) {
   GramPlan p;
   p.tiles1 = (int)bp::cdiv(N1, GT);
   p.tiles2 = (int)bp::cdiv(N2, GT);
   p.tiles = sym ? p.tiles1 * (p.tiles1 + 1) / 2 : p.tiles1 * p.tiles2;
+  long long least = bp::cdiv(K, GMAX_STEPS * GK);
+  const long long fit = GMAX_PARTIAL_FLOATS / ((long long)E * N1 * N2);
+  if (least > fit) least = fit > 1 ? fit : 1;
   long long most = bp::cdiv(K, 8 * GK);
   if (most > 64) most = 64;
+  if (most < least) most = least;
   if (most > 65535 / E) most = 65535 / E;  // gridDim.z = E · splits
+  if (least > most) least = most;
   const long long blocks = (long long)E * p.tiles, slots = bp::num_sms();
-  long long best = 1;
-  double best_cost = (double)bp::cdiv(blocks, slots);
-  for (long long s = 2; s <= most; ++s) {
+  long long best = least > 1 ? least : 1;
+  double best_cost = (double)bp::cdiv(blocks * best, slots) / (double)best;
+  for (long long s = best + 1; s <= most; ++s) {
     const double cost = (double)bp::cdiv(blocks * s, slots) / (double)s;
     if (cost < best_cost) best = s, best_cost = cost;
   }

@@ -8,6 +8,16 @@ The counterpart of the JAX registry's ``dispatch`` and ``_interpret``
   use), or raises — there is no fallback;
 * any other device raises.
 
+Attention and WKV also have a gradient on the card: each kernel is launched
+from the forward of a ``torch.autograd.Function`` whose backward recomputes
+the plain version and takes its vector-Jacobian product (the JAX package
+has no Pallas backward either: XLA differentiates its plain ``sdpa`` and
+``wkv_chunked``).  Attention's backward goes in blocks of
+``ATTN_GRAD_Q_CHUNK`` queries, so that no [T, S] matrix of all pairs is
+kept.  A call launches the kernel once whether or not it needs a gradient,
+never the plain version in its place.  On the CPU autograd reaches the
+plain versions directly.
+
 Each kernel has a launch counter, a plain integer that the wrapper raises by
 one where it launches the kernel and nowhere else; :func:`launch_counts`
 reads them and :func:`reset_launch_counts` sets them to 0, so a run can show
@@ -178,19 +188,97 @@ def predictive_var(A: torch.Tensor, S: torch.Tensor, Sigma=None) -> torch.Tensor
     return out
 
 
+ATTN_GRAD_Q_CHUNK = 512  # queries a block of attention's backward (sdpa_chunked's q_chunk)
+
+
+def _vjp_of_plain(fn, xs, gouts):
+    """Cotangents of ``fn(*xs)``'s outputs ``gouts`` (None: no cotangent)
+    pulled back to the tensors of ``xs`` that are not None, by autograd
+    through the plain version recomputed on detached copies."""
+    with torch.enable_grad():
+        leaves = [None if x is None else x.detach().requires_grad_(x.is_floating_point())
+                  for x in xs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, gouts) if g is not None]
+        wrt = [x for x in leaves if x is not None and x.requires_grad]
+        gs = torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                 allow_unused=True)
+    it = iter(gs)
+    return [None if x is None or not x.requires_grad else next(it) for x in leaves]
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The ``flash_attention`` kernel forward; the plain version's VJP,
+    block by block of queries, backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, k_positions, kw):
+        ctx.save_for_backward(q, k, v, q_positions, k_positions)
+        ctx.kw = kw
+        out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   q_positions=q_positions, k_positions=k_positions, **kw)
+        _LAUNCHES["flash_attention"] += 1
+        return out
+
+    @staticmethod
+    @torch.profiler.record_function("flash_attention_backward")
+    def backward(ctx, gout):
+        q, k, v, qp, kp = ctx.saved_tensors
+        t = q.shape[1]
+        qp = qp if qp is not None else torch.arange(t, device=q.device)
+        dq = torch.empty_like(q) if ctx.needs_input_grad[0] else None
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for lo in range(0, t, ATTN_GRAD_Q_CHUNK):
+            hi = min(t, lo + ATTN_GRAD_Q_CHUNK)
+
+            def block(qb, kb, vb, _qp=qp[lo:hi]):
+                return ref.flash_attention(qb, kb, vb, q_positions=_qp, k_positions=kp,
+                                           **ctx.kw)
+
+            gq, gk, gv = _vjp_of_plain(block, (q[:, lo:hi], k, v), (gout[:, lo:hi],))
+            if dq is not None:
+                dq[:, lo:hi] = gq
+            dk += gk.float()
+            dv += gv.float()
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+class _WkvFn(torch.autograd.Function):
+    """The ``wkv`` kernel forward; the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, state0, chunk):
+        ctx.save_for_backward(r, k, v, log_w, u, state0)
+        ctx.chunk = chunk
+        out = wkv_cuda(r.contiguous(), k.contiguous(), v.contiguous(), log_w.contiguous(), u,
+                       None if state0 is None else state0.contiguous(), chunk)
+        _LAUNCHES["wkv"] += 1
+        return out
+
+    @staticmethod
+    @torch.profiler.record_function("wkv_backward")
+    def backward(ctx, gy, gstate):
+        xs = ctx.saved_tensors
+
+        def plain(r, k, v, log_w, u, state0):
+            return ref.wkv(r, k, v, log_w, u, state0, ctx.chunk)
+
+        return tuple(_vjp_of_plain(plain, xs, (gy, gstate))) + (None,)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
                     k_positions=None, scale=None) -> torch.Tensor:
     """Causal, sliding-window GQA attention (``nn/functional.sdpa``): q
     [N, T, H, dh], k/v [N, S, KV, dh] → [N, T, H, dh] in q's dtype, with
     optional positions q_positions [T] / k_positions [S] (slots < 0 empty)."""
-    kw = dict(causal=causal, window=window, q_positions=q_positions,
-              k_positions=k_positions, scale=scale)
+    kw = dict(causal=causal, window=window, scale=scale)
     xs = [x for x in (q, k, v, q_positions, k_positions) if x is not None]
     if not _on_card("flash_attention", *xs):
-        return ref.flash_attention(q, k, v, **kw)
-    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
-    _LAUNCHES["flash_attention"] += 1
-    return out
+        return ref.flash_attention(q, k, v, q_positions=q_positions, k_positions=k_positions,
+                                   **kw)
+    return _FlashAttentionFn.apply(q, k, v, q_positions, k_positions, kw)
 
 
 def wkv(r, k, v, log_w, u=None, state0=None, chunk=16):
@@ -201,7 +289,4 @@ def wkv(r, k, v, log_w, u=None, state0=None, chunk=16):
     xs = [x for x in (r, k, v, log_w, u, state0) if x is not None]
     if not _on_card("wkv", *xs):
         return ref.wkv(r, k, v, log_w, u, state0, chunk)
-    out = wkv_cuda(r.contiguous(), k.contiguous(), v.contiguous(), log_w.contiguous(), u,
-                   None if state0 is None else state0.contiguous(), chunk)
-    _LAUNCHES["wkv"] += 1
-    return out
+    return _WkvFn.apply(r, k, v, log_w, u, state0, chunk)

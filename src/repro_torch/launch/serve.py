@@ -3,11 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --batch 4 --prompt-len 8 --max-len 64 [--full] [--device cpu]
 
-Port of ``src/repro/launch/serve.py`` for decoder-only archs.  Without
+Port of ``src/repro/launch/serve.py`` for the decoder-only archs the port
+builds (the dense ones, e.g. ``--arch stablelm-1.6b``, and Hymba).  Without
 ``--full`` the arch's ``reduced()`` config is served; weights are random,
 drawn from ``--seed``.  It runs on the card unless ``--device cpu`` is given.
 ``--uncertainty`` (a last-layer Laplace endpoint on synthetic calibration
-data) waits for ROADMAP queue A item 13.
+data) waits for ROADMAP queue A item 13.7.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def main(argv=None):
 
     if args.uncertainty:
         raise NotImplementedError("--uncertainty (LastLayerLaplace on an LM head with "
-                                  "data/synthetic) is still to port: ROADMAP queue A item 13")
+                                  "data/synthetic) is still to port: ROADMAP queue A item 13.7")
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()

@@ -1,16 +1,18 @@
 """Decoder blocks as ``Wired`` modules.
 
-Port of ``src/repro/nn/blocks.py``: ``AttnBlock`` (GQA attention with RoPE and
-a GLU feed-forward, RMSNorm) and ``HymbaBlock`` (parallel attention and SSD
-heads sharing one block), each with its full-sequence ``wire`` and its
-single-token ``wire_step`` against a KV cache (a ring of ``window`` slots in
-the sliding-window layers) and, for Hymba, the SSD state.  One block = one
+Port of ``src/repro/nn/blocks.py``: ``AttnBlock`` (GQA attention with full or
+partial RoPE, optional qkv biases, a GLU or plain feed-forward, RMSNorm or
+LayerNorm) and ``HymbaBlock`` (parallel attention and SSD heads sharing one
+block), each with its full-sequence ``wire`` and its single-token
+``wire_step`` against a KV cache (a ring of ``window`` slots in the
+sliding-window layers) and, for Hymba, the SSD state.  One block = one
 decoder layer, so a layer stack is a single homogeneous ``ScanStack``.
 
-Every parameter lives in a Dense / RMSNorm / Param child, in the JAX layout.
-Attention is ``functional.sdpa`` (``attn_impl="naive"``, the JAX default),
-which the card runs in the ``flash_attention`` kernel; the SSD scan is
-``functional.wkv_chunked``, which it runs in the ``wkv`` kernel.
+Every parameter lives in a Dense / norm / Param child, in the JAX layout.
+Attention is ``functional.sdpa`` (``attn_impl="naive"``, the JAX default) or
+``functional.sdpa_chunked`` (``"chunked"``), both of which the card runs in
+the ``flash_attention`` kernel; the SSD scan is ``functional.wkv_chunked``,
+which it runs in the ``wkv`` kernel.
 """
 from __future__ import annotations
 
@@ -19,18 +21,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as TF
 
-from repro_torch.core.module import Dense, RMSNorm
+from repro_torch.core.module import Dense, LayerNorm, RMSNorm
 from repro_torch.nn import functional as F
 from repro_torch.nn.layers import Param
 from repro_torch.nn.wired import Wired
 
-ROADMAP_ITEM = "ROADMAP queue A item 13"
-
 
 def _norm(kind, d, dtype, device):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm={kind!r}: LayerNorm is still to port ({ROADMAP_ITEM})")
-    return RMSNorm(d, dtype=dtype, device=device)
+    if kind == "rmsnorm":
+        return RMSNorm(d, dtype=dtype, device=device)
+    return LayerNorm(d, dtype=dtype, device=device)
 
 
 def _gelu(x):
@@ -42,7 +42,7 @@ def _act(name):
 
 
 # ---------------------------------------------------------------------------
-# dense attention + GLU FFN decoder layer
+# dense attention + (G)LU FFN decoder layer
 # ---------------------------------------------------------------------------
 
 
@@ -53,46 +53,62 @@ class AttnBlock(Wired):
                  attn_impl="naive", dtype=torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if rope_pct != 1.0 or qkv_bias or not glu:
-            raise NotImplementedError("partial RoPE, qkv bias and non-GLU feed-forwards are "
-                                      f"still to port ({ROADMAP_ITEM})")
-        if attn_impl != "naive":
-            raise NotImplementedError(f"attn_impl={attn_impl!r}: sdpa_chunked comes with "
-                                      f"training on language models ({ROADMAP_ITEM})")
+        if attn_impl not in ("naive", "chunked"):
+            raise ValueError(f"attn_impl must be 'naive' or 'chunked', got {attn_impl!r}")
         self.h, self.kv = n_heads, kv_heads
         self.dh = dh = head_dim or d // n_heads
         self.causal, self.window = causal, window
+        self.attn_impl = attn_impl
         self.act = _act(act)
-        self.rope_theta = rope_theta
-        kw = dict(use_bias=False, dtype=dtype, device=device, generator=generator)
-        self.set_children({
+        self.glu = glu
+        self.rope_theta, self.rope_pct = rope_theta, rope_pct
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        ch = {
             "ln1": _norm(norm, d, dtype, device),
-            "wq": Dense(d, n_heads * dh, **kw),
-            "wk": Dense(d, kv_heads * dh, **kw),
-            "wv": Dense(d, kv_heads * dh, **kw),
-            "wo": Dense(n_heads * dh, d, **kw),
+            "wq": Dense(d, n_heads * dh, use_bias=qkv_bias, **kw),
+            "wk": Dense(d, kv_heads * dh, use_bias=qkv_bias, **kw),
+            "wv": Dense(d, kv_heads * dh, use_bias=qkv_bias, **kw),
+            "wo": Dense(n_heads * dh, d, use_bias=False, **kw),
             "ln2": _norm(norm, d, dtype, device),
-            "w_gate": Dense(d, d_ff, **kw),
-            "w_up": Dense(d, d_ff, **kw),
-            "w_down": Dense(d_ff, d, **kw),
-        })
+        }
+        if glu:
+            ch["w_gate"] = Dense(d, d_ff, use_bias=False, **kw)
+            ch["w_up"] = Dense(d, d_ff, use_bias=False, **kw)
+            ch["w_down"] = Dense(d_ff, d, use_bias=False, **kw)
+        else:
+            ch["w_up"] = Dense(d, d_ff, use_bias=True, **kw)
+            ch["w_down"] = Dense(d_ff, d, use_bias=True, **kw)
+        self.set_children(ch)
+
+    def _rope(self, x, positions):
+        """RoPE on the first ``rot = ⌊dh·rope_pct⌋`` (rounded down to even)
+        dims of each head, with the frequencies of a rot-wide head; the rest
+        passes through."""
+        if self.rope_pct >= 1.0:
+            return F.apply_rope(x, positions, self.rope_theta)
+        rot = int(self.dh * self.rope_pct)
+        rot -= rot % 2
+        return torch.cat([F.apply_rope(x[..., :rot], positions, self.rope_theta),
+                          x[..., rot:]], dim=-1)
 
     def _attend(self, call, x, positions):
         n, t = x.shape[:2]
         q = call("wq", x).reshape(n, t, self.h, self.dh)
         k = call("wk", x).reshape(n, t, self.kv, self.dh)
         v = call("wv", x).reshape(n, t, self.kv, self.dh)
-        q = F.apply_rope(q, positions, self.rope_theta)
-        k = F.apply_rope(k, positions, self.rope_theta)
-        return q, k, v
+        return self._rope(q, positions), self._rope(k, positions), v
 
     def _ffn(self, call, x):
         h = call("ln2", x)
-        y = self.act(call("w_gate", h)) * call("w_up", h)
+        if self.glu:
+            y = self.act(call("w_gate", h)) * call("w_up", h)
+        else:
+            y = self.act(call("w_up", h))
         return x + call("w_down", y)
 
     def _sdpa(self, q, k, v):
-        return F.sdpa(q, k, v, causal=self.causal, window=self.window)
+        fn = F.sdpa_chunked if self.attn_impl == "chunked" else F.sdpa
+        return fn(q, k, v, causal=self.causal, window=self.window)
 
     def wire(self, call, params, x):
         n, t = x.shape[:2]

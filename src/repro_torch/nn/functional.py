@@ -1,12 +1,12 @@
 """Parameter-free mixing primitives used inside ``Wired.wire`` functions.
 
-Port of ``src/repro/nn/functional.py`` (RoPE, ``sdpa``, ``wkv_chunked``,
-``wkv_step``, ``cache_update``).  JAX's dtype rules are kept: the mixing is
+Port of ``src/repro/nn/functional.py`` (RoPE, ``sdpa``, ``sdpa_chunked``,
+``wkv_chunked``, ``wkv_step``, ``cache_update``).  JAX's dtype rules are kept: the mixing is
 computed in float32 and returned in the input's dtype, masked logits are
 −1e30, ``log_w`` is clipped to [−60, −1e−6].  ``sdpa`` and ``wkv_chunked`` go
 through the kernel dispatch (:mod:`repro_torch.kernels.ops`): on the card the
-hand-written ``flash_attention`` and ``wkv`` kernels, on the CPU their plain
-versions.  A decode position ``pos`` is a Python int or a 0-dimensional
+hand-written ``flash_attention`` and ``wkv`` kernels (with a gradient where
+autograd asks for one), on the CPU their plain versions.  A decode position ``pos`` is a Python int or a 0-dimensional
 integer tensor on the activations' device.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF
 
 
 # ---------------------------------------------------------------------------
@@ -58,6 +59,60 @@ def sdpa(q, k, v, *, causal=True, window=None, q_positions=None,
     return kops.flash_attention(q, k, v, causal=causal, window=window,
                                 q_positions=q_positions, k_positions=k_positions,
                                 scale=scale)
+
+
+def sdpa_chunked(q, k, v, *, causal=True, window=None, q_positions=None,
+                 k_positions=None, scale=None, q_chunk=512, k_chunk=1024):
+    """``sdpa`` in blocks of ``q_chunk`` queries and ``k_chunk`` keys, with
+    an online softmax over the key blocks (JAX's flash-attention-style
+    ``sdpa_chunked``): no [T, S] matrix of all pairs.  On the card it is the
+    same ``flash_attention`` kernel as :func:`sdpa`, which never forms one
+    either; on the CPU this loop (the chunks shrink to divisors of T and S,
+    as in JAX)."""
+    xs = [x for x in (q, k, v, q_positions, k_positions) if x is not None]
+    if kops._on_card("flash_attention", *xs):
+        return sdpa(q, k, v, causal=causal, window=window, q_positions=q_positions,
+                    k_positions=k_positions, scale=scale)
+    n, t, h, dh = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g, dv = h // kv, v.shape[-1]
+    scale = scale if scale is not None else dh ** -0.5
+    qp = q_positions if q_positions is not None else torch.arange(t, device=q.device)
+    kp = k_positions if k_positions is not None else torch.arange(s, device=q.device)
+    qp, kp = qp.long(), kp.long()
+    cq = min(q_chunk, t)
+    while t % cq:
+        cq -= 1
+    ck = min(k_chunk, s)
+    while s % ck:
+        ck -= 1
+    outs = []
+    for lo in range(0, t, cq):
+        qi = q[:, lo:lo + cq].reshape(n, cq, kv, g, dh).float()
+        qpos = qp[lo:lo + cq]
+        m = torch.full((n, kv, g, cq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((n, kv, g, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((n, kv, g, cq, dv), dtype=torch.float32, device=q.device)
+        for ko in range(0, s, ck):
+            kpos = kp[ko:ko + ck]
+            logits = torch.einsum("ntkgd,nskd->nkgts", qi, k[:, ko:ko + ck].float()) * scale
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                mask &= (qpos[:, None] - kpos[None, :]) < window
+            mask &= kpos[None, :] >= 0
+            logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+            m_new = torch.maximum(m, logits.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("nkgts,nskd->nkgtd", p,
+                                                       v[:, ko:ko + ck].float())
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]          # [n, kv, g, cq, dv]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(n, cq, h, dv))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

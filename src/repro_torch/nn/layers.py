@@ -204,3 +204,12 @@ class Param(Module):
 
     def call(self, params, x):
         return params["v"]
+
+    def backward(self, params, tape, g, exts, cfg):
+        return None, {"v": g.to(params["v"].dtype)}, {}
+
+    def jac_t_mat(self, params, tape, M):
+        return None
+
+    def curv_backward(self, params, tape, S, exts, cfg, ext_prefix):
+        return None, {}

@@ -4,8 +4,9 @@ zoo.
 Port of ``src/repro/nn/models.py`` (``TokenEmbed``, ``CausalLM``,
 ``_expand_segments``, ``make_stacks``, ``build_model``).  The same module tree
 serves the full-sequence forward (``call``, the prefill step) and decode
-(``serve_step`` with per-block caches).  Hymba is built; the other kinds
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+(``serve_step`` with per-block caches) and BackPACK's ``run``.  The dense
+and Hymba kinds are built; the other kinds raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -13,18 +14,43 @@ from typing import List, Optional
 
 import torch
 
-from repro_torch.core.module import Dense, Embedding, Module, RMSNorm, ScanStack, Sequential
-from repro_torch.nn.blocks import HymbaBlock
+from repro_torch.core.module import (
+    Dense,
+    Embedding,
+    LayerNorm,
+    Module,
+    RMSNorm,
+    ScanStack,
+    Sequential,
+)
+from repro_torch.nn.blocks import AttnBlock, HymbaBlock
 from repro_torch.nn.wired import Wired
 
 _STILL_TO_PORT = {
-    "dense": "the dense AttnBlock variants (LayerNorm, partial RoPE, qkv bias, non-GLU) "
-             "and the VLM prefix: ROADMAP queue A item 13",
     "moe_gqa": "BatchedDense / MoE: ROADMAP queue A item 13",
     "moe_mla": "MLA and BatchedDense / MoE: ROADMAP queue A item 13",
     "rwkv": "RWKV6Block with GroupRMSNorm and token_shift: ROADMAP queue A item 13",
     "encdec": "Whisper (encoder-decoder, LayerNorm): ROADMAP queue A item 13",
 }
+
+
+class PrefixEmbed(Wired):
+    """VLM frontend stub: precomputed prefix embeddings concatenated before
+    the token embeddings.  x: {'tokens': [N, Tt] int, 'prefix': [N, P, d]
+    float} → [N, P + Tt, d].  Decode embeds tokens alone
+    (:meth:`embed_tokens`)."""
+
+    def __init__(self, vocab, d, dtype=torch.float32, device="cuda", generator=None):
+        super().__init__()
+        self.set_children({"emb": Embedding(vocab, d, dtype=dtype, device=device,
+                                            generator=generator)})
+
+    def wire(self, call, params, x):
+        toks = call("emb", x["tokens"])
+        return torch.cat([x["prefix"].to(toks.dtype), toks], dim=1)
+
+    def embed_tokens(self, params, tokens):
+        return self.children_map["emb"].call(params["emb"], tokens)
 
 
 class TokenEmbed(Wired):
@@ -105,22 +131,30 @@ def build_model(cfg, attn_impl="naive", device="cuda",
     ``generator`` (a CPU ``torch.Generator``).  JAX's ``remat`` and
     ``seq_constraint`` come with training on language models and the sharded
     lane; its ``wkv_chunk`` with RWKV6 (Hymba scans with chunks of 16)."""
-    if cfg.kind != "hymba":
+    if cfg.kind not in ("hymba", "dense"):
         raise NotImplementedError(f"{cfg.name} (kind {cfg.kind!r}) needs "
                                   f"{_STILL_TO_PORT.get(cfg.kind, 'ROADMAP queue A item 13')}")
     dtype = getattr(torch, cfg.dtype)
     d = cfg.d_model
 
     def mk(w, dev):
-        return HymbaBlock(d, cfg.n_heads, cfg.kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
-                          ssm_state=cfg.ssm_state, window=w, act=cfg.act,
-                          attn_impl=attn_impl, rope_theta=cfg.rope_theta, dtype=dtype,
-                          device=dev, generator=generator)
+        if cfg.kind == "hymba":
+            return HymbaBlock(d, cfg.n_heads, cfg.kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
+                              ssm_state=cfg.ssm_state, window=w, act=cfg.act,
+                              attn_impl=attn_impl, rope_theta=cfg.rope_theta, dtype=dtype,
+                              device=dev, generator=generator)
+        return AttnBlock(d, cfg.n_heads, cfg.kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
+                         window=w, norm=cfg.norm, act=cfg.act, glu=cfg.glu,
+                         rope_theta=cfg.rope_theta, rope_pct=cfg.rope_pct,
+                         qkv_bias=cfg.qkv_bias, attn_impl=attn_impl, dtype=dtype,
+                         device=dev, generator=generator)
 
     segments, repeat = _expand_segments(cfg)
     stacks = make_stacks(mk, segments, repeat, device=device)
-    embed = TokenEmbed(cfg.vocab, d, dtype=dtype, device=device, generator=generator)
-    norm = RMSNorm(d, dtype=dtype, device=device)
+    emb_cls = PrefixEmbed if cfg.frontend == "vision" else TokenEmbed
+    embed = emb_cls(cfg.vocab, d, dtype=dtype, device=device, generator=generator)
+    norm = (RMSNorm(d, dtype=dtype, device=device) if cfg.norm == "rmsnorm"
+            else LayerNorm(d, dtype=dtype, device=device))
     head = Dense(d, cfg.vocab, use_bias=False, dtype=dtype, device=device,
                  generator=generator)
     return CausalLM(embed, stacks, norm, head)

@@ -36,7 +36,13 @@ three slices matches the monolithic run, launching cross_dot on two row sets
 in its pair passes, resumes after an injected failure with the same bits,
 and cross_dot holds at the pair passes' 113 × 113 and 113 × 111 rows.  The
 matrix-free lane's NTK consumers (GP, selection, the Gram NGD step) launch
-cross_dot as derived, on one row set and, in two slices, on two.
+cross_dot as derived, on one row set and, in two slices, on two.  The
+language models' BackPACK path: the attention and WKV autograd Functions'
+backward against autograd through the plain versions (their forward one
+kernel launch), StableLM-2's MHA attention (g = 1, dh 64) in prefill and
+decode, fused_first_order / fused_second_order at the LM's R = T rows (a
+block Dense, the head's b = 100352) against float64, and ``run`` on the
+reduced StableLM-2 and Hymba card against CPU with the launches derived.
 """
 import itertools
 import sys
@@ -1022,3 +1028,160 @@ def test_card_reduced_hymba_serves_like_cpu(cuda):
         assert ops.launch_counts() == {k: 2 if k in ("flash_attention", "wkv") else 0
                                        for k in ops.KERNELS}
         assert _rel(logits, full[:, t]) < CARD_TOL
+
+
+# ---------------------------------------------------------------------------
+# the language models' BackPACK path: gradients through the kernels, g = 1
+# attention, the fused kernels at the LM shapes, the reduced StableLM-2's run
+# ---------------------------------------------------------------------------
+
+
+def _grads_through(fn, xs, seed):
+    xs = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in xs]
+    out = fn(*xs)
+    out = out if isinstance(out, tuple) else (out,)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cot = [torch.randn(o.shape, device="cuda", generator=gen) for o in out]
+    wrt = [x for x in xs if x.requires_grad]
+    return torch.autograd.grad(out, wrt, cot)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["g1_dh64", "g5_window", "g1_t600"])
+def test_card_attention_gradient(cuda, case):
+    """The autograd Function: its forward launches the kernel, its backward
+    (the plain version's VJP in blocks of 512 queries) matches autograd
+    through the plain version (float32, limit 1e-4)."""
+    n, t, kv, g, dh, window = {"g1_dh64": (2, 96, 4, 1, 64, None),
+                               "g5_window": (1, 80, 2, 5, 64, 24),
+                               "g1_t600": (1, 600, 2, 1, 64, None)}[case]
+    q = torch.randn(n, t, kv * g, dh, device="cuda", generator=cuda)
+    k = torch.randn(n, t, kv, dh, device="cuda", generator=cuda)
+    v = torch.randn(n, t, kv, dh, device="cuda", generator=cuda)
+    ops.reset_launch_counts()
+    got = _grads_through(lambda *a: ops.flash_attention(*a, window=window), (q, k, v), 1)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = _grads_through(lambda *a: ref.flash_attention(*a, window=window), (q, k, v), 1)
+    for a, b in zip(got, want):
+        assert _rel(a, b) < CARD_TOL
+
+
+@pytest.mark.gpu
+def test_card_wkv_gradient(cuda):
+    n, t, h, dk, dv = 2, 64, 3, 16, 32
+    r, k = (torch.randn(n, t, h, dk, device="cuda", generator=cuda) for _ in range(2))
+    v = torch.randn(n, t, h, dv, device="cuda", generator=cuda)
+    log_w = -torch.rand(n, t, h, 1, device="cuda", generator=cuda) - 0.05
+    s0 = torch.randn(n, h, dk, dv, device="cuda", generator=cuda)
+    xs = (r, k, v, log_w, None, s0)
+    ops.reset_launch_counts()
+    got = _grads_through(lambda *a: ops.wkv(*a[:4], None, a[4], 16), xs[:4] + xs[5:], 2)
+    assert ops.launch_counts()["wkv"] == 1
+    want = _grads_through(lambda *a: ref.wkv(*a[:4], None, a[4], 16), xs[:4] + xs[5:], 2)
+    for a, b in zip(got, want):
+        assert _rel(a, b) < CARD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["prefill_bf16", "prefill_fp32", "decode"])
+def test_card_flash_attention_mha_dh64(cuda, mode):
+    """StableLM-2's attention: 32 heads over 32 KV heads (g = 1), dh 64."""
+    from repro_torch.kernels.flash_attention import design
+
+    dtype = torch.bfloat16 if mode == "prefill_bf16" else torch.float32
+    t, s = (1, 300) if mode == "decode" else (256, 256)
+    q = torch.randn(2, t, 32, 64, device="cuda", generator=cuda).to(dtype)
+    k = torch.randn(2, s, 32, 64, device="cuda", generator=cuda).to(dtype)
+    v = torch.randn(2, s, 32, 64, device="cuda", generator=cuda).to(dtype)
+    kw = {}
+    if mode == "decode":
+        kw = dict(q_positions=torch.tensor([299], device="cuda", dtype=torch.int32),
+                  k_positions=torch.arange(s, device="cuda", dtype=torch.int32))
+    assert design(q, k, v, None, *kw.values()) == {"prefill_bf16": "wgmma", "prefill_fp32": "simt",
+                                                   "decode": "split"}[mode]
+    got = ops.flash_attention(q, k, v, **kw).float()
+    want = ref.flash_attention(q, k, v, **kw).float()
+    assert _rel(got, want) < (2e-2 if dtype == torch.bfloat16 else CARD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["block_dense", "head_b100352"])
+def test_card_fused_kernels_at_lm_shapes(cuda, shape):
+    """fused_first_order / fused_second_order at the LM's R = T rows: a block
+    Dense, and the head's b = 100352 (off every tile), held to float64."""
+    n, r, a, b = {"block_dense": (2, 128, 256, 704), "head_b100352": (2, 64, 64, 100352)}[shape]
+    A = torch.randn(n, r, a, device="cuda", generator=cuda)
+    B = torch.randn(n, r, b, device="cuda", generator=cuda)
+    mask = dict(want_l2=True, want_moment=True, want_dot=True)
+    got = ops.fused_first_order(A, B, **mask)
+    exact = ref.fused_first_order(A[None], B[None], **mask, dtype=torch.float64)
+    _f64_close("fused_first_order", got, {k: v[0] for k, v in exact.items()})
+    S = B[None]
+    smask = dict(want_diag=True, want_kron=shape == "block_dense", want_trace=True)
+    got = ops.fused_second_order(A, S, **smask)
+    _f64_close("fused_second_order", got,
+               ref.fused_second_order(A, S, **smask, dtype=torch.float64))
+
+
+@pytest.mark.gpu
+def test_card_reduced_stablelm_run_like_cpu(cuda):
+    """BackPACK on the reduced StableLM-2: the first-order extensions and
+    DiagGGN-MC (one set of draws) card against CPU, and the kernels
+    launched as derived: fused_first_order 7 a layer plus the head,
+    fused_second_order as many, flash_attention once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.models import build_model
+
+    cfg = get_config("stablelm-1.6b").reduced()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    params = model.params()
+    toks = torch.randint(0, cfg.vocab, (4, 32), device="cuda", generator=cuda)
+    labels = torch.randint(0, cfg.vocab, (4, 32), device="cuda", generator=cuda)
+    labels[0, :3] = -1
+    draws = torch.randint(0, cfg.vocab, (1, 4, 32), device="cuda", generator=cuda)
+    names = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot",
+             "diag_ggn_mc")
+    exts = tuple(by_name(e) for e in names)
+    ops.reset_launch_counts()
+    res = run(model, params, toks, labels, CrossEntropyLoss(), extensions=exts, rng=draws)
+    launches = ops.launch_counts()
+    layers = cfg.n_layers
+    assert launches == {k: {"fused_first_order": 7 * layers + 1,
+                            "fused_second_order": 7 * layers + 1,
+                            "flash_attention": layers}.get(k, 0) for k in ops.KERNELS}
+    cpu = run(model, tree_map(lambda p: p.cpu(), params), toks.cpu(), labels.cpu(),
+              CrossEntropyLoss(), extensions=exts, rng=draws.cpu())
+    for a, b in zip(tree_leaves(res.grads), tree_leaves(cpu.grads), strict=True):
+        assert _rel(a.cpu(), b) < CARD_TOL
+    for name in names:
+        for a, b in zip(tree_leaves(res[name]), tree_leaves(cpu[name]), strict=True):
+            assert _rel(a.cpu(), b) < CARD_TOL, name
+
+
+@pytest.mark.gpu
+def test_card_reduced_hymba_run_like_cpu(cuda):
+    """BackPACK on the reduced Hymba: the SSD scan's gradient goes through
+    wkv's autograd Function (the kernel forward, once a layer), card against
+    CPU on the first-order extensions and DiagGGN-MC with the draws given."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.models import build_model
+
+    cfg = get_config("hymba-1.5b").reduced()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    params = model.params()
+    toks = torch.randint(0, cfg.vocab, (2, 32), device="cuda", generator=cuda)
+    labels = torch.randint(0, cfg.vocab, (2, 32), device="cuda", generator=cuda)
+    draws = torch.randint(0, cfg.vocab, (1, 2, 32), device="cuda", generator=cuda)
+    names = ("batch_grad", "batch_l2", "variance", "diag_ggn_mc")
+    exts = tuple(by_name(e) for e in names)
+    ops.reset_launch_counts()
+    res = run(model, params, toks, labels, CrossEntropyLoss(), extensions=exts, rng=draws)
+    counts = ops.launch_counts()
+    assert counts["wkv"] == counts["flash_attention"] == cfg.n_layers
+    cpu = run(model, tree_map(lambda p: p.cpu(), params), toks.cpu(), labels.cpu(),
+              CrossEntropyLoss(), extensions=exts, rng=draws.cpu())
+    for a, b in zip(tree_leaves(res.grads), tree_leaves(cpu.grads), strict=True):
+        assert _rel(a.cpu(), b) < CARD_TOL
+    for name in names:
+        for a, b in zip(tree_leaves(res[name]), tree_leaves(cpu[name]), strict=True):
+            assert _rel(a.cpu(), b) < CARD_TOL, name

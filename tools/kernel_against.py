@@ -168,6 +168,9 @@ def main() -> int:
     cases = [c for c in cases if c[1].startswith(tuple(args.rows))]
     rows = []
     for _, label, _, _, xs, kw, *_ in cases:
+        # the wrappers take contiguous tensors (ops makes them so; some rows
+        # hold slices)
+        xs = tuple(x.contiguous() if isinstance(x, torch.Tensor) else x for x in xs)
         outs = {w: outputs(call(w, xs, kw)) for w in libs}
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(outs["older"], outs["this"], strict=True))
