@@ -8,9 +8,9 @@ nvcc per source, all at once) and holds each against its plain PyTorch
 version at the shapes its path gives it: BackPACK's on 3C3D at batch 128,
 Hymba-1.5B's and StableLM-2-1.6B's serving shapes for flash_attention and
 wkv, and the LM run's shapes for fused_first_order, fused_second_order and
-flash_attention.  Then it drives eleven paths through the entry points a
+flash_attention.  Then it drives twelve paths through the entry points a
 user calls, seven on 3C3D (CIFAR-10 shapes, full width, random weights from
-a seed) and four on language models, each with the launch counts set to 0
+a seed) and five on language models, each with the launch counts set to 0
 just before and read just after:
 
 * the main path, ``repro_torch.core.run`` with the ten first-order,
@@ -96,7 +96,24 @@ just before and read just after:
   fused one, KFAC with DiagGGN-MC at a vocabulary of 8192, the reduced
   StableLM-2 and Gemma-3 card against CPU with the MC draws passed in;
   timed and profiled (device time by BackPACK kernels, attention's forward,
-  GEMMs, attention's backward in plain torch and the rest).
+  GEMMs, attention's backward in plain torch and the rest);
+* training language models (``train_lm_phase``): the training launcher
+  ``python -m repro_torch.launch.train --arch stablelm-1.6b --full`` in bf16
+  at 4 × 512 tokens with AdamW and with DiagGGN-MC + ``--track-variance``
+  (the last step lowers the loss of its own batch, read with the weights
+  before and after it; the share of each parameter's entries it moved
+  printed; flash_attention 24 a step, fused_first_order and
+  fused_second_order 169 a step with the MC sweep; steps timed, one
+  profiled, the peak above the start); ``remat`` (the same losses, the
+  gradient pass's peak lower, flash_attention 48 a step); ``cg_ngd`` at full
+  width with 4 layers in float32 (flash_attention through ``torch.func``'s
+  jvp and vjp, 4 + 8 · 11 a step; the GGN symmetric on two random
+  directions); KFAC at full depth with the vocabulary cut to 8192; one
+  ``fit`` step of each optimizer and ``ggn_vp`` / ``hvp`` card against CPU on
+  the reduced config; a restart repeating the uninterrupted losses bit for
+  bit; ``launch.serve --full --uncertainty``; and the examples
+  ``curvature_training`` (98M parameters), ``noise_scale`` and
+  ``laplace_uncertainty``.
 
 The two kernels with a library counterpart (sq_matmul: ``torch.matmul`` of
 the squares; flash_attention: SDPA) are timed in turns with it (kernel,
@@ -104,7 +121,8 @@ library, library, kernel); they and wkv get their device time a call from
 a profiler window, taken after every row's event times so that no event
 time follows a profiler window; flash_attention's rows name the design
 that ran (``flash_attention.design``: "split" for decode, T·g < 64, with its
-split count and scratch bytes; "wgmma" for bf16 prefill at (dh, dv) ∈
+split count and scratch bytes; "wgmma" for bf16 prefill and the training
+launcher's forward at (dh, dv) ∈
 {(64, 64), (128, 128)} and at the other configs' wider heads, (120, 120),
 (192, 128) and (240, 240); "simt" else: float32), and their device time's
 share of the bound.  bf16 attention and wkv outputs are
@@ -143,6 +161,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()  # every printed line carries its seconds since (``at_s``)
 PEAK_FLOPS = 67e12
 PEAK_BF16 = 989e12  # bf16 tensor cores, dense
 PEAK_TF32 = 495e12  # TF32 tensor cores, dense: 3xTF32 runs a float32 product as 3 of these
@@ -192,12 +211,17 @@ ENTRY_TOL = 2.5e-6
 # 1024), 4 prompts of 2048 tokens for prefill, of 32 tokens to 128 for
 # generate; the decode-vs-forward check runs one sequence of 1040 tokens so
 # the window-1024 rings wrap, at 4 layers (global, two windowed, global):
-# at 32 it took ≈ 1 min of the script.
+# at 32 it took ≈ 1 min of the script.  The long-context decode is timed after
+# 1500 tokens fed a serve_step each (the rings wrap; the decode rows of the
+# kernel table sit at the same position).
 SERVE = dict(arch="hymba-1.5b", batch=4, prefill_len=2048, prompt_len=32, max_len=128,
              chain_len=1040, cpu_len=64, layers=32, global_layers=3, window=1024,
              long_pos=1500, long_max_len=2048, kernels=("flash_attention", "wkv"),
              chain_cut=dict(n_layers=4, window_segments=[(None, 1), (1024, 2), (None, 1)]))
-CHAIN_TOL = 1e-3  # decode chain vs full forward, float32 weights, 32 layers
+# decode chain vs full forward, float32 weights: here Hymba's 4-layer cut and the
+# dense chains; Hymba's 32 layers in test_card_hymba_full_depth_chain
+# (tests/test_torch_card.py, gpu-marked)
+CHAIN_TOL = 1e-3
 # The dense serving path: StableLM-2-1.6B at full width and depth (24 layers of
 # MHA, 32 heads of 64, LayerNorm, RoPE on 16 of 64 dims, qkv biases), the same
 # prompts and lengths as Hymba's; its float32 chain needs no ring wrap (no
@@ -227,6 +251,18 @@ DENSE_HEADS_RUN = dict(batch=2, prefill_len=1024, prompt_len=16, max_len=20, cpu
 LM_RUN = dict(arch="stablelm-1.6b", n_layers=4, batch=4, seq=512, masked=6,
               kfac_vocab=8192, cpu_batch=2, cpu_seq=32)
 LM_FIRST = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot")
+# Training language models (train_lm_phase): the launcher on StableLM-2 at full
+# width and depth in bf16, 4 × 512 tokens (AdamW 6 steps, DiagGGN-MC with
+# Variance 4); remat the same plain step; cg_ngd at 4 layers in float32, 3
+# steps of 10 CG iterations (the launcher's lr and damping); KFAC at full depth
+# with the vocabulary cut to 8192 (the head's B would be 100352² × 4 B = 40.3
+# GB, with a 100352² inverse); the reduced config card vs CPU at 2 × 32; the
+# restart at 2 × 32 over 6 steps, failing at step 3; the examples'
+# curvature_training at 10 steps of 8 × 64.
+TRAIN_LM = dict(arch="stablelm-1.6b", seq=512, batch=4, adamw_steps=6, mc_steps=4,
+                cg_layers=4, cg_steps=3, cg_iters=10, cg_lr=0.3, cg_damping=0.1,
+                kfac_vocab=8192, kfac_steps=3, cpu_batch=2, cpu_seq=32, restart_steps=6,
+                restart_fail=3, example_steps=10, example_seq=64, example_batch=8)
 
 FIRST = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot")
 EXACT = ("diag_ggn", "kflr", "ggn_trace")
@@ -295,6 +331,7 @@ TRAIN = (("kfac", ("kfac",), 0.2, 0.1),
 
 
 def say(tag, **kw):
+    kw["at_s"] = time.perf_counter() - T_START
     print(f"{tag}: " + json.dumps(kw, sort_keys=True), flush=True)
 
 
@@ -376,10 +413,10 @@ def device_us(e):  # the attribute's name changed across PyTorch versions
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
 
-# The record_function ranges the port opens (kernels/ops.py's backward of
-# attention and wkv): the profiler also lists each as a range on the device,
+# The record_function ranges the port opens (kernels/ops.py's backward and jvp
+# of attention and wkv): the profiler also lists each as a range on the device,
 # which is not a kernel.
-PORT_RANGES = ("flash_attention_backward", "wkv_backward")
+PORT_RANGES = ("flash_attention_backward", "wkv_backward", "flash_attention_jvp", "wkv_jvp")
 
 
 def kernel_events(torch, prof):
@@ -464,8 +501,9 @@ def lm_kernel_cases(torch, randn, gen):
                           f"q,k,v[{n},{t},32,128]", 0, 0, (q, k, v), dict(window=None),
                           4 * 128 * n * 32 * seen_pairs(torch, t, t, None),
                           size * 4 * n * t * 32 * 128, tol, peak))
-        # decode at position 1500: a ring of 1024 that wrapped, a global cache of 2048
-        pos = 1500
+        # decode at the long-context decode's position: a ring of 1024 that
+        # wrapped, a global cache of 2048
+        pos = SERVE["long_pos"]
         ring = torch.arange(1024, **i32)
         ring = torch.where(ring <= pos % 1024, ring + 1024, ring)
         glob = torch.arange(2048, **i32)
@@ -1370,7 +1408,7 @@ def serve_phase(torch, ops, spec=SERVE):
     prompts of 2048 tokens (each of ``spec["kernels"]`` once a layer,
     nothing else); greedy ``generate`` on 4 prompts of 32 tokens to 128
     (the same a serve_step); decode steps timed and one profiled, from a
-    32-token cache and at 1500 cached tokens; then, in a float32 copy of the
+    32-token cache and at ``long_pos`` (1500) cached tokens; then, in a float32 copy of the
     weights, the card against the CPU at batch 1, T 64, and the serve_step
     chain over ``chain_len`` tokens against the full forward (Hymba: 1040,
     past the window-1024 rings' wrap, at ``chain_cut``'s 4 layers); and the
@@ -1386,7 +1424,7 @@ def serve_phase(torch, ops, spec=SERVE):
     out = {}
     cfg = get_config(spec["arch"])
     t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
     params = model.params()
     torch.cuda.synchronize()
     out["model"] = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
@@ -1466,7 +1504,7 @@ def serve_phase(torch, ops, spec=SERVE):
     say("serve_decode", **out["decode"])
     del caches, logits
 
-    # -- decode at a long context: 1500 tokens prefilled, 16 steps timed ----------
+    # -- decode at a long context: long_pos tokens prefilled, 16 steps timed -----
     pos, long_len = spec["long_pos"], spec["long_max_len"]
     caches = model.init_serve_cache(params, n, long_len, torch.float32)
     t0 = time.perf_counter()
@@ -1565,7 +1603,8 @@ def dense_kernel_cases(torch):
     """The dense language models' rows, from a generator of their own (seed
     4): flash_attention at StableLM-2-1.6B's MHA (g = 1, 32 heads of 64) in
     bf16 prefill (24 a prefill call), in decode against a global cache at
-    1500 tokens (24 a serve_step, weight 0) and in float32 at the BackPACK
+    1500 tokens (24 a serve_step, weight 0), in bf16 at the training
+    launcher's shape (``TRAIN_LM``: 24 a step) and in float32 at the BackPACK
     run's shape (``LM_RUN``: one a layer, 4); fused_first_order and
     fused_second_order at the run's Dense shapes, R = T = 512 rows a sample,
     weighted by their launches a sweep (7 Dense a layer, the head once): the
@@ -1587,7 +1626,7 @@ def dense_kernel_cases(torch):
                   layers, layers, (q, k, v), dict(window=None),
                   4 * dh * n * h * seen_pairs(torch, t, t, None), 2 * 4 * n * t * h * dh,
                   BF16_TOL, PEAK_BF16))
-    pos, s = SERVE_DENSE["long_pos"], SERVE_DENSE["long_max_len"]
+    pos, s = SERVE_DENSE["long_pos"], SERVE_DENSE["long_max_len"]  # the timed decode's
     glob = torch.arange(s, **i32)
     glob[pos + 1:] = -1
     qp = torch.tensor([pos], **i32)
@@ -1597,6 +1636,12 @@ def dense_kernel_cases(torch):
                   layers, 0, (qd, kc, vc), dict(window=None, q_positions=qp, k_positions=glob),
                   4 * dh * n * h * seen_pairs(torch, 1, s, None, qp, glob),
                   2 * 2 * n * h * dh + 4 * (2 * n * s * h * dh + s + 1), BF16_TOL, PEAK_BF16))
+    nt, tt = TRAIN_LM["batch"], TRAIN_LM["seq"]
+    q, k, v = (randn(nt, tt, h, dh).to(bf) for _ in range(3))
+    cases.append(("flash_attention", f"train_lm bf16 g1 (stablelm-1.6b, the launcher's forward) "
+                  f"q,k,v[{nt},{tt},{h},{dh}]", layers, layers, (q, k, v), dict(window=None),
+                  4 * dh * nt * h * seen_pairs(torch, tt, tt, None), 2 * 4 * nt * tt * h * dh,
+                  BF16_TOL, PEAK_BF16))
     nb, tb, L = LM_RUN["batch"], LM_RUN["seq"], LM_RUN["n_layers"]
     q, k, v = (randn(nb, tb, h, dh) for _ in range(3))
     cases.append(("flash_attention", f"lm_run fp32 g1 (stablelm-1.6b, forward of run) "
@@ -1959,6 +2004,448 @@ def lm_run_phase(torch, ops):
     return out
 
 
+def _steps_profiled(at, out, **kw):
+    """Wrap the loop's step factories so the step of index ``at`` runs under
+    :func:`profiled` (its figures into ``out``); the other steps run as built."""
+    def wrap(step):
+        def wrapped(params, opt_state, batch, step_idx, *rest):
+            if step_idx != at:
+                return step(params, opt_state, batch, step_idx, *rest)
+            box = {}
+            out.update(profiled(lambda: box.setdefault(
+                "r", step(params, opt_state, batch, step_idx, *rest)), **kw))
+            out["idle_share"] = 1 - out["device_ms"] / out["wall_ms"]
+            return box["r"]
+        return wrapped
+
+    return wrap
+
+
+def train_lm_phase(torch, ops):
+    """Training language models (``TRAIN_LM``) through the entry points a
+    user calls, each with the launch counts set to 0 just before and read
+    just after, against the counts derived from the code:
+
+    * the training launcher ``repro_torch.launch.train.main`` on StableLM-2
+      at full width and depth in bf16 (``--full``), AdamW and DiagGGN-MC
+      with ``--track-variance``: the last step lowers the loss of its own
+      batch (the weights before and after it, one deterministic forward
+      each; the share of each parameter's entries that moved printed);
+      steps 2..n−1 timed, the last profiled, the peak above the start;
+    * ``remat``: a plain step through ``fit`` with ``build_model(cfg,
+      remat=True)`` at the same size, its loss the non-remat step's and its
+      peak lower;
+    * ``cg_ngd`` at full width, 4 layers, float32 (``fit(step_fn=...)``):
+      flash_attention under ``torch.func``'s transforms, the GGN symmetric
+      on two random directions;
+    * KFAC at full depth with the vocabulary cut to 8192;
+    * card against CPU on the reduced StableLM-2 in float32: one ``fit``
+      step of each optimizer (MC draws passed in), ``ggn_vp`` and ``hvp``;
+    * restart: the launcher with ``--fail-at-step`` and ``fit_with_restarts``
+      resuming from a checkpoint repeat the uninterrupted losses bit for bit;
+    * ``launch.serve --full --uncertainty`` and the three LM examples."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import CrossEntropyLoss
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
+    from repro_torch.curv import GGNOperator, ggn_vp, hvp
+    from repro_torch.examples import curvature_training, laplace_uncertainty, noise_scale
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.nn.models import build_model
+    from repro_torch.optim import Optimizer, adamw, make_cg_ngd_step
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.step import make_loss_fn
+
+    spec = TRAIN_LM
+    out = {}
+    loss = CrossEntropyLoss()
+    full_cfg = get_config(spec["arch"])
+    L = full_cfg.n_layers
+    dense = 7 * L + 1  # Dense layers a sweep meets: q, k, v, o, gate, up, down a block; the head
+    n_seq = ["--seq", str(spec["seq"]), "--batch", str(spec["batch"])]
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=spec["seq"],
+                                global_batch=spec["batch"])
+    factories = (loop_mod.make_train_step, loop_mod.make_extended_train_step)
+    ckpt_root = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def counts(**want):
+        return {k: want.get(k, 0) for k in ops.KERNELS}
+
+    def card_gen(seed):  # the launchers' weights: a generator on the device
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def measured(fn):
+        """(fn's result, seconds, launches, peak bytes above the start)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, ops.launch_counts(),
+                torch.cuda.max_memory_allocated() - base)
+
+    def profiling(at, prof, kept=None, **kw):
+        """Profile the step of index ``at``; into ``kept`` its input weights
+        and batch (a step returns new tensors: they stay as they were)."""
+        profiled_ = _steps_profiled(at, prof, **kw)
+
+        def wrap(step):
+            inner = profiled_(step)
+
+            def wrapped(params, opt_state, batch, step_idx, *rest):
+                if kept is not None and step_idx == at:
+                    kept.update(params=params, batch=batch)
+                return inner(params, opt_state, batch, step_idx, *rest)
+            return wrapped
+
+        loop_mod.make_train_step = lambda *a, **k: wrap(factories[0](*a, **k))
+        loop_mod.make_extended_train_step = lambda *a, **k: wrap(factories[1](*a, **k))
+
+    def unpatch():
+        loop_mod.make_train_step, loop_mod.make_extended_train_step = factories
+
+    def last_step_check(run_, kept):
+        """The last step's batch through the weights it started from
+        (``kept``) and those it returned: the two losses, and for each
+        parameter (by its path) the share of its entries that the step moved
+        and max |Δ| / max |p|."""
+        loss_fn = make_loss_fn(run_["model"], loss)
+        before, batch = kept["params"], kept["batch"]
+        with torch.no_grad():
+            res = {f"loss_{k}": loss_fn(p, batch["inputs"], batch["labels"]).item()
+                   for k, p in (("before", before), ("after", run_["params"]))}
+        paths = tree_leaves(tree_map_with_path(lambda p_, _: "/".join(map(str, p_)), before))
+        res["moved_share"], res["max_rel_change"] = {}, {}
+        for path, a, b in zip(paths, tree_leaves(before), tree_leaves(run_["params"]),
+                              strict=True):
+            res["moved_share"][path] = (a != b).float().mean().item()
+            res["max_rel_change"][path] = ((b.float() - a.float()).abs().max()
+                                           / a.float().abs().max().clamp_min(1e-30)).item()
+        return res
+
+    groups = {"backpack_kernels": ("xty", "gram", "rowprod", "sum_partials", "diagonal"),
+              "attention_forward": ("flash_",), "gemm": ("gemm", "Gemm", "nvjet")}
+    ranges = {"attention_backward": "flash_attention_backward",
+              "attention_jvp": "flash_attention_jvp"}
+
+    # -- the launcher at full width and depth, bf16 ------------------------------
+    launcher = {}
+    for opt, steps, extra, want in (
+            ("adamw", spec["adamw_steps"], [], counts(flash_attention=L)),
+            ("diag_ggn_mc", spec["mc_steps"], ["--track-variance"],
+             counts(flash_attention=L, fused_first_order=dense, fused_second_order=dense))):
+        prof, kept = {}, {}
+        # the host's operators recorded on AdamW's step alone (attention's
+        # backward is a range of them); a step of the MC sweep's thousands of
+        # operators would take the profiler minutes to summarize
+        profiling(steps - 1, prof, kept, groups=groups,
+                  ranges=ranges if opt == "adamw" else None, host_ops=opt == "adamw")
+        try:
+            run_, s, launches, peak = measured(lambda: train_launch.main(
+                ["--arch", spec["arch"], "--full", "--optimizer", opt, "--steps", str(steps)]
+                + n_seq + extra))
+        finally:
+            unpatch()
+        hist = run_["history"]
+        last = last_step_check(run_, kept)
+        del run_, kept
+        torch.cuda.empty_cache()
+        losses = [h["loss"] for h in hist]
+        want = {k: v * steps for k, v in want.items()}
+        row = dict(optimizer=opt, layers=L, d_model=full_cfg.d_model, vocab=full_cfg.vocab,
+                   dtype=full_cfg.dtype, batch=spec["batch"], seq=spec["seq"], steps=steps,
+                   losses=losses, step_s=[h["dur_s"] for h in hist],
+                   ms=medians_ms({"s": [h["dur_s"] for h in hist[1:-1]]})["s"],
+                   call_s=s, peak_bytes_above_start=peak, launches=launches,
+                   launches_derived=want, wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                   idle_share=prof["idle_share"],
+                   split_device_ms={k: prof[f"{k}_device_ms"] for k in (*groups, *ranges)
+                                    if f"{k}_device_ms" in prof},
+                   variance_mean=[h.get("variance_mean") for h in hist], last_step=last,
+                   profile=prof)
+        launcher[opt] = row
+        say("train_lm_launcher", top_kernels=prof["top"][:8],
+            **{k: v for k, v in row.items() if k != "profile"})
+        if launches != want:
+            fail(f"train_lm launcher {opt}: launched {launches}, derived {want}")
+        # Each step's loss is on a fresh batch whose offset moves with the
+        # step: the batches alone move it by ≈ 0.04, and what a step learns
+        # of its offset can raise the loss of another's (AdamW's six steps
+        # raise step 0's batch's).  The last step's own batch
+        # is read before and after it, by one deterministic forward each: a
+        # step that left the weights as they were reads the same loss.
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"train_lm launcher {opt}: losses {losses}")
+        if not last["loss_after"] < last["loss_before"]:
+            fail(f"train_lm launcher {opt}: the last step did not lower its batch's loss: "
+                 f"{last}")
+    out["launcher"] = launcher
+
+    # -- remat: the same plain step with build_model(cfg, remat=True) -----------
+    # The step's peak is its optimizer update's (AdamW's new float32 moments
+    # beside the old, 2 × 13.1 GB; SGD's float32 updates, 6.6 GB), which remat
+    # does not touch: the first step's gradient pass (forward and backward) is
+    # read where its update begins.  (A later step's reading would start beside
+    # the previous update's old and new moments.)
+    remat = {}
+    for flag in (False, True):
+        model = build_model(full_cfg, remat=flag, device="cuda", generator=card_gen(0))
+        inner, grad_peaks = adamw(1e-3), []
+
+        def update(grads, state, params_, **kw):
+            torch.cuda.synchronize()
+            grad_peaks.append(torch.cuda.max_memory_allocated() - start)
+            return inner.update(grads, state, params_, **kw)
+
+        start = torch.cuda.memory_allocated()
+        (params, _, hist, _), s, launches, peak = measured(lambda: loop_mod.fit(
+            model, full_cfg, shape, Optimizer(inner.init, update),
+            loop_mod.LoopConfig(steps=2, log_every=10)))
+        remat[flag] = dict(losses=[h["loss"] for h in hist], step_s=[h["dur_s"] for h in hist],
+                           peak_bytes_above_start=peak, launches=launches, params=params,
+                           gradient_pass_peak_bytes_above_start=grad_peaks[0])
+        del model
+    a, b = remat[False], remat[True]
+    param_diff = max(((x.float() - y.float()).abs().max() / x.float().abs().max()).item()
+                     for x, y in zip(tree_leaves(a.pop("params")), tree_leaves(b.pop("params"))))
+    loss_rel = max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"]))
+    out["remat"] = dict(plain=a, remat=b, loss_rel_diff=loss_rel,
+                        params_after_2_steps_rel_diff=param_diff,
+                        gradient_pass_peak_saved_bytes=a["gradient_pass_peak_bytes_above_start"]
+                        - b["gradient_pass_peak_bytes_above_start"])
+    say("train_lm_remat", **out["remat"])
+    torch.cuda.empty_cache()
+    # the recompute runs each layer's forward again in the backward pass
+    if a["launches"] != counts(flash_attention=2 * L) or \
+            b["launches"] != counts(flash_attention=4 * L):
+        fail(f"remat: launched {a['launches']} / {b['launches']}, derived "
+             f"flash_attention {2 * L} / {4 * L}")
+    # the forward is the same operations on the same inputs: the losses equal
+    if not loss_rel <= 1e-6:
+        fail(f"remat: the loss moved {loss_rel:.3e} relative (limit 1e-6)")
+    if not out["remat"]["gradient_pass_peak_saved_bytes"] > 0:
+        fail(f"remat: the gradient pass's peak did not fall: "
+             f"{a['gradient_pass_peak_bytes_above_start']} → "
+             f"{b['gradient_pass_peak_bytes_above_start']}")
+
+    # -- cg_ngd at full width, cut in depth, float32 ------------------------------
+    ccfg = dataclasses.replace(full_cfg, n_layers=spec["cg_layers"], dtype="float32")
+    Lc = ccfg.n_layers
+    model = build_model(ccfg, device="cuda", generator=card_gen(0))
+    params = model.params()
+    opt, step = make_cg_ngd_step(model, loss, lr=spec["cg_lr"], damping=spec["cg_damping"],
+                                 cg_iters=spec["cg_iters"])
+    prof = {}
+    wrap = _steps_profiled(spec["cg_steps"] - 1, prof, host_ops=False)
+    (_, _, hist, _), s, launches, peak = measured(lambda: loop_mod.fit(
+        model, ccfg, shape, opt, loop_mod.LoopConfig(steps=spec["cg_steps"], log_every=10),
+        step_fn=wrap(step)))
+    iters = [int(h["cg_iters"]) for h in hist]
+    want = counts(flash_attention=sum(Lc + 2 * Lc * (1 + i) for i in iters))
+    losses = [h["loss"] for h in hist]
+    batch = loop_mod.batch_for(ccfg, shape, 0, device="cuda")
+    op = GGNOperator(model, params, batch["inputs"], batch["labels"], loss)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    u, v = (tree_map(lambda p: torch.randn(p.shape, device="cuda", generator=gen), params)
+            for _ in range(2))
+    ops.reset_launch_counts()
+    Gu, Gv = op.mv(u), op.mv(v)
+    product_launches = ops.launch_counts()
+
+    def dot(x, y):
+        return sum((a_.double() * b_.double()).sum() for a_, b_ in
+                   zip(tree_leaves(x), tree_leaves(y), strict=True)).item()
+
+    uGv, Guv, uGu, vGv = dot(u, Gv), dot(Gu, v), dot(u, Gu), dot(v, Gv)
+    asym = abs(uGv - Guv) / math.sqrt(uGu * vGv)
+    out["cg_ngd"] = dict(layers=Lc, d_model=ccfg.d_model, vocab=ccfg.vocab, dtype=ccfg.dtype,
+                         steps=spec["cg_steps"], cg_iters=iters, losses=losses,
+                         loss_change=[y - x for x, y in zip(losses, losses[1:])],
+                         cg_resid=[h["cg_resid"] for h in hist],
+                         step_s=[h["dur_s"] for h in hist], call_s=s,
+                         peak_bytes_above_start=peak, launches=launches,
+                         launches_derived=want, wall_ms=prof["wall_ms"],
+                         device_ms=prof["device_ms"], idle_share=prof["idle_share"],
+                         ggn_symmetry=dict(uGv=uGv, Guv=Guv, uGu=uGu, vGv=vGv, rel=asym),
+                         product_launches=product_launches, tol=TOL)
+    say("train_lm_cg_ngd", **out["cg_ngd"])
+    del model, params, op, u, v, Gu, Gv, batch
+    torch.cuda.empty_cache()
+    if launches != want:
+        fail(f"cg_ngd: launched {launches}, derived {want}")
+    if product_launches != counts(flash_attention=4 * Lc):
+        fail(f"cg_ngd: two ggn_vp products launched {product_launches}, derived "
+             f"flash_attention {4 * Lc}")
+    if not (asym <= TOL and uGu > 0 and vGv > 0):
+        fail(f"cg_ngd: the GGN is not symmetric positive on two directions: "
+             f"{out['cg_ngd']['ggn_symmetry']}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"cg_ngd: losses {losses}")
+
+    # -- KFAC at full depth, the vocabulary cut to 8192 ---------------------------
+    kcfg = dataclasses.replace(full_cfg, vocab=spec["kfac_vocab"])
+    model = build_model(kcfg, device="cuda", generator=card_gen(0))
+    kw = train_launch.make_optimizer("kfac", model)
+    (_, _, hist, _), s, launches, peak = measured(lambda: loop_mod.fit(
+        model, kcfg, shape, kw.pop("opt"), loop_mod.LoopConfig(steps=spec["kfac_steps"],
+                                                               log_every=10), **kw))
+    del model
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    want = counts(flash_attention=L * spec["kfac_steps"],
+                  fused_second_order=dense * spec["kfac_steps"])
+    out["kfac"] = dict(layers=L, vocab=kcfg.vocab, dtype=kcfg.dtype, losses=losses,
+                       step_s=[h["dur_s"] for h in hist], call_s=s, peak_bytes_above_start=peak,
+                       launches=launches, launches_derived=want)
+    say("train_lm_kfac", **out["kfac"])
+    if launches != want:
+        fail(f"train_lm kfac: launched {launches}, derived {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_lm kfac: losses {losses}")
+
+    # -- card against CPU on the reduced config, float32 --------------------------
+    rcfg = get_config(spec["arch"]).reduced()
+    rshape = dataclasses.replace(shape, seq_len=spec["cpu_seq"], global_batch=spec["cpu_batch"])
+    model = build_model(rcfg, device="cuda", generator=torch.Generator().manual_seed(3))
+    params = model.params()
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    draws = torch.randint(0, rcfg.vocab, (1, spec["cpu_batch"], spec["cpu_seq"]),
+                          generator=torch.Generator().manual_seed(4))
+    step_rng = loop_mod.step_rng
+    loop_mod.step_rng = lambda seed, step, device: draws.to(device)
+    # Each step's update, card against CPU, over the whole tree's largest
+    # entry: a gradient that is zero but for rounding (the key bias's unrotated
+    # dims, which the softmax ignores) is noise on either side.  AdamW's first
+    # update is ±lr where g ≠ 0, its sign that noise's there: its new moments
+    # m and v carry the step's gradient and are compared instead.
+    card_vs_cpu = {}
+    try:
+        for name in ("adamw", "momentum", "diag_ggn_mc", "kfac", "cg_ngd"):
+            res = {}
+            for dev, p in (("cuda", params), ("cpu", cpu_params)):
+                kw = train_launch.make_optimizer(name, model)
+                new, state, hist, _ = loop_mod.fit(
+                    model, rcfg, rshape, kw.pop("opt"), loop_mod.LoopConfig(steps=1,
+                                                                            log_every=10),
+                    params=p, **kw)
+                moved = ([state["m"], state["v"]] if name == "adamw" else
+                         [[n_.float() - o.float() for n_, o in
+                           zip(tree_leaves(new), tree_leaves(p))]])
+                res[dev] = (hist[0]["loss"], [[x.float().cpu() for x in tree_leaves(t)]
+                                              for t in moved])
+            errs = [max((a_ - b_).abs().max().item() for a_, b_ in zip(got, want, strict=True))
+                    / max(b_.abs().max().item() for b_ in want)
+                    for got, want in zip(res["cuda"][1], res["cpu"][1], strict=True)]
+            card_vs_cpu[name] = dict(loss_rel=abs(res["cuda"][0] - res["cpu"][0])
+                                     / abs(res["cpu"][0]), update_rel=max(errs))
+    finally:
+        loop_mod.step_rng = step_rng
+    batch = loop_mod.batch_for(rcfg, rshape, 0, device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    vdir = tree_map(lambda p: torch.randn(p.shape, generator=gen), cpu_params)
+    for name, fn, per_call in (("ggn_vp", ggn_vp, 2), ("hvp", hvp, 1)):
+        ops.reset_launch_counts()
+        card = fn(model, params, batch["inputs"], batch["labels"], loss,
+                  tree_map(lambda x: x.cuda(), vdir))
+        launched = ops.launch_counts()
+        cpu = fn(model, cpu_params, batch["inputs"].cpu(), batch["labels"].cpu(), loss, vdir)
+        card_vs_cpu[name] = dict(rel=max(
+            ((a_.cpu() - b_).abs().max() / b_.abs().max()).item()
+            for a_, b_ in zip(tree_leaves(card), tree_leaves(cpu), strict=True)),
+            launches=launched)
+        if launched != counts(flash_attention=per_call * rcfg.n_layers):
+            fail(f"{name} on the reduced config launched {launched}, derived "
+                 f"flash_attention {per_call * rcfg.n_layers}")
+    out["card_vs_cpu"] = card_vs_cpu
+    say("train_lm_card_vs_cpu", arch=rcfg.name, reduced=True, tol=TOL, **card_vs_cpu)
+    bad = {k: v for k, v in card_vs_cpu.items()
+           if max(x for key, x in v.items() if key != "launches") > TOL}
+    if bad:
+        fail(f"train_lm card vs CPU above {TOL}: {bad}")
+    del model, params, cpu_params
+
+    # -- restart: the launcher, and fit_with_restarts from a checkpoint ----------
+    rs = ["--arch", spec["arch"], "--steps", str(spec["restart_steps"]), "--seq",
+          str(spec["cpu_seq"]), "--batch", str(spec["cpu_batch"])]
+    plain_hist = train_launch.main(rs + ["--ckpt", str(ckpt_root / "plain")])["history"]
+    restarted = train_launch.main(rs + ["--ckpt", str(ckpt_root / "restart"),
+                                        "--fail-at-step", str(spec["restart_fail"]),
+                                        "--max-restarts", "1"])["history"]
+    # the launcher's weights: a generator seeded 0 on the device
+    model = build_model(rcfg, device="cuda", generator=card_gen(0))
+    loop = loop_mod.LoopConfig(steps=spec["restart_steps"], ckpt_dir=str(ckpt_root / "resume"),
+                               ckpt_every=2, log_every=10)
+    (_, _, resumed, _), restarts = loop_mod.fit_with_restarts(
+        model, rcfg, rshape, adamw(1e-3), loop, max_restarts=1,
+        injector=FailureInjector(fail_at_step=spec["restart_fail"]))
+    uninterrupted = [h["loss"] for h in plain_hist]
+    out["restart"] = dict(uninterrupted=uninterrupted,
+                          launcher_restarted=[h["loss"] for h in restarted],
+                          resumed_from_checkpoint=[h["loss"] for h in resumed],
+                          restarts=restarts)
+    say("train_lm_restart", **out["restart"])
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    if (out["restart"]["launcher_restarted"] != uninterrupted or restarts != 1
+            or out["restart"]["resumed_from_checkpoint"]
+            != uninterrupted[len(uninterrupted) - len(resumed):]
+            or len(resumed) != spec["restart_steps"] - 2):
+        fail(f"train_lm restart: the losses differ from the uninterrupted run: {out['restart']}")
+
+    # -- serve --full --uncertainty --------------------------------------------------
+    (mean, var), s, launches, peak = measured(lambda: serve_launch.main(
+        ["--arch", spec["arch"], "--full", "--uncertainty"]))
+    want = counts(flash_attention=2 * L, fused_second_order=1)
+    out["uncertainty"] = dict(shape=list(mean.shape), dtype=str(var.dtype), call_s=s,
+                              var_min=var.min().item(), var_mean=var.float().mean().item(),
+                              finite=bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+                              launches=launches, launches_derived=want,
+                              peak_bytes_above_start=peak)
+    say("train_lm_uncertainty", **out["uncertainty"])
+    del mean, var
+    if launches != want:
+        fail(f"serve --uncertainty: launched {launches}, derived {want}")
+    if not (out["uncertainty"]["finite"] and out["uncertainty"]["var_min"] >= 0):
+        fail(f"serve --uncertainty: {out['uncertainty']}")
+
+    # -- the three LM examples ------------------------------------------------------
+    examples = {}
+    hists, s, launches, _ = measured(lambda: curvature_training.main(
+        ["--steps", str(spec["example_steps"]), "--seq", str(spec["example_seq"]),
+         "--batch", str(spec["example_batch"])]))
+    examples["curvature_training"] = dict(
+        final_losses={k: h[-1]["loss"] for k, h in hists.items()},
+        first_losses={k: h[0]["loss"] for k, h in hists.items()}, s=s, launches=launches)
+    rows, s, launches, _ = measured(lambda: noise_scale.main([]))
+    examples["noise_scale"] = dict(rows=rows, s=s, launches=launches)
+    (mean, var), s, launches, _ = measured(lambda: laplace_uncertainty.main([]))
+    examples["laplace_uncertainty"] = dict(var_min=var.min().item(), s=s, launches=launches,
+                                           finite=bool(torch.isfinite(mean).all()
+                                                       and torch.isfinite(var).all()))
+    out["examples"] = examples
+    say("train_lm_examples", **examples)
+    if not all(math.isfinite(v) for v in examples["curvature_training"]["final_losses"].values()):
+        fail(f"curvature_training: {examples['curvature_training']}")
+    if not all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows):
+        fail("noise_scale: a non-finite loss or noise scale")
+    if not (examples["laplace_uncertainty"]["finite"]
+            and examples["laplace_uncertainty"]["var_min"] >= 0):
+        fail(f"laplace_uncertainty: {examples['laplace_uncertainty']}")
+    if any(e["launches"]["sq_matmul"] for e in examples.values()):
+        fail("the LM examples launched sq_matmul: every Dense layer has R = T > 1")
+    out["launches"] = {k: sum(launcher[o]["launches"][k] for o in launcher)
+                       + out["cg_ngd"]["launches"][k] + out["kfac"]["launches"][k]
+                       + out["uncertainty"]["launches"][k] for k in ops.KERNELS}
+    return out
+
+
 def main():
     import torch
 
@@ -2006,6 +2493,7 @@ def main():
     from repro_torch.train import make_extended_train_step, make_train_step
 
     record = {}
+    t_script = time.perf_counter()
     # -- 1. the device --------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2157,10 +2645,11 @@ def main():
                  "bit for bit")
         if kernel in ROW_CHECKED and tol == BF16_TOL and not extra["row_rel_err"] <= ROW_TOL:
             fail(f"{kernel} {label}: row error {extra['row_rel_err']:.3e} above {ROW_TOL}")
-        # decode takes the split-KV design; bf16 prefill, at every width the
-        # configs use, the tensor cores; float32 prefill "simt"
+        # decode takes the split-KV design; bf16 prefill and training forward,
+        # at every width the configs use, the tensor cores; float32 "simt"
         want_design = ("split" if "decode" in label.split()
-                       else "wgmma" if label.startswith(("prefill bf16", "wide prefill bf16"))
+                       else "wgmma" if label.startswith(("prefill bf16", "wide prefill bf16",
+                                                         "train_lm bf16"))
                        else "simt")
         if kernel == "flash_attention" and extra["design"] != want_design:
             fail(f"flash_attention {label}: design {extra['design']}, not {want_design}")
@@ -2519,17 +3008,18 @@ def main():
         record[f"profile_laplace_predictive_{structure}"] = prof
         say("profile_laplace_predictive", structure=structure, **prof)
 
-    # -- 11. the serving path: Hymba-1.5B through prefill, generate, decode ----
-    record["serve"] = serve_phase(torch, ops)
-
-    # -- 11b. the dense serving path: StableLM-2-1.6B, every layer -------------
-    record["serve_dense"] = serve_phase(torch, ops, SERVE_DENSE)
-
-    # -- 11c. the other dense configs' heads, full width, cut in depth ---------
-    record["dense_heads"] = dense_heads_phase(torch, ops)
-
-    # -- 11d. BackPACK on a language model: StableLM-2 at full width -----------
-    record["lm_run"] = lm_run_phase(torch, ops)
+    # -- 11. the language models' paths, each phase's seconds recorded ---------
+    record["phase_s"] = {"before_serve": time.perf_counter() - t_script}
+    for name, phase in (
+            ("serve", lambda: serve_phase(torch, ops)),  # Hymba-1.5B
+            ("serve_dense", lambda: serve_phase(torch, ops, SERVE_DENSE)),  # StableLM-2
+            ("dense_heads", lambda: dense_heads_phase(torch, ops)),  # full width, cut depth
+            ("lm_run", lambda: lm_run_phase(torch, ops)),  # BackPACK on StableLM-2
+            ("train_lm", lambda: train_lm_phase(torch, ops))):  # training LMs
+        t0 = time.perf_counter()
+        record[name] = phase()
+        record["phase_s"][name] = time.perf_counter() - t0
+    say("phase_s", **record["phase_s"])
 
     # -- 12. the kernel table -------------------------------------------------
     # launches: each kernel's count on its path (the fused main path's three
@@ -2539,10 +3029,12 @@ def main():
     # the Laplace path's diag and kron predictives;
     # the serving paths' checked prefill call and their generate call; the
     # dense heads' prefill and generate calls; the LM run's full-vocabulary
-    # and KFAC calls).
-    lm_launches = record["lm_run"]["launches"]
+    # and KFAC calls; the LM training phase's launcher runs, cg_ngd, KFAC and
+    # --uncertainty calls).
+    lm_launches = {k: record["lm_run"]["launches"][k] + record["train_lm"]["launches"][k]
+                   for k in ops.KERNELS}
     attn = sum(record[p]["launches"]["flash_attention"]
-               for p in ("serve", "serve_dense", "dense_heads", "lm_run"))
+               for p in ("serve", "serve_dense", "dense_heads", "lm_run", "train_lm"))
     path_launches = dict(launches,
                          fused_first_order=launches["fused_first_order"]
                          + lm_launches["fused_first_order"],
@@ -2571,6 +3063,8 @@ def main():
     record["kernels"] = table
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
+    record["script_s"] = time.perf_counter() - t_script
+    say("script", seconds=record["script_s"])
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     if not all(math.isfinite(r["ms"]) for r in table):
         fail("a kernel time is not finite")

@@ -32,6 +32,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels import ops as kops
@@ -43,7 +44,7 @@ from .extensions import (
     first_order_mask,
     second_order_mask,
 )
-from .loss_hessian import _f32
+from .loss_hessian import _f32, _f32_dtype
 from .tree import tree_leaves, tree_map, tree_map_with_path
 
 
@@ -645,9 +646,10 @@ class Embedding(Module):
         return params["w"][x]
 
     def _scatter(self, tok, rows):
-        """Per-sample scatter: tok [N, T], rows [N, T, d] → [N, V, d] f32."""
+        """Per-sample scatter: tok [N, T], rows [N, T, d] → [N, V, d] f32
+        (float64 for a float64 reference)."""
         n = tok.shape[0]
-        out = torch.zeros((n, self.vocab, self.d), dtype=torch.float32, device=rows.device)
+        out = torch.zeros((n, self.vocab, self.d), dtype=_f32_dtype(rows), device=rows.device)
         sample = torch.arange(n, device=tok.device)[:, None].expand(tok.shape)
         out.index_put_((sample.reshape(-1), tok.reshape(-1).long()),
                        _f32(rows).reshape(-1, self.d), accumulate=True)
@@ -661,7 +663,7 @@ class Embedding(Module):
 
     def backward(self, params, tape, g, exts, cfg):
         tok = tape
-        gw = torch.zeros((self.vocab, self.d), dtype=torch.float32, device=g.device)
+        gw = torch.zeros((self.vocab, self.d), dtype=_f32_dtype(g), device=g.device)
         gw.index_add_(0, tok.reshape(-1).long(), _f32(g).reshape(-1, self.d))
         grads = {"w": gw.to(params["w"].dtype)}
         names = {e.name for e in exts}
@@ -684,7 +686,7 @@ class Embedding(Module):
         diag_name = _norm_diag_name(ext_prefix)
         kron_name = "kfac" if ext_prefix == "mc" else "kflr"
         if diag_name in names:
-            diag = torch.zeros((self.vocab, self.d), dtype=torch.float32, device=S.device)
+            diag = torch.zeros((self.vocab, self.d), dtype=_f32_dtype(S), device=S.device)
             for c in range(S.shape[0]):  # one [N, V, d] scatter a factor column
                 pg = self._scatter(tok, S[c])
                 diag += (pg * pg).sum(0)
@@ -751,6 +753,32 @@ class RMSNorm(Module):
                              _f32(S).reshape(tuple(S.shape[:2]) + (-1, self.d)))
             stats[diag_name] = {"g": (t * t).sum(dim=(0, 1))}
         return self.jac_t_mat(params, tape, S), stats
+
+
+class GroupRMSNorm(RMSNorm):
+    """RMS-normalize within G groups of the last axis (per-head GroupNorm à
+    la RWKV); the gain is per channel.  Port of ``GroupRMSNorm``
+    (``src/repro/core/module.py:879-928``): RMSNorm's sweeps with the mean
+    square and its Jacobian taken group by group."""
+
+    def __init__(self, d, groups, eps=1e-6, dtype=torch.float32, device="cuda"):
+        super().__init__(d, eps=eps, dtype=dtype, device=device)
+        self.groups = groups
+
+    def _grouped(self, x):
+        return x.reshape(tuple(x.shape[:-1]) + (self.groups, self.d // self.groups))
+
+    def _norm(self, x):
+        xg = self._grouped(_f32(x))
+        r = torch.rsqrt((xg * xg).mean(dim=-1, keepdim=True) + self.eps)
+        return (xg * r).reshape(x.shape).to(x.dtype), r
+
+    def _vjp_x(self, params, tape, M):
+        xh, r = tape
+        u = self._grouped(_f32(M) * _f32(params["g"]))
+        xhf = self._grouped(_f32(xh))
+        out = r * (u - xhf * (xhf * u).mean(dim=-1, keepdim=True))
+        return out.reshape(M.shape).to(M.dtype)
 
 
 class LayerNorm(Module):
@@ -1029,12 +1057,19 @@ class ScanStack(Module):
     ...]``.  The tape is the tuple of the layers' tapes (JAX stacks them;
     a ``Wired`` block's tape holds its recorded graph, which does not
     stack).
+
+    ``remat`` (JAX's ``jax.checkpoint`` of the block in ``apply``) runs each
+    layer of :meth:`call` under ``torch.utils.checkpoint.checkpoint`` (not
+    reentrant): autograd keeps a layer's input alone and recomputes its
+    forward in the backward pass.  ``forward_tape`` (the sweeps) is as
+    without it.
     """
 
     def __init__(self, make_block: Callable[[object], Module], n_layers: int,
-                 device="cuda"):
+                 device="cuda", remat: bool = False):
         super().__init__()
         self.L = n_layers
+        self.remat = remat
         # not a registered child: its meta tensors are never moved or copied
         self.__dict__["block"] = make_block("meta")
         stacked = _stack([make_block(device).params() for _ in range(n_layers)])
@@ -1047,7 +1082,11 @@ class ScanStack(Module):
 
     def call(self, params, x):
         for i in range(self.L):
-            x = self.block.call(_layer(params, i), x)
+            if self.remat:
+                x = torch.utils.checkpoint.checkpoint(self.block.call, _layer(params, i), x,
+                                                      use_reentrant=False)
+            else:
+                x = self.block.call(_layer(params, i), x)
         return x
 
     def forward_tape(self, params, x):

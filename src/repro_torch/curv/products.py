@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core.engine import _ScaledLoss, refuse_mesh
 from repro_torch.core.extensions import ExtensionConfig
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _slice_bounds(n: int, microbatch: Optional[int]):
@@ -51,13 +51,20 @@ def _primals(params):
     return tree_map(lambda p: p.detach(), params)
 
 
+def _like(primals, v):
+    """``v`` in the structure of ``primals``, dict keys in their order:
+    ``torch.func`` tells trees apart by key order (an engine's gradient and a
+    module's parameters may list a block's keys in different orders)."""
+    return tree_unflatten(primals, tree_leaves(v))
+
+
 def _ggn_vp_block(model, params, inputs, targets, loss, v):
     """One block's product: J v forward, the loss Hessian, Jᵀ back."""
     def f(p):
         return model.call(p, inputs)
 
     primals = _primals(params)
-    z, Jv = torch.func.jvp(f, (primals,), (v,))
+    z, Jv = torch.func.jvp(f, (primals,), (_like(primals, v),))
     Hv = loss.hessian_vec(z, targets, Jv)
     _, vjp_fn = torch.func.vjp(f, primals)
     (out,) = vjp_fn(Hv.to(z.dtype))
@@ -68,7 +75,8 @@ def _hvp_block(model, params, inputs, targets, loss, v):
     def obj(p):
         return loss.value(model.call(p, inputs), targets)
 
-    return torch.func.jvp(torch.func.grad(obj), (_primals(params),), (v,))[1]
+    primals = _primals(params)
+    return torch.func.jvp(torch.func.grad(obj), (primals,), (_like(primals, v),))[1]
 
 
 def _streamed(block_fn, model, params, inputs, targets, loss, v, microbatch):

@@ -10,13 +10,16 @@ The counterpart of the JAX registry's ``dispatch`` and ``_interpret``
 
 Attention and WKV also have a gradient on the card: each kernel is launched
 from the forward of a ``torch.autograd.Function`` whose backward recomputes
-the plain version and takes its vector-Jacobian product (the JAX package
-has no Pallas backward either: XLA differentiates its plain ``sdpa`` and
-``wkv_chunked``).  Attention's backward goes in blocks of
-``ATTN_GRAD_Q_CHUNK`` queries, so that no [T, S] matrix of all pairs is
-kept.  A call launches the kernel once whether or not it needs a gradient,
-never the plain version in its place.  On the CPU autograd reaches the
-plain versions directly.
+the plain version and takes its vector-Jacobian product, and whose ``jvp``
+takes the plain version's forward-mode derivative (the JAX package has no
+Pallas derivative either: XLA differentiates its plain ``sdpa`` and
+``wkv_chunked``).  Both are written with ``torch.func``, and each Function
+has a vmap rule, so ``torch.func.jvp``, ``vjp``, ``grad`` and ``vmap`` (the
+curvature products of :mod:`repro_torch.curv`) go through the kernels.
+Attention's derivatives go in blocks of ``ATTN_GRAD_Q_CHUNK`` queries, so
+that no [T, S] matrix of all pairs is kept.  A call launches the kernel once
+whether or not it needs a derivative, never the plain version in its place.
+On the CPU autograd and ``torch.func`` reach the plain versions directly.
 
 Each kernel has a launch counter, a plain integer that the wrapper raises by
 one where it launches the kernel and nowhere else; :func:`launch_counts`
@@ -188,74 +191,147 @@ def predictive_var(A: torch.Tensor, S: torch.Tensor, Sigma=None) -> torch.Tensor
     return out
 
 
-ATTN_GRAD_Q_CHUNK = 512  # queries a block of attention's backward (sdpa_chunked's q_chunk)
+ATTN_GRAD_Q_CHUNK = 512  # queries a block of attention's backward and jvp (sdpa_chunked's q_chunk)
+
+
+def _on_floats(fn, xs):
+    """``fn(*xs)`` as a function of the floating tensors of ``xs`` alone (the
+    others held), and those tensors' indices."""
+    idx = [i for i, x in enumerate(xs) if x is not None and x.is_floating_point()]
+
+    def f(*floats):
+        full = list(xs)
+        for i, x in zip(idx, floats):
+            full[i] = x
+        return fn(*full)
+
+    return f, idx
+
+
+def _as_tuple(o):
+    return o if isinstance(o, tuple) else (o,)
 
 
 def _vjp_of_plain(fn, xs, gouts):
-    """Cotangents of ``fn(*xs)``'s outputs ``gouts`` (None: no cotangent)
-    pulled back to the tensors of ``xs`` that are not None, by autograd
-    through the plain version recomputed on detached copies."""
-    with torch.enable_grad():
-        leaves = [None if x is None else x.detach().requires_grad_(x.is_floating_point())
-                  for x in xs]
-        outs = fn(*leaves)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        pairs = [(o, g) for o, g in zip(outs, gouts) if g is not None]
-        wrt = [x for x in leaves if x is not None and x.requires_grad]
-        gs = torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
-                                 allow_unused=True)
-    it = iter(gs)
-    return [None if x is None or not x.requires_grad else next(it) for x in leaves]
+    """Cotangents of ``fn(*xs)``'s outputs ``gouts`` (None: a zero
+    cotangent) pulled back to the floating tensors of ``xs`` (None for the
+    others), by ``torch.func.vjp`` through the plain version: so the
+    backward composes with an outer ``torch.func`` transform (``hvp`` is
+    forward-over-reverse)."""
+    f, idx = _on_floats(lambda *a: _as_tuple(fn(*a)), xs)
+    outs, pull = torch.func.vjp(f, *[xs[i] for i in idx])
+    gs = pull(tuple(torch.zeros_like(o) if g is None else g for o, g in zip(outs, gouts)))
+    grads = [None] * len(xs)
+    for i, g in zip(idx, gs):
+        grads[i] = g
+    return grads
+
+
+def _zero_tangent(t, x):
+    return torch.zeros_like(x) if t is None else t
+
+
+def _vmap_by_loop(apply, info, in_dims, args):
+    """A vmap rule by a loop over the mapped axis: ``apply`` once a slice,
+    the outputs stacked on axis 0."""
+    outs = [apply(*(a if d is None else a.select(d, b) for a, d in zip(args, in_dims)))
+            for b in range(info.batch_size)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+    return torch.stack(outs), 0
+
+
+def _fold(x, d, size):
+    """A vmapped [B, N, ...] operand (or an unmapped [N, ...] one, broadcast)
+    as [B·N, ...]: the mapped axis folded into the kernel's batch."""
+    x = x.movedim(d, 0) if d is not None else x.expand(size, *x.shape)
+    return x.reshape(size * x.shape[1], *x.shape[2:])
 
 
 class _FlashAttentionFn(torch.autograd.Function):
-    """The ``flash_attention`` kernel forward; the plain version's VJP,
-    block by block of queries, backward."""
+    """The ``flash_attention`` kernel forward; the plain version's
+    derivatives, block by block of queries, for the backward (VJP) and
+    forward mode (JVP); a vmap rule that folds the mapped axis into the
+    kernel's batch.  So ``torch.func.jvp``, ``vjp``, ``grad`` and ``vmap``
+    go through it, and each launches the kernel for the primal output."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_positions, k_positions, kw):
-        ctx.save_for_backward(q, k, v, q_positions, k_positions)
-        ctx.kw = kw
+    def forward(q, k, v, q_positions, k_positions, kw):
         out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                    q_positions=q_positions, k_positions=k_positions, **kw)
         _LAUNCHES["flash_attention"] += 1
         return out
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, qp, kp, kw = inputs
+        ctx.save_for_backward(q, k, v, qp, kp)
+        ctx.save_for_forward(q, k, v, qp, kp)
+        ctx.kw = kw
+
+    @staticmethod
+    def _blocks(q, qp, kp, kw):
+        """Each block of ``ATTN_GRAD_Q_CHUNK`` queries: (slice, the plain
+        version of the block as a function of (q_block, k, v))."""
+        t = q.shape[1]
+        qp = qp if qp is not None else torch.arange(t, device=q.device)
+        for lo in range(0, t, ATTN_GRAD_Q_CHUNK):
+            sl = slice(lo, min(t, lo + ATTN_GRAD_Q_CHUNK))
+
+            def block(qb, kb, vb, _qp=qp[sl]):
+                return ref.flash_attention(qb, kb, vb, q_positions=_qp, k_positions=kp, **kw)
+
+            yield sl, block
+
+    @staticmethod
     @torch.profiler.record_function("flash_attention_backward")
     def backward(ctx, gout):
         q, k, v, qp, kp = ctx.saved_tensors
-        t = q.shape[1]
-        qp = qp if qp is not None else torch.arange(t, device=q.device)
-        dq = torch.empty_like(q) if ctx.needs_input_grad[0] else None
-        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-        for lo in range(0, t, ATTN_GRAD_Q_CHUNK):
-            hi = min(t, lo + ATTN_GRAD_Q_CHUNK)
+        dq, dk, dv = [], 0.0, 0.0
+        for sl, block in _FlashAttentionFn._blocks(q, qp, kp, ctx.kw):
+            gq, gk, gv = _vjp_of_plain(block, (q[:, sl], k, v), (gout[:, sl],))
+            dq.append(gq)
+            dk = dk + gk.float()
+            dv = dv + gv.float()
+        return torch.cat(dq, 1), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
-            def block(qb, kb, vb, _qp=qp[lo:hi]):
-                return ref.flash_attention(qb, kb, vb, q_positions=_qp, k_positions=kp,
-                                           **ctx.kw)
+    @staticmethod
+    @torch.profiler.record_function("flash_attention_jvp")
+    def jvp(ctx, dq, dk, dv, _dqp, _dkp, _dkw):
+        q, k, v, qp, kp = ctx.saved_tensors
+        dq, dk, dv = (_zero_tangent(t, x) for t, x in ((dq, q), (dk, k), (dv, v)))
+        return torch.cat([torch.func.jvp(block, (q[:, sl], k, v), (dq[:, sl], dk, dv))[1]
+                          for sl, block in _FlashAttentionFn._blocks(q, qp, kp, ctx.kw)], 1)
 
-            gq, gk, gv = _vjp_of_plain(block, (q[:, lo:hi], k, v), (gout[:, lo:hi],))
-            if dq is not None:
-                dq[:, lo:hi] = gq
-            dk += gk.float()
-            dv += gv.float()
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, q_positions, k_positions, kw):
+        if in_dims[3] is not None or in_dims[4] is not None:  # positions a slice each
+            return _vmap_by_loop(lambda *a: _FlashAttentionFn.apply(*a, kw), info,
+                                 in_dims[:5], (q, k, v, q_positions, k_positions))
+        b = info.batch_size
+        out = _FlashAttentionFn.apply(_fold(q, in_dims[0], b), _fold(k, in_dims[1], b),
+                                      _fold(v, in_dims[2], b), q_positions, k_positions, kw)
+        return out.reshape(b, -1, *out.shape[1:]), 0
 
 
 class _WkvFn(torch.autograd.Function):
-    """The ``wkv`` kernel forward; the plain version's VJP backward."""
+    """The ``wkv`` kernel forward; the plain version's VJP (backward) and
+    JVP (forward mode); a vmap rule that folds the mapped axis into the
+    kernel's batch where ``u`` is shared (else a launch a slice)."""
 
     @staticmethod
-    def forward(ctx, r, k, v, log_w, u, state0, chunk):
-        ctx.save_for_backward(r, k, v, log_w, u, state0)
-        ctx.chunk = chunk
+    def forward(r, k, v, log_w, u, state0, chunk):
         out = wkv_cuda(r.contiguous(), k.contiguous(), v.contiguous(), log_w.contiguous(), u,
                        None if state0 is None else state0.contiguous(), chunk)
         _LAUNCHES["wkv"] += 1
         return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *xs, chunk = inputs
+        ctx.save_for_backward(*xs)
+        ctx.save_for_forward(*xs)
+        ctx.chunk = chunk
 
     @staticmethod
     @torch.profiler.record_function("wkv_backward")
@@ -266,6 +342,26 @@ class _WkvFn(torch.autograd.Function):
             return ref.wkv(r, k, v, log_w, u, state0, ctx.chunk)
 
         return tuple(_vjp_of_plain(plain, xs, (gy, gstate))) + (None,)
+
+    @staticmethod
+    @torch.profiler.record_function("wkv_jvp")
+    def jvp(ctx, *tangents):
+        xs = ctx.saved_tensors
+        f, idx = _on_floats(lambda *a: ref.wkv(*a, ctx.chunk), xs)
+        return torch.func.jvp(f, tuple(xs[i] for i in idx),
+                              tuple(_zero_tangent(tangents[i], xs[i]) for i in idx))[1]
+
+    @staticmethod
+    def vmap(info, in_dims, r, k, v, log_w, u, state0, chunk):
+        if in_dims[4] is not None:  # a u a slice: the kernel shares one
+            return _vmap_by_loop(lambda *a: _WkvFn.apply(*a, chunk), info, in_dims[:6],
+                                 (r, k, v, log_w, u, state0))
+        b = info.batch_size
+        y, state = _WkvFn.apply(
+            _fold(r, in_dims[0], b), _fold(k, in_dims[1], b), _fold(v, in_dims[2], b),
+            _fold(log_w, in_dims[3], b), u,
+            None if state0 is None else _fold(state0, in_dims[5], b), chunk)
+        return (y.reshape(b, -1, *y.shape[1:]), state.reshape(b, -1, *state.shape[1:])), (0, 0)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,

@@ -1,14 +1,19 @@
-"""Serving launcher: batched generation with KV caches.
+"""Serving launcher: batched generation with KV caches, plus an
+uncertainty-aware endpoint backed by a last-layer Laplace posterior.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --batch 4 --prompt-len 8 --max-len 64 [--full] [--device cpu]
 
+    # next-token mean + predictive variance instead of sampled tokens:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
+        --batch 4 --prompt-len 8 --uncertainty [--device cpu]
+
 Port of ``src/repro/launch/serve.py`` for the decoder-only archs the port
 builds (the dense ones, e.g. ``--arch stablelm-1.6b``, and Hymba).  Without
 ``--full`` the arch's ``reduced()`` config is served; weights are random,
-drawn from ``--seed``.  It runs on the card unless ``--device cpu`` is given.
-``--uncertainty`` (a last-layer Laplace endpoint on synthetic calibration
-data) waits for ROADMAP queue A item 13.7.
+drawn from a generator seeded ``--seed`` on the device (the card's draws 1.6
+billion weights in a fraction of the CPU's time).  It runs on the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -21,6 +26,51 @@ from repro_torch.configs import get_config
 from repro_torch.core.module import resolve_device
 from repro_torch.nn.models import build_model
 from repro_torch.serve.engine import ServeConfig, generate
+
+
+def serve_uncertainty(cfg, model, params, prompts, *, marglik_steps=25, seed=0, top_k=5,
+                      log_fn=print):
+    """Uncertainty-aware endpoint: next-token logit mean + variance.
+
+    Fits a last-layer **diagonal** Laplace posterior on one deterministic
+    calibration batch (``lm_batch(..., 0)`` on the prompts' device) — the
+    only structure that scales to LM heads: its state is O(d·V) where the
+    Kronecker B factor would be a dense [V, V] (plus an O(V³)
+    eigendecomposition), and the MC sweep (DiagGGNMC, from a generator
+    seeded ``seed``) keeps the curvature pass at one gradient-like sweep.
+    Prior precision is tuned by evidence ascent; predictions use the rank-1
+    closed-form GLM for the final prompt position (no Jacobian seed
+    materialized — see ``laplace.predictive._dense_glm_closed_form``).
+    """
+    from repro_torch import laplace
+    from repro_torch.core import CrossEntropyLoss, ExtensionConfig
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.laplace.posterior import split_last_dense
+
+    loss = CrossEntropyLoss()
+    dc = DataConfig(vocab=cfg.vocab, seq_len=prompts.shape[1],
+                    global_batch=prompts.shape[0], seed=seed)
+    calib = lm_batch(dc, 0, device=prompts.device)
+    post = laplace.fit_posterior(
+        model, params, calib["inputs"], calib["labels"], loss,
+        structure="diag", last_layer=True,
+        options=laplace.FitOptions(mc=True, cfg=ExtensionConfig(mc_seed=seed)))
+    post, res = laplace.optimize_marglik(post, n_steps=marglik_steps)
+    log_fn(f"[laplace] log-evidence {float(laplace.log_marglik(post)):.1f} "
+           f"prior_prec {res.prior_prec:.3g}")
+
+    feats, head, f_params, h_params = split_last_dense(model, params)
+    with torch.no_grad():
+        phi = feats.call(f_params, prompts)       # [N, T, d]
+    mean, var = laplace.glm_predictive(head, h_params, post.inner,
+                                       phi[:, -1])  # final position: [N, V]
+    probs = laplace.probit_predictive(mean, var)
+    for n in range(min(2, mean.shape[0])):
+        order = torch.argsort(-mean[n])[:top_k].tolist()
+        row = " ".join(f"tok{t}:{float(mean[n, t]):.2f}±{float(var[n, t].sqrt()):.2f}"
+                       for t in order)
+        log_fn(f"  prompt {n}: {row}")
+    return mean, var, probs
 
 
 def main(argv=None):
@@ -38,20 +88,26 @@ def main(argv=None):
                          "instead of sampled tokens")
     args = ap.parse_args(argv)
 
-    if args.uncertainty:
-        raise NotImplementedError("--uncertainty (LastLayerLaplace on an LM head with "
-                                  "data/synthetic) is still to port: ROADMAP queue A item 13.7")
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
     model = build_model(cfg, device=device,
-                        generator=torch.Generator().manual_seed(args.seed))
+                        generator=torch.Generator(device=device).manual_seed(args.seed))
     params = model.params()
     sc = ServeConfig(max_len=args.max_len, temperature=args.temperature)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=torch.Generator().manual_seed(args.seed + 1))
     t0 = time.perf_counter()
+    if args.uncertainty:
+        mean, var, _ = serve_uncertainty(cfg, model, params, prompts.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"served mean+variance for {tuple(mean.shape)} next-token logits "
+              f"(mean var {float(var.float().mean()):.4f}, min var {float(var.min()):.3g}) "
+              f"on {device} in {time.perf_counter() - t0:.2f} s "
+              f"({cfg.name}, {cfg.n_layers} layers, {cfg.dtype})")
+        return mean, var
     toks = generate(model, params, prompts.to(device), sc,
                     rng=torch.Generator(device=device).manual_seed(args.seed + 2))
     if device.type == "cuda":

@@ -2,10 +2,11 @@
 
 Port of ``src/repro/nn/blocks.py``: ``AttnBlock`` (GQA attention with full or
 partial RoPE, optional qkv biases, a GLU or plain feed-forward, RMSNorm or
-LayerNorm) and ``HymbaBlock`` (parallel attention and SSD heads sharing one
-block), each with its full-sequence ``wire`` and its single-token
+LayerNorm), ``RWKV6Block`` (token-shift time and channel mixes around the
+WKV recurrence) and ``HymbaBlock`` (parallel attention and SSD heads sharing
+one block), each with its full-sequence ``wire`` and its single-token
 ``wire_step`` against a KV cache (a ring of ``window`` slots in the
-sliding-window layers) and, for Hymba, the SSD state.  One block = one
+sliding-window layers), the SSD or WKV state, and RWKV's shifted inputs.  One block = one
 decoder layer, so a layer stack is a single homogeneous ``ScanStack``.
 
 Every parameter lives in a Dense / norm / Param child, in the JAX layout.
@@ -21,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as TF
 
-from repro_torch.core.module import Dense, LayerNorm, RMSNorm
+from repro_torch.core.module import Dense, GroupRMSNorm, LayerNorm, RMSNorm
 from repro_torch.nn import functional as F
 from repro_torch.nn.layers import Param
 from repro_torch.nn.wired import Wired
@@ -144,6 +145,104 @@ class AttnBlock(Wired):
         x = x + call("wo", a.reshape(n, 1, self.h * self.dh))
         x = self._ffn(call, x)
         return (x, pos), cache
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 "Finch": token-shift time mix (data-dependent decay) + channel mix
+# ---------------------------------------------------------------------------
+
+
+class RWKV6Block(Wired):
+    """Port of ``src/repro/nn/blocks.py:325-412``: the time mix lerps each
+    input with its token-shifted predecessor (``mu_*``), runs the WKV
+    recurrence with a per-channel decay ``−exp(w0 + w2(tanh(w1(·))))`` and
+    the bonus ``u`` (``functional.wkv_chunked``: the ``wkv`` kernel on the
+    card), normalizes per head (``GroupRMSNorm``) and gates it; the channel
+    mix is a squared-ReLU MLP gated by a sigmoid.  Decode carries the last
+    normalized inputs of both mixes and the WKV state."""
+
+    def __init__(self, d, d_ff, *, head_dim=64, decay_lora=64, wkv_chunk=16,
+                 dtype=torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.d, self.dh = d, head_dim
+        self.h = d // head_dim
+        self.wkv_chunk = wkv_chunk
+        kw = dict(use_bias=False, dtype=dtype, device=device, generator=generator)
+
+        def mu():
+            return Param((d,), init=0.5, dtype=dtype, device=device)
+
+        self.set_children({
+            "ln1": RMSNorm(d, dtype=dtype, device=device),
+            "ln2": RMSNorm(d, dtype=dtype, device=device),
+            "mu_r": mu(), "mu_k": mu(), "mu_v": mu(), "mu_g": mu(), "mu_w": mu(),
+            "w1": Dense(d, decay_lora, **kw),
+            "w2": Dense(decay_lora, d, **kw),
+            "w0": Param((d,), init=-4.0, dtype=dtype, device=device),
+            "u": Param((self.h, head_dim), init=0.0, dtype=dtype, device=device),
+            "wr": Dense(d, d, **kw),
+            "wk": Dense(d, d, **kw),
+            "wv": Dense(d, d, **kw),
+            "wg": Dense(d, d, **kw),
+            "ln_x": GroupRMSNorm(d, self.h, dtype=dtype, device=device),
+            "wo": Dense(d, d, **kw),
+            "cmu_r": mu(), "cmu_k": mu(),
+            "cwr": Dense(d, d, **kw),
+            "cwk": Dense(d, d_ff, **kw),
+            "cwv": Dense(d_ff, d, **kw),
+        })
+
+    def _time_mix(self, call, h, shifted, state0=None):
+        n, t, d = h.shape
+
+        def lerp(mu):
+            return h + (shifted - h) * call(mu, None)
+
+        r = call("wr", lerp("mu_r")).reshape(n, t, self.h, self.dh)
+        k = call("wk", lerp("mu_k")).reshape(n, t, self.h, self.dh)
+        v = call("wv", lerp("mu_v")).reshape(n, t, self.h, self.dh)
+        g = TF.silu(call("wg", lerp("mu_g")))
+        raw = call("w0", None) + call("w2", torch.tanh(call("w1", lerp("mu_w"))))
+        log_w = -torch.exp(raw.float()).reshape(n, t, self.h, self.dh)
+        y, state = F.wkv_chunked(r, k, v, log_w, u=call("u", None), state0=state0,
+                                 chunk=self.wkv_chunk)
+        y = call("ln_x", y.reshape(n, t, d)) * g
+        return call("wo", y), state
+
+    def _chan_mix(self, call, h, shifted):
+        def lerp(mu):
+            return h + (shifted - h) * call(mu, None)
+
+        rc = torch.sigmoid(call("cwr", lerp("cmu_r")))
+        kc = torch.square(TF.relu(call("cwk", lerp("cmu_k"))))
+        return rc * call("cwv", kc)
+
+    def wire(self, call, params, x):
+        h = call("ln1", x)
+        y, _ = self._time_mix(call, h, F.token_shift(h))
+        x = x + y
+        h2 = call("ln2", x)
+        return x + self._chan_mix(call, h2, F.token_shift(h2))
+
+    def init_cache(self, params, batch, max_len, dtype):
+        device = params["wr"]["w"].device
+        return {
+            "x_time": torch.zeros((batch, 1, self.d), dtype=dtype, device=device),
+            "x_chan": torch.zeros((batch, 1, self.d), dtype=dtype, device=device),
+            "state": torch.zeros((batch, self.h, self.dh, self.dh), dtype=torch.float32,
+                                 device=device),
+        }
+
+    def wire_step(self, call, params, xp, cache):
+        x, pos = xp  # [N, 1, d]
+        h = call("ln1", x)
+        y, state = self._time_mix(call, h, cache["x_time"].to(h.dtype), state0=cache["state"])
+        x = x + y
+        h2 = call("ln2", x)
+        x = x + self._chan_mix(call, h2, cache["x_chan"].to(h2.dtype))
+        return (x, pos), {"x_time": h.to(cache["x_time"].dtype),
+                          "x_chan": h2.to(cache["x_chan"].dtype), "state": state}
 
 
 # ---------------------------------------------------------------------------

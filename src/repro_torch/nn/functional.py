@@ -1,7 +1,7 @@
 """Parameter-free mixing primitives used inside ``Wired.wire`` functions.
 
 Port of ``src/repro/nn/functional.py`` (RoPE, ``sdpa``, ``sdpa_chunked``,
-``wkv_chunked``, ``wkv_step``, ``cache_update``).  JAX's dtype rules are kept: the mixing is
+``wkv_chunked``, ``wkv_step``, ``token_shift``, ``cache_update``).  JAX's dtype rules are kept: the mixing is
 computed in float32 and returned in the input's dtype, masked logits are
 −1e30, ``log_w`` is clipped to [−60, −1e−6].  ``sdpa`` and ``wkv_chunked`` go
 through the kernel dispatch (:mod:`repro_torch.kernels.ops`): on the card the
@@ -152,6 +152,20 @@ def wkv_step(r, k, v, log_w, u, state):
         y = y + torch.einsum("nhd,hd,nhd->nh", rf, u.float(), kf)[..., None] * vf
     state = w[..., None] * state + kf[..., None] * vf[..., None, :]
     return y.to(r.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# token shift (RWKV)
+# ---------------------------------------------------------------------------
+
+
+def token_shift(x, last=None):
+    """x_{t-1} (zeros / ``last`` for t = 0).  x: [N, T, D]."""
+    if last is None:
+        last = torch.zeros_like(x[:, :1])
+    elif last.dim() == 2:
+        last = last[:, None]
+    return torch.cat([last, x[:, :-1]], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,9 @@ zoo.
 Port of ``src/repro/nn/models.py`` (``TokenEmbed``, ``CausalLM``,
 ``_expand_segments``, ``make_stacks``, ``build_model``).  The same module tree
 serves the full-sequence forward (``call``, the prefill step) and decode
-(``serve_step`` with per-block caches) and BackPACK's ``run``.  The dense
-and Hymba kinds are built; the other kinds raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+(``serve_step`` with per-block caches) and BackPACK's ``run``.  The dense,
+Hymba and RWKV6 kinds are built; the other kinds raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -23,13 +23,12 @@ from repro_torch.core.module import (
     ScanStack,
     Sequential,
 )
-from repro_torch.nn.blocks import AttnBlock, HymbaBlock
+from repro_torch.nn.blocks import AttnBlock, HymbaBlock, RWKV6Block
 from repro_torch.nn.wired import Wired
 
 _STILL_TO_PORT = {
     "moe_gqa": "BatchedDense / MoE: ROADMAP queue A item 13",
     "moe_mla": "MLA and BatchedDense / MoE: ROADMAP queue A item 13",
-    "rwkv": "RWKV6Block with GroupRMSNorm and token_shift: ROADMAP queue A item 13",
     "encdec": "Whisper (encoder-decoder, LayerNorm): ROADMAP queue A item 13",
 }
 
@@ -110,34 +109,43 @@ def _expand_segments(cfg):
     return segs, repeat
 
 
-def make_stacks(mk_block, segments, repeat, device="cuda"):
+def make_stacks(mk_block, segments, repeat, device="cuda", remat=False):
     """``mk_block(window, device)`` builds one block; a segment of c > 1
     blocks is a ``ScanStack``, the segments of one pattern a ``Sequential``,
-    and a pattern repeated r > 1 times a ``ScanStack`` of the pattern."""
+    and a pattern repeated r > 1 times a ``ScanStack`` of the pattern.
+    ``remat`` goes to each segment's stack, and to the repeat's stack only
+    when the pattern is one segment (as JAX's ``make_stacks``: a pattern of
+    several segments recomputes inside them)."""
     def unit(dev):
-        segs = [ScanStack(lambda d, w=w: mk_block(w, d), c, device=dev) if c > 1
+        segs = [ScanStack(lambda d, w=w: mk_block(w, d), c, device=dev, remat=remat) if c > 1
                 else mk_block(w, dev) for (w, c) in segments]
         return Sequential(segs) if len(segs) > 1 else segs[0]
 
     if repeat > 1:
-        return [ScanStack(unit, repeat, device=device)]
+        return [ScanStack(unit, repeat, device=device,
+                          remat=remat and len(segments) == 1)]
     return [unit(device)]
 
 
-def build_model(cfg, attn_impl="naive", device="cuda",
+def build_model(cfg, remat=False, attn_impl="naive", wkv_chunk=16, device="cuda",
                 generator: Optional[torch.Generator] = None):
     """The root module of ``cfg`` on ``device`` (the card unless the caller
     asks for the CPU), in ``cfg.dtype``, with weights drawn from
-    ``generator`` (a CPU ``torch.Generator``).  JAX's ``remat`` and
-    ``seq_constraint`` come with training on language models and the sharded
-    lane; its ``wkv_chunk`` with RWKV6 (Hymba scans with chunks of 16)."""
-    if cfg.kind not in ("hymba", "dense"):
+    ``generator`` (a CPU ``torch.Generator``).  ``remat`` recomputes each
+    stacked layer's forward in the backward pass of ``call``
+    (:class:`~repro_torch.core.module.ScanStack`).  JAX's ``seq_constraint``
+    comes with the sharded lane (ROADMAP queue A item 12).  ``wkv_chunk`` is
+    RWKV6's scan chunk (Hymba scans with chunks of 16)."""
+    if cfg.kind not in ("hymba", "dense", "rwkv"):
         raise NotImplementedError(f"{cfg.name} (kind {cfg.kind!r}) needs "
                                   f"{_STILL_TO_PORT.get(cfg.kind, 'ROADMAP queue A item 13')}")
     dtype = getattr(torch, cfg.dtype)
     d = cfg.d_model
 
     def mk(w, dev):
+        if cfg.kind == "rwkv":
+            return RWKV6Block(d, cfg.d_ff, head_dim=cfg.head_dim or 64, wkv_chunk=wkv_chunk,
+                              dtype=dtype, device=dev, generator=generator)
         if cfg.kind == "hymba":
             return HymbaBlock(d, cfg.n_heads, cfg.kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
                               ssm_state=cfg.ssm_state, window=w, act=cfg.act,
@@ -150,7 +158,7 @@ def build_model(cfg, attn_impl="naive", device="cuda",
                          device=dev, generator=generator)
 
     segments, repeat = _expand_segments(cfg)
-    stacks = make_stacks(mk, segments, repeat, device=device)
+    stacks = make_stacks(mk, segments, repeat, device=device, remat=remat)
     emb_cls = PrefixEmbed if cfg.frontend == "vision" else TokenEmbed
     embed = emb_cls(cfg.vocab, d, dtype=dtype, device=device, generator=generator)
     norm = (RMSNorm(d, dtype=dtype, device=device) if cfg.norm == "rmsnorm"

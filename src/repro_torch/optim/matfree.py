@@ -16,9 +16,9 @@ preconditioner:
 ``make_cg_ngd_step`` returns ``(opt, step)``: an
 :class:`~repro_torch.optim.Optimizer` whose ``init`` builds the step state
 (``update`` is unused) and ``step(params, opt_state, batch, step_idx,
-rng)``.  Port of ``src/repro/optim/matfree.py``; wiring it into the
-training launcher (``--optimizer cg_ngd``) and ``train/loop.fit`` is ROADMAP
-queue A item 13.2, the ``mesh`` lane item 12.
+rng)``, which ``train/loop.fit(step_fn=...)`` drives (the training
+launcher's ``--optimizer cg_ngd``).  Port of ``src/repro/optim/matfree.py``;
+the ``mesh`` lane is ROADMAP queue A item 12.
 """
 from __future__ import annotations
 

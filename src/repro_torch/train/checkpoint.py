@@ -6,9 +6,10 @@ shadows a good checkpoint.  Tensors go to numpy on save (from whatever device
 they lie on) and come back as CPU tensors of the target's dtype; the caller
 moves them to its device (``SweepStream.load_state`` does).
 
-Port of ``src/repro/train/checkpoint.py``.  The tree structure is recorded as
-a string (dict keys sorted, as :func:`~repro_torch.core.tree.tree_leaves`
-orders the leaves) and checked on restore, with every leaf's shape.
+Port of ``src/repro/train/checkpoint.py``.  The tree structure is recorded in
+the manifest as JSON (dict keys sorted, as
+:func:`~repro_torch.core.tree.tree_leaves` orders the leaves) and checked on
+restore, with every leaf's shape.
 """
 from __future__ import annotations
 
@@ -23,17 +24,24 @@ import torch
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 
 
-def _treedef(tree) -> str:
-    """The structure of ``tree`` as a string: ``*`` for a leaf."""
+def _treedef(tree):
+    """The structure of ``tree`` as JSON: objects for dicts, ``["tuple",
+    ...]`` / ``["list", ...]`` for sequences, null for None, ``"*"`` for a
+    leaf."""
     if isinstance(tree, dict):
-        return "{" + ", ".join(f"{k!r}: {_treedef(tree[k])}" for k in sorted(tree)) + "}"
-    if isinstance(tree, tuple):
-        return "(" + "".join(f"{_treedef(c)}, " for c in tree) + ")"
-    if isinstance(tree, list):
-        return "[" + ", ".join(_treedef(c) for c in tree) + "]"
-    if tree is None:
-        return "None"
-    return "*"
+        return {k: _treedef(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return [type(tree).__name__] + [_treedef(c) for c in tree]
+    return None if tree is None else "*"
+
+
+def _saved_tree(node):
+    """The tree a :func:`_treedef` describes, with ``"*"`` leaves."""
+    if isinstance(node, dict):
+        return {k: _saved_tree(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return {"tuple": tuple, "list": list}[node[0]](_saved_tree(c) for c in node[1:])
+    return node
 
 
 def _leaf_paths(tree, path=""):
@@ -118,7 +126,10 @@ def latest_step(path):
 
 def _like(arr: np.ndarray, like):
     """``arr`` as ``like`` holds it: a CPU tensor of its dtype, or a numpy
-    array of its dtype."""
+    array of its dtype; a CPU tensor as saved where ``like`` is the
+    checkpoint's own leaf (``"*"``)."""
+    if isinstance(like, str):
+        return torch.from_numpy(np.array(arr))
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(like.dtype)
     if hasattr(like, "dtype"):
@@ -126,16 +137,34 @@ def _like(arr: np.ndarray, like):
     return arr
 
 
+def _grown(like, saved):
+    """``like`` with each None where ``saved`` (a :func:`_saved_tree`)
+    holds a subtree replaced by that subtree: state that a step grows from
+    None (a running average's first statistics) restores into the saved
+    structure; everything else stays the target's."""
+    if like is None:
+        return saved
+    if isinstance(like, dict) and isinstance(saved, dict):
+        return {k: _grown(v, saved.get(k)) for k, v in like.items()}
+    if isinstance(like, (tuple, list)) and isinstance(saved, (tuple, list)) \
+            and len(like) == len(saved):
+        return type(like)(_grown(a, b) for a, b in zip(like, saved))
+    return like
+
+
 def restore(path, step, params_like, opt_like=None):
     """Load ``step_<step>`` into the structure of ``params_like`` /
     ``opt_like``: ``(params[, opt], manifest)``.  The recorded structure and
-    every leaf's shape must match the target's; the first mismatch raises."""
+    every leaf's shape must match the target's; the first mismatch raises.
+    A None in ``opt_like`` where the checkpoint holds a subtree (a curvature
+    optimizer's running average, None until its first step) takes the
+    saved subtree, as CPU tensors."""
     d = os.path.join(path, f"step_{int(step):08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     state_like = {"params": params_like}
     if opt_like is not None:
-        state_like["opt"] = opt_like
+        state_like["opt"] = _grown(opt_like, _saved_tree(manifest["treedef"]).get("opt"))
     flat_like = tree_leaves(state_like)
     if len(flat_like) != manifest["n_arrays"]:
         raise ValueError(
@@ -146,7 +175,7 @@ def restore(path, step, params_like, opt_like=None):
         raise ValueError(
             "checkpoint tree structure does not match the target "
             f"structure ({manifest['n_arrays']} leaves in both — config "
-            f"mismatch?)\n  saved:  {saved}\n  target: {target}")
+            f"mismatch?)\n  saved:  {json.dumps(saved)}\n  target: {json.dumps(target)}")
     paths = _leaf_paths(state_like)
     flat = []
     with np.load(os.path.join(d, "arrays.npz")) as data:

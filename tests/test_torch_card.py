@@ -43,6 +43,12 @@ kernel launch), StableLM-2's MHA attention (g = 1, dh 64) in prefill and
 decode, fused_first_order / fused_second_order at the LM's R = T rows (a
 block Dense, the head's b = 100352) against float64, and ``run`` on the
 reduced StableLM-2 and Hymba card against CPU with the launches derived.
+The curvature products: ``torch.func``'s jvp, vjp, grad, jvp-of-grad and
+vmap through the two Functions against the plain versions, and ``ggn_vp``
+/ ``hvp`` on the reduced StableLM-2 card against CPU, flash_attention
+launched as derived.  Hymba-1.5B's decode chain at all 32 layers in float32
+over 1040 tokens (the window-1024 rings wrap) against its full forward
+(``chip_smoke.CHAIN_TOL``).
 """
 import itertools
 import sys
@@ -52,7 +58,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import ENTRY_TOL, F64_TOL, f64_readings  # noqa: E402
+from chip_smoke import CHAIN_TOL, ENTRY_TOL, F64_FACTOR, F64_TOL, f64_readings  # noqa: E402
 from repro_torch.configs import papernets
 from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -1185,3 +1191,200 @@ def test_card_reduced_hymba_run_like_cpu(cuda):
     for name in names:
         for a, b in zip(tree_leaves(res[name]), tree_leaves(cpu[name]), strict=True):
             assert _rel(a.cpu(), b) < CARD_TOL, name
+
+
+# ---------------------------------------------------------------------------
+# the curvature products through the kernels: torch.func's transforms
+# ---------------------------------------------------------------------------
+
+
+def _attention_and_wkv(gen):
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    q, k, v = rn(2, 600, 8, 64), rn(2, 600, 2, 64), rn(2, 600, 2, 64)
+    r, kk, vv = rn(2, 64, 4, 32), rn(2, 64, 4, 32), rn(2, 64, 4, 48)
+    log_w = -torch.rand(2, 64, 4, 32, device="cuda", generator=gen)
+    u, s0 = rn(4, 32), rn(2, 4, 32, 48)
+    return ((lambda *x: ops.flash_attention(*x, window=256), (q, k, v),
+             lambda *x: ref.flash_attention(*x, window=256), "flash_attention"),
+            (lambda *x: ops.wkv(*x, chunk=16)[0], (r, kk, vv, log_w, u, s0),
+             lambda *x: ref.wkv(*x, chunk=16)[0], "wkv"))
+
+
+@pytest.mark.gpu
+def test_card_func_transforms_through_kernels(cuda):
+    """jvp, vjp, grad, jvp of grad and vmap through the attention and WKV
+    Functions on the card: the kernel forward (one launch a primal call, one
+    a vmapped call), the plain version's derivatives, within ``CARD_TOL`` of
+    the plain version's own transforms."""
+    for fn, xs, plain, name in _attention_and_wkv(cuda):
+        ts = tuple(torch.randn(x.shape, device="cuda", generator=cuda) for x in xs)
+        argnums = tuple(range(len(xs)))
+
+        def obj(f):
+            return lambda *x: (f(*x) ** 2).sum()
+
+        ops.reset_launch_counts()
+        got = torch.func.jvp(fn, xs, ts)
+        assert ops.launch_counts()[name] == 1
+        want = torch.func.jvp(plain, xs, ts)
+        assert _rel(got[0], want[0]) < CARD_TOL and _rel(got[1], want[1]) < CARD_TOL
+        out, pull = torch.func.vjp(fn, *xs)
+        _, pull_plain = torch.func.vjp(plain, *xs)
+        cot = torch.randn(out.shape, device="cuda", generator=cuda)
+        for a, b in zip(pull(cot), pull_plain(cot)):
+            assert _rel(a, b) < CARD_TOL
+        for a, b in zip(torch.func.grad(obj(fn), argnums)(*xs),
+                        torch.func.grad(obj(plain), argnums)(*xs)):
+            assert _rel(a, b) < CARD_TOL
+        ops.reset_launch_counts()
+        got = torch.func.jvp(torch.func.grad(obj(fn), argnums), xs, ts)[1]
+        assert ops.launch_counts()[name] == 1
+        want = torch.func.jvp(torch.func.grad(obj(plain), argnums), xs, ts)[1]
+        for a, b in zip(got, want):
+            assert _rel(a, b) < CARD_TOL
+        stacked = torch.stack([xs[0], xs[0].flip(1)])
+        ops.reset_launch_counts()
+        got = torch.func.vmap(fn, in_dims=(0,) + (None,) * (len(xs) - 1))(stacked, *xs[1:])
+        assert ops.launch_counts()[name] == 1
+        want = torch.func.vmap(plain, in_dims=(0,) + (None,) * (len(xs) - 1))(
+            stacked, *xs[1:])
+        assert _rel(got, want) < CARD_TOL
+
+
+@pytest.mark.gpu
+def test_card_reduced_stablelm_curvature_products_like_cpu(cuda):
+    """``ggn_vp`` (jvp, then vjp: 2 launches a layer) and ``hvp`` (jvp of
+    grad: 1) on the reduced StableLM-2 in float32, card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.curv import ggn_vp, hvp
+    from repro_torch.nn.models import build_model
+
+    cfg = get_config("stablelm-1.6b").reduced()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    params = model.params()
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(1))
+    labels = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    v = tree_map(lambda p: torch.randn(p.shape, generator=gen), cpu_params)
+    for fn, per_layer in ((ggn_vp, 2), (hvp, 1)):
+        ops.reset_launch_counts()
+        card = fn(model, params, toks.cuda(), labels.cuda(), CrossEntropyLoss(),
+                  tree_map(lambda x: x.cuda(), v))
+        assert ops.launch_counts() == {k: per_layer * cfg.n_layers if k == "flash_attention"
+                                       else 0 for k in ops.KERNELS}
+        cpu = fn(model, cpu_params, toks, labels, CrossEntropyLoss(), v)
+        for a, b in zip(tree_leaves(card), tree_leaves(cpu), strict=True):
+            assert _rel(a.cpu(), b) < CARD_TOL
+
+
+@pytest.mark.gpu
+def test_card_hymba_full_depth_chain(cuda):
+    """Hymba-1.5B at all 32 layers (3 global, 29 with a window of 1024) in
+    float32: 1040 serve_steps, so the rings wrap, against the full forward
+    on the same tokens within ``CHAIN_TOL``; flash_attention and wkv once a
+    layer a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.models import build_model
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), dtype="float32")
+    assert cfg.n_layers == 32
+    model = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    params = model.params()
+    n = 1040
+    seq = torch.randint(0, cfg.vocab, (1, n), device="cuda", generator=cuda)
+    caches = model.init_serve_cache(params, 1, n, torch.float32)
+    chain = torch.empty((n, cfg.vocab), device="cuda")
+    ops.reset_launch_counts()
+    for t in range(n):
+        logits, caches = model.serve_step(params, caches, seq[:, t], t)
+        chain[t] = logits[0]
+    assert ops.launch_counts() == {k: 32 * n if k in ("flash_attention", "wkv") else 0
+                                   for k in ops.KERNELS}
+    rings = [c for c in tree_leaves(caches) if c.dtype in (torch.int32, torch.int64)]
+    assert any(r.shape[-1] == 1024 and r.max().item() == n - 1 for r in rings)
+    full = model.call(params, seq)[0]
+    assert _rel(chain, full) < CHAIN_TOL
+
+
+@pytest.mark.gpu
+def test_card_reduced_rwkv6_like_cpu(cuda):
+    """RWKV6 (the WKV recurrence with ``u`` and a per-channel decay, the
+    ``wkv`` kernel once a layer a call): ``run`` with the first-order
+    extensions and DiagGGN-MC (the draws given) held to the CPU's run in
+    float64, each leaf within ``F64_FACTOR`` of the CPU's own float32
+    reading (at this random start float32 itself reads up to 7e-5 of a
+    leaf: the token-shift lerps and the u bonus cancel in the gradient), and
+    a serve_step chain against the full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.models import build_model
+
+    cfg = get_config("rwkv6-3b").reduced()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    params = model.params()
+    toks = torch.randint(0, cfg.vocab, (2, 32), device="cuda", generator=cuda)
+    labels = torch.randint(0, cfg.vocab, (2, 32), device="cuda", generator=cuda)
+    draws = torch.randint(0, cfg.vocab, (1, 2, 32), device="cuda", generator=cuda)
+    names = ("batch_grad", "variance", "diag_ggn_mc")
+    exts = tuple(by_name(e) for e in names)
+    ops.reset_launch_counts()
+    res = run(model, params, toks, labels, CrossEntropyLoss(), extensions=exts, rng=draws)
+    assert ops.launch_counts()["wkv"] == cfg.n_layers
+    cpu = {dt: run(model, tree_map(lambda p: p.cpu().to(dt), params), toks.cpu(),
+                   labels.cpu(), CrossEntropyLoss(), extensions=exts, rng=draws.cpu())
+           for dt in (torch.float32, torch.float64)}
+
+    def held(card, cpu32, cpu64, what):
+        for a, b, c in zip(tree_leaves(card), tree_leaves(cpu32), tree_leaves(cpu64),
+                           strict=True):
+            assert _rel(a.cpu().double(), c) <= max(F64_FACTOR * _rel(b.double(), c),
+                                                    1e-6), what
+
+    held(res.grads, cpu[torch.float32].grads, cpu[torch.float64].grads, "grads")
+    for name in names:
+        held(res[name], cpu[torch.float32][name], cpu[torch.float64][name], name)
+    full = model.call(params, toks)
+    caches = model.init_serve_cache(params, 2, 32, torch.float32)
+    for t in range(32):
+        ops.reset_launch_counts()
+        logits, caches = model.serve_step(params, caches, toks[:, t], t)
+        assert ops.launch_counts() == {k: cfg.n_layers if k == "wkv" else 0
+                                       for k in ops.KERNELS}
+        assert _rel(logits, full[:, t]) < CARD_TOL
+
+
+@pytest.mark.gpu
+def test_card_rwkv6_3b_full_width_serves(cuda):
+    """RWKV6-3B at full width (d 2560, 40 heads of 64, d_ff 8960, vocabulary
+    65536) with 2 of its 32 layers, bf16, weights drawn on the card: a
+    prefill call of 2 × 512 tokens and 8 greedy decode steps, wkv once a
+    layer a call, finite logits; in float32 the decode chain against the
+    forward over 24 tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.models import build_model
+    from repro_torch.serve import ServeConfig, generate
+
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=2)
+    model = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    params = model.params()
+    toks = torch.randint(0, cfg.vocab, (2, 512), device="cuda", generator=cuda)
+    ops.reset_launch_counts()
+    logits = model.call(params, toks)
+    assert ops.launch_counts()["wkv"] == 2 and torch.isfinite(logits.float()).all()
+    ops.reset_launch_counts()
+    out = generate(model, params, toks[:, :8], ServeConfig(max_len=16))
+    assert tuple(out.shape) == (2, 16) and ops.launch_counts()["wkv"] == 2 * 16
+    p32 = tree_map(lambda p: p.float(), params)
+    full = model.call(p32, toks[:1, :24])
+    caches = model.init_serve_cache(p32, 1, 24, torch.float32)
+    chain = []
+    for t in range(24):
+        step, caches = model.serve_step(p32, caches, toks[:1, t], t)
+        chain.append(step)
+    assert _rel(torch.stack(chain, 1), full) < CHAIN_TOL

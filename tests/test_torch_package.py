@@ -7,7 +7,8 @@
 * A CUDA request without a card raises; nothing carries on on the CPU.
 * ``chip_smoke.py`` fails without a card, and outside a checkout.
 * The examples and the serving and NTK-consumer launchers run with
-  ``--device cpu``, and ask for the card by default.
+  ``--device cpu`` (serving also with ``--uncertainty``), and ask for the
+  card by default.
 """
 import ast
 import os
@@ -46,7 +47,7 @@ def test_boundary_covers_every_subpackage():
     for pkg in ("repro_torch.core", "repro_torch.kernels", "repro_torch.laplace",
                 "repro_torch.curv", "repro_torch.optim", "repro_torch.train",
                 "repro_torch.nn", "repro_torch.serve", "repro_torch.launch",
-                "repro_torch.configs", "repro_torch.ntk_apps"):
+                "repro_torch.configs", "repro_torch.ntk_apps", "repro_torch.data"):
         assert pkg in MODULES
     for mod in ("repro_torch.nn.functional", "repro_torch.nn.blocks", "repro_torch.nn.wired",
                 "repro_torch.nn.models", "repro_torch.serve.engine", "repro_torch.launch.serve",
@@ -55,7 +56,10 @@ def test_boundary_covers_every_subpackage():
                 "repro_torch.curv.logdet", "repro_torch.curv.ngd",
                 "repro_torch.ntk_apps.regression", "repro_torch.ntk_apps.influence",
                 "repro_torch.ntk_apps.selection", "repro_torch.optim.matfree",
-                "repro_torch.launch.ntk_apps"):
+                "repro_torch.launch.ntk_apps", "repro_torch.data.synthetic",
+                "repro_torch.train.loop", "repro_torch.launch.train",
+                "repro_torch.examples.curvature_training", "repro_torch.examples.noise_scale",
+                "repro_torch.examples.laplace_uncertainty"):
         assert mod in MODULES
 
 
@@ -181,8 +185,8 @@ def test_serve_launcher_asks_for_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device was requested"):
         serve.main(["--arch", "hymba-1.5b"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 13"):
-        serve.main(["--arch", "hymba-1.5b", "--device", "cpu", "--uncertainty"])
+    mean, var = serve.main(["--arch", "hymba-1.5b", "--device", "cpu", "--uncertainty"])
+    assert tuple(mean.shape) == tuple(var.shape) == (4, 97) and (var >= 0).all()
 
 
 def test_ntk_apps_launcher_runs_on_cpu():
