@@ -7,11 +7,13 @@ Builds the ten Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all at once) and holds each against its plain PyTorch
 version at the shapes its path gives it: BackPACK's on 3C3D at batch 128,
 Hymba-1.5B's and StableLM-2-1.6B's serving shapes for flash_attention and
-wkv, and the LM run's shapes for fused_first_order, fused_second_order and
-flash_attention.  Then it drives twelve paths through the entry points a
+wkv, the LM run's shapes for fused_first_order, fused_second_order and
+flash_attention, and whisper-tiny's (non-causal attention over 1500 frames,
+cross-attention of 448 queries against them, its head and encoder
+feed-forward).  Then it drives thirteen paths through the entry points a
 user calls, seven on 3C3D (CIFAR-10 shapes, full width, random weights from
-a seed) and five on language models, each with the launch counts set to 0
-just before and read just after:
+a seed), five on language models and one on the encoder-decoder, each with
+the launch counts set to 0 just before and read just after:
 
 * the main path, ``repro_torch.core.run`` with the ten first-order,
   exact-GGN and MC extensions on the fused route (the default), which must
@@ -113,7 +115,17 @@ just before and read just after:
   the reduced config; a restart repeating the uninterrupted losses bit for
   bit; ``launch.serve --full --uncertainty``; and the examples
   ``curvature_training`` (98M parameters), ``noise_scale`` and
-  ``laplace_uncertainty``.
+  ``laplace_uncertainty``;
+* Whisper (``whisper_phase``): whisper-tiny at full width and depth, 4 ×
+  1500 frames; ``encode`` (flash_attention 4) and greedy
+  ``generate_whisper`` over the 448 decoder positions (8 a serve_step) in
+  bf16, decode timed and profiled at positions 32 and 447, a float32
+  chain over the 448 positions against the forward, card against CPU, the
+  serving launcher; BackPACK ``run`` in float32 (fused_first_order and
+  fused_second_order once a Dense layer of the tree, 65; flash_attention
+  12) against autograd, KFAC at a vocabulary of 8192, the reduced config
+  card against CPU; the training launcher with AdamW and DiagGGN-MC; the
+  serving example (StableLM-2, RWKV6 and Whisper reduced).
 
 The two kernels with a library counterpart (sq_matmul: ``torch.matmul`` of
 the squares; flash_attention: SDPA) are timed in turns with it (kernel,
@@ -263,6 +275,22 @@ TRAIN_LM = dict(arch="stablelm-1.6b", seq=512, batch=4, adamw_steps=6, mc_steps=
                 cg_layers=4, cg_steps=3, cg_iters=10, cg_lr=0.3, cg_damping=0.1,
                 kfac_vocab=8192, kfac_steps=3, cpu_batch=2, cpu_seq=32, restart_steps=6,
                 restart_fail=3, example_steps=10, example_seq=64, example_batch=8)
+
+# Whisper (whisper_phase): whisper-tiny at full width and depth (4 encoder and 4
+# decoder layers of d 384, 6 heads of 64, vocabulary 51865, 448 decoder
+# positions), 4 sets of 1500 frames (30 s of audio each).  Serving in bf16:
+# encode, greedy generate_whisper over the 448 positions, 8 decode steps timed
+# from positions 32 and 439 (the step after each profiled); a float32 copy's
+# serve_step chain over the 448 positions against the forward, and the card
+# against the CPU at 1 × 64 frames and 16 tokens.  BackPACK run in float32 at
+# 4 × 1500 frames and 448 tokens, 6 labels masked (first-order + DiagGGN-MC at
+# the full vocabulary; KFAC with DiagGGN-MC at the vocabulary cut to 8192: the
+# head's B factor alone would be 51865² × 4 B = 10.8 GB, with its inverse); the
+# reduced config card vs CPU at 2 × 16 frames.  The training launcher in bf16,
+# AdamW 4 steps and DiagGGN-MC with Variance 3.
+WHISPER = dict(arch="whisper-tiny", batch=4, frames=1500, masked=6, decode_at=(32, 439),
+               decode_steps=8, cpu_frames=64, cpu_tokens=16, kfac_vocab=8192, cpu_batch=2,
+               cpu_seq=16, adamw_steps=4, mc_steps=3)
 
 FIRST = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot")
 EXACT = ("diag_ggn", "kflr", "ggn_trace")
@@ -1610,7 +1638,7 @@ def dense_kernel_cases(torch):
     weighted by their launches a sweep (7 Dense a layer, the head once): the
     first-order sweep's l2, moment and dot; the MC sweep's diagonal (C = 1)
     at the full vocabulary; and diagonal with Kronecker factor at the KFAC
-    run's vocabulary of 8192."""
+    run's vocabulary of 8192 (``fused_dense_cases``)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
 
     def randn(*shape):
@@ -1649,33 +1677,111 @@ def dense_kernel_cases(torch):
                   4 * dh * nb * h * seen_pairs(torch, tb, tb, None), 4 * 4 * nb * tb * h * dh,
                   TOL, PEAK_FLOPS))
     d, ff, vocab = 2048, 5632, 100352
-    dense = (("wq/wk/wv/wo", d, d, 4 * L), ("w_gate/w_up", d, ff, 2 * L),
-             ("w_down", ff, d, L), ("head", d, vocab, 1))
-    r = tb
-    for name, a, b, per_call in dense:
+    return cases + fused_dense_cases(
+        torch, randn, "lm", nb, (("wq/wk/wv/wo", tb, d, d, 4 * L),
+                                 ("w_gate/w_up", tb, d, ff, 2 * L), ("w_down", tb, ff, d, L),
+                                 ("head", tb, d, vocab, 1)), LM_RUN["kfac_vocab"])
+
+
+def fused_dense_cases(torch, randn, tag, nb, dense, kfac_vocab):
+    """fused_first_order's and fused_second_order's rows at a model's Dense
+    shapes ``dense`` ((name, R rows a sample, a, b, launches a sweep), the
+    head named "head"), each weighted by its launches: the first-order
+    sweep's l2, moment and dot; the MC sweep's diagonal (C = 1) at the full
+    vocabulary; and diagonal with Kronecker factor at the KFAC run's
+    (the head's b cut to ``kfac_vocab``)."""
+    cases = []
+    for name, r, a, b, per_call in dense:
         A, B = randn(nb, r, a), randn(nb, r, b)
         flops = 2 * nb * r * a * b + 3 * nb * a * b + nb * (nb - 1) * a * b
-        cases.append(("fused_first_order", f"lm {name} A[{nb},{r},{a}] B[{nb},{r},{b}]",
+        cases.append(("fused_first_order", f"{tag} {name} A[{nb},{r},{a}] B[{nb},{r},{b}]",
                       per_call, per_call, (A, B),
                       dict(want_l2=True, want_moment=True, want_dot=True), flops,
                       4 * (nb * r * (a + b) + nb + a * b + nb * nb), TOL, PEAK_FLOPS,
                       2 * nb * r * a * b + nb * (nb - 1) * a * b))
         S = B[None]
-        cases.append(("fused_second_order", f"lm {name} mc A[{nb},{r},{a}] S[1,{nb},{r},{b}]",
+        cases.append(("fused_second_order", f"{tag} {name} mc A[{nb},{r},{a}] S[1,{nb},{r},{b}]",
                       per_call, per_call, (A, S), dict(want_diag=True),
                       2 * nb * r * a * b + 2 * nb * a * b, 4 * (nb * r * (a + b) + a * b),
                       TOL, PEAK_FLOPS, 2 * nb * r * a * b))
         if name == "head":
-            b = LM_RUN["kfac_vocab"]
+            b = kfac_vocab
             A, S = randn(nb, r, a), randn(1, nb, r, b)
             name = f"head vocab {b}"
         else:
             A, S = randn(nb, r, a), randn(1, nb, r, b)
-        cases.append(("fused_second_order", f"lm kfac {name} A[{nb},{r},{a}] S[1,{nb},{r},{b}]",
+        cases.append(("fused_second_order", f"{tag} kfac {name} A[{nb},{r},{a}] S[1,{nb},{r},{b}]",
                       per_call, per_call, (A, S), dict(want_diag=True, want_kron=True),
                       2 * nb * r * a * b + 2 * nb * a * b + nb * r * b * (b + 1),
                       4 * (nb * r * (a + b) + a * b + b * b), TOL, PEAK_FLOPS,
                       2 * nb * r * a * b + nb * r * b * (b + 1)))
+    return cases
+
+
+def whisper_kernel_cases(torch):
+    """whisper-tiny's rows (``WHISPER``), from a generator of their own (seed
+    14): flash_attention at each shape of its paths, 6 heads of 64 with no
+    GQA (g = 1), queries on 448 decoder positions and keys on 1500 frames.
+    bf16 ("wgmma"): the encoder's non-causal self-attention (4 an encode,
+    and 4 in the training launcher's forward), the decoder's causal
+    self-attention (448 rows: 3.5 tiles of 128) and its non-causal
+    cross-attention (448 queries against 1500 keys: 23 tiles of 64 and a
+    tail of 28), 4 each a training forward; in decode ("split") the self
+    attention against the float32 cache at position 447 and the cross
+    attention against 1500 bf16 keys with no positions (4 each a
+    serve_step, weight 0); in float32 ("simt") the three of ``run``'s
+    forward (4 each).  fused_first_order and fused_second_order
+    (``fused_dense_cases``) at each Dense shape of the sweep: R 1500 in the
+    encoder and at the decoder's ``ck``/``cv``, R 448 elsewhere in the
+    decoder and at the head (384 × 51865; KFAC's at 8192).  Operations and
+    bytes as ``dense_kernel_cases`` counts them; a non-causal attention sees
+    T·S pairs."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    cases = []
+    n, s, t, h, dh = WHISPER["batch"], WHISPER["frames"], 448, 6, 64
+    enc, dec = 4, 4
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def attention(label, tq, tk, causal, q_dtype, kv_dtype, per_call, weight, tol, peak,
+                  **kw):
+        q = randn(n, tq, h, dh).to(q_dtype)
+        k, v = randn(n, tk, h, dh).to(kv_dtype), randn(n, tk, h, dh).to(kv_dtype)
+        pairs = (seen_pairs(torch, tq, tk, None, kw.get("q_positions"), kw.get("k_positions"))
+                 if causal else tq * tk)
+        nbytes = (q_dtype.itemsize * 2 * n * tq * h * dh + kv_dtype.itemsize * 2 * n * tk * h * dh
+                  + (4 * (tk + 1) if "k_positions" in kw else 0))
+        cases.append(("flash_attention", label, per_call, weight, (q, k, v),
+                      dict(causal=causal, window=None, **kw), 4 * dh * n * h * pairs, nbytes, tol,
+                      peak))
+
+    for dtype, tag, tol, peak, why in ((bf, "bf16", BF16_TOL, PEAK_BF16, "training forward"),
+                                       (f32, "fp32", TOL, PEAK_FLOPS, "forward of run")):
+        attention(f"whisper {tag} encoder non-causal q,k,v[{n},{s},{h},{dh}] ({why})", s, s,
+                  False, dtype, dtype, enc, enc, tol, peak)
+        attention(f"whisper {tag} decoder self causal q,k,v[{n},{t},{h},{dh}] ({why})", t, t,
+                  True, dtype, dtype, dec, dec, tol, peak)
+        attention(f"whisper {tag} cross non-causal q[{n},{t},{h},{dh}] k,v[{n},{s},{h},{dh}] "
+                  f"({why})", t, s, False, dtype, dtype, dec, dec, tol, peak)
+    i32 = dict(device="cuda", dtype=torch.int32)
+    attention(f"decode whisper self q bf16 [{n},1,{h},{dh}] fp32 cache[{n},{t},{h},{dh}] "
+              f"at position {t - 1} (per call: a serve_step)", 1, t, True, bf, f32, dec, 0,
+              BF16_TOL, PEAK_BF16, q_positions=torch.tensor([t - 1], **i32),
+              k_positions=torch.arange(t, **i32))
+    attention(f"decode whisper cross non-causal q bf16 [{n},1,{h},{dh}] bf16 "
+              f"k,v[{n},{s},{h},{dh}] (per call: a serve_step)", 1, s, False, bf, bf, dec, 0,
+              BF16_TOL, PEAK_BF16)
+    # every Dense shape of the sweep (6 an encoder layer, 10 a decoder layer,
+    # the head: 65), its launches a sweep
+    d, ff = 384, 1536
+    cases += fused_dense_cases(torch, randn, "whisper", n, (
+        ("encoder wq/wk/wv/wo, decoder ck/cv", s, d, d, 4 * enc + 2 * dec),
+        ("encoder w_up", s, d, ff, enc), ("encoder w_down", s, ff, d, enc),
+        ("decoder wq/wk/wv/wo/cq/co", t, d, d, 6 * dec), ("decoder w1", t, d, ff, dec),
+        ("decoder w2", t, ff, d, dec), ("head", t, d, 51865, 1)), WHISPER["kfac_vocab"])
     return cases
 
 
@@ -1790,6 +1896,55 @@ def dense_heads_phase(torch, ops):
     return out
 
 
+def _rel(a, b):
+    """max |a − b| / max |b|, b moved to a's device."""
+    return ((a.float() - b.float().to(a.device)).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _ext_errs(got, want, names):
+    """``_rel`` of the grads and of each extension of two ``run`` results,
+    the worst leaf; Variance against the second moment's scale."""
+    from repro_torch.core.tree import tree_leaves
+
+    errs = {"grads": max(_rel(a, b) for a, b in zip(tree_leaves(got.grads),
+                                                     tree_leaves(want.grads), strict=True))}
+    for name in names:
+        pairs = list(zip(tree_leaves(got.ext[name]), tree_leaves(want.ext[name]), strict=True))
+        if name == "variance":  # N·Σg² − (Σg)²: its rounding scales with N·Σg²
+            sm = tree_leaves(want.ext["second_moment"])
+            errs[name] = max(((a - b.to(a.device)).abs().max() / m.abs().max()).item()
+                             for (a, b), m in zip(pairs, sm))
+        else:
+            errs[name] = max(_rel(a, b) for a, b in pairs)
+    return errs
+
+
+def _vs_float64_of_batch_grad(torch, bgs, res):
+    """BatchL2, BatchDot and SecondMoment (N · Σ_n g_n²) of a ``run`` result
+    against their float64 formula on the per-sample gradients ``bgs`` (a
+    batch_grad's leaves), leaf by leaf: {name: (the worst leaf's max |got − want| / max
+    |want|, its index in tree_leaves order)}.  A stacked leaf is [N, L, ...]
+    (BatchL2 [N, L], BatchDot [N, L, N])."""
+    from repro_torch.core.tree import tree_leaves
+
+    worst = {}
+    for i, (bg, l2, dot, sm) in enumerate(zip(
+            bgs, *(tree_leaves(res.ext[k]) for k in ("batch_l2", "batch_dot", "second_moment")),
+            strict=True)):
+        g64 = bg.double()
+        flat = g64.reshape(bg.shape[0], l2[0].numel(), -1)
+        for key, got, want in (("batch_l2", l2, (flat * flat).sum(-1).reshape(l2.shape)),
+                               ("batch_dot", dot, torch.einsum(
+                                   "nlp,mlp->nlm", flat, flat).reshape(dot.shape)),
+                               ("second_moment", sm, len(g64) * sum(x * x for x in g64))):
+            e = ((got.double() - want).abs().max() / want.abs().max()).item()
+            if e > worst.get(key, (0.0, -1))[0]:
+                worst[key] = (e, i)
+        del g64, flat
+    return worst
+
+
 def lm_run_phase(torch, ops):
     """BackPACK ``run`` on StableLM-2-1.6B at full width with 4 of its 24
     layers (``LM_RUN``), float32, from random weights drawn on the card:
@@ -1828,24 +1983,6 @@ def lm_run_phase(torch, ops):
         flat[torch.randperm(n * t, device="cuda", generator=gen)[:masked]] = -1
         draws = torch.randint(0, cfg.vocab, (1, n, t), device="cuda", generator=gen)
         return toks, labels, draws
-
-    def rel(a, b):
-        return ((a.float() - b.float().to(a.device)).abs().max()
-                / b.float().abs().max().clamp_min(1e-30)).item()
-
-    def ext_errs(got, want, names):
-        errs = {"grads": max(rel(a, b) for a, b in zip(tree_leaves(got.grads),
-                                                        tree_leaves(want.grads), strict=True))}
-        for name in names:
-            pairs = list(zip(tree_leaves(got.ext[name]), tree_leaves(want.ext[name]),
-                             strict=True))
-            if name == "variance":  # N·Σg² − (Σg)²: its rounding scales with N·Σg²
-                sm = tree_leaves(want.ext["second_moment"])
-                errs[name] = max(((a - b.to(a.device)).abs().max() / m.abs().max()).item()
-                                 for (a, b), m in zip(pairs, sm))
-            else:
-                errs[name] = max(rel(a, b) for a, b in pairs)
-        return errs
 
     cfg, model, params = lm()
     toks, labels, draws = batch(cfg, n, t, LM_RUN["masked"])
@@ -1889,8 +2026,8 @@ def lm_run_phase(torch, ops):
         lv = loss.value(model.call(tracked, toks), labels)
         auto = torch.autograd.grad(lv, tree_leaves(tracked))
     del tracked, lv
-    grad_err = max(rel(a, b) for a, b in zip(tree_leaves(res.grads), auto, strict=True))
-    sum_err = max(rel(bg.sum(0), g) for bg, g in zip(tree_leaves(res.ext["batch_grad"]),
+    grad_err = max(_rel(a, b) for a, b in zip(tree_leaves(res.grads), auto, strict=True))
+    sum_err = max(_rel(bg.sum(0), g) for bg, g in zip(tree_leaves(res.ext["batch_grad"]),
                                                      tree_leaves(res.grads), strict=True))
     var_min = min((v.min() / m.abs().max()).item() for v, m in zip(
         tree_leaves(res.ext["variance"]), tree_leaves(res.ext["second_moment"])))
@@ -1902,26 +2039,9 @@ def lm_run_phase(torch, ops):
     torch.cuda.synchronize()
     pe_s = time.perf_counter() - t0
     pe_launches = ops.launch_counts()
-    route_errs = ext_errs(res_pe, res, names)
-    # BatchL2 and BatchDot of each route against their float64 formula on
-    # the fused route's per-sample gradients, leaf by leaf (the worst leaf's
-    # index in tree_leaves order); a stacked leaf is [N, L, ...] (BatchDot
-    # [N, L, N])
-    exact64 = {}
-    for name, r_ in (("fused", res), ("per_extension", res_pe)):
-        worst = {}
-        for i, (bg, l2, dot) in enumerate(zip(tree_leaves(res.ext["batch_grad"]),
-                                               tree_leaves(r_.ext["batch_l2"]),
-                                               tree_leaves(r_.ext["batch_dot"]), strict=True)):
-            g64 = bg.double().reshape(bg.shape[0], l2[0].numel(), -1)
-            for key, got, want in (("batch_l2", l2, (g64 * g64).sum(-1).reshape(l2.shape)),
-                                   ("batch_dot", dot, torch.einsum(
-                                       "nlp,mlp->nlm", g64, g64).reshape(dot.shape))):
-                e = ((got.double() - want).abs().max() / want.abs().max()).item()
-                if e > worst.get(key, (0.0, -1))[0]:
-                    worst[key] = (e, i)
-            del g64
-        exact64[name] = worst
+    route_errs = _ext_errs(res_pe, res, names)
+    exact64 = {name: _vs_float64_of_batch_grad(torch, tree_leaves(res.ext["batch_grad"]), r_)
+               for name, r_ in (("fused", res), ("per_extension", res_pe))}
     del res_pe
     out["run"] = dict(arch=cfg.name, layers=L, d_model=cfg.d_model, vocab=cfg.vocab, batch=n,
                       seq=t, masked=LM_RUN["masked"], extensions=names,
@@ -1995,7 +2115,7 @@ def lm_run_phase(torch, ops):
         card = run(model, params, toks, labels, loss, extensions=exts_c, cfg=fused, rng=draws)
         cpu = run(model, tree_map(lambda p: p.cpu(), params), toks.cpu(), labels.cpu(), loss,
                   extensions=exts_c, cfg=fused, rng=draws.cpu())
-        errs = ext_errs(card, cpu, names_c)
+        errs = _ext_errs(card, cpu, names_c)
         out["card_vs_cpu"][arch] = errs
         say("lm_run_card_vs_cpu", arch=arch, reduced=True, rel_err=errs, tol=TOL)
         if max(errs.values()) > TOL:
@@ -2019,6 +2139,138 @@ def _steps_profiled(at, out, **kw):
         return wrapped
 
     return wrap
+
+
+def _measured(torch, ops, fn):
+    """(fn's result, seconds, launches, peak bytes above the start)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, ops.launch_counts(),
+            torch.cuda.max_memory_allocated() - base)
+
+
+def _profile_steps(loop_mod, at, prof, kept=None, **kw):
+    """Profile the step of index ``at`` of the loop's next ``fit`` (into
+    ``prof``); into ``kept`` its input weights and batch (a step returns new
+    tensors: they stay as they were).  Returns the function that restores
+    the loop's step factories."""
+    factories = (loop_mod.make_train_step, loop_mod.make_extended_train_step)
+    profiled_ = _steps_profiled(at, prof, **kw)
+
+    def wrap(step):
+        inner = profiled_(step)
+
+        def wrapped(params, opt_state, batch, step_idx, *rest):
+            if kept is not None and step_idx == at:
+                kept.update(params=params, batch=batch)
+            return inner(params, opt_state, batch, step_idx, *rest)
+        return wrapped
+
+    loop_mod.make_train_step = lambda *a, **k: wrap(factories[0](*a, **k))
+    loop_mod.make_extended_train_step = lambda *a, **k: wrap(factories[1](*a, **k))
+
+    def unpatch():
+        loop_mod.make_train_step, loop_mod.make_extended_train_step = factories
+
+    return unpatch
+
+
+def _last_step_check(torch, run_, kept, loss):
+    """The last step's batch through the weights it started from
+    (``kept``) and those it returned: the two losses, and for each
+    parameter (by its path) the share of its entries that the step moved
+    and max |Δ| / max |p|."""
+    from repro_torch.core.tree import tree_leaves, tree_map_with_path
+    from repro_torch.train.step import make_loss_fn
+
+    loss_fn = make_loss_fn(run_["model"], loss)
+    before, batch = kept["params"], kept["batch"]
+    with torch.no_grad():
+        res = {f"loss_{k}": loss_fn(p, batch["inputs"], batch["labels"]).item()
+               for k, p in (("before", before), ("after", run_["params"]))}
+    paths = tree_leaves(tree_map_with_path(lambda p_, _: "/".join(map(str, p_)), before))
+    res["moved_share"], res["max_rel_change"] = {}, {}
+    for path, a, b in zip(paths, tree_leaves(before), tree_leaves(run_["params"]),
+                          strict=True):
+        res["moved_share"][path] = (a != b).float().mean().item()
+        res["max_rel_change"][path] = ((b.float() - a.float()).abs().max()
+                                       / a.float().abs().max().clamp_min(1e-30)).item()
+    return res
+
+
+TRAIN_GROUPS = {"backpack_kernels": ("xty", "gram", "rowprod", "sum_partials", "diagonal"),
+                "attention_forward": ("flash_",), "gemm": ("gemm", "Gemm", "nvjet")}
+TRAIN_RANGES = {"attention_backward": "flash_attention_backward",
+                "attention_jvp": "flash_attention_jvp"}
+
+
+def launcher_runs(torch, ops, tag, argv, runs, meta):
+    """The training launcher, ``launch.train.main(argv + ["--optimizer",
+    opt, "--steps", steps] + extra)`` for each (opt, steps, extra, launches
+    derived a step) of ``runs``, the launch counts set to 0 before and read
+    after: the last step lowers the loss of its own batch (the weights
+    before and after it, one deterministic forward each; the share of each
+    parameter's entries that moved printed); steps 2..n−1 timed, the last
+    profiled, the peak above the start.  ``meta`` goes into each row."""
+    from repro_torch.core import CrossEntropyLoss
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train import loop as loop_mod
+
+    loss = CrossEntropyLoss()
+    launcher = {}
+    for opt, steps, extra, want in runs:
+        prof, kept = {}, {}
+        # the host's operators recorded on AdamW's step alone (attention's
+        # backward is a range of them); a step of the MC sweep's thousands of
+        # operators would take the profiler minutes to summarize
+        unpatch = _profile_steps(loop_mod, steps - 1, prof, kept, groups=TRAIN_GROUPS,
+                                 ranges=TRAIN_RANGES if opt == "adamw" else None,
+                                 host_ops=opt == "adamw")
+        try:
+            run_, s, launches, peak = _measured(torch, ops, lambda: train_launch.main(
+                argv + ["--optimizer", opt, "--steps", str(steps)] + extra))
+        finally:
+            unpatch()
+        hist = run_["history"]
+        last = _last_step_check(torch, run_, kept, loss)
+        del run_, kept
+        torch.cuda.empty_cache()
+        losses = [h["loss"] for h in hist]
+        want = {k: v * steps for k, v in want.items()}
+        row = dict(optimizer=opt, **meta, steps=steps,
+                   losses=losses, step_s=[h["dur_s"] for h in hist],
+                   ms=medians_ms({"s": [h["dur_s"] for h in hist[1:-1]]})["s"],
+                   call_s=s, peak_bytes_above_start=peak, launches=launches,
+                   launches_derived=want, wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                   idle_share=prof["idle_share"],
+                   split_device_ms={k: prof[f"{k}_device_ms"]
+                                    for k in (*TRAIN_GROUPS, *TRAIN_RANGES)
+                                    if f"{k}_device_ms" in prof},
+                   variance_mean=[h.get("variance_mean") for h in hist], last_step=last,
+                   profile=prof)
+        launcher[opt] = row
+        say(f"{tag}_launcher", top_kernels=prof["top"][:8],
+            **{k: v for k, v in row.items() if k != "profile"})
+        if launches != want:
+            fail(f"{tag} launcher {opt}: launched {launches}, derived {want}")
+        # Each step's loss is on a fresh batch whose offset moves with the
+        # step: the batches alone move it by ≈ 0.04, and what a step learns
+        # of its offset can raise the loss of another's (AdamW's six steps
+        # raise step 0's batch's).  The last step's own batch
+        # is read before and after it, by one deterministic forward each: a
+        # step that left the weights as they were reads the same loss.
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{tag} launcher {opt}: losses {losses}")
+        if not last["loss_after"] < last["loss_before"]:
+            fail(f"{tag} launcher {opt}: the last step did not lower its batch's loss: "
+                 f"{last}")
+    return launcher
 
 
 def train_lm_phase(torch, ops):
@@ -2049,7 +2301,7 @@ def train_lm_phase(torch, ops):
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.core import CrossEntropyLoss
-    from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
+    from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.curv import GGNOperator, ggn_vp, hvp
     from repro_torch.examples import curvature_training, laplace_uncertainty, noise_scale
     from repro_torch.launch import serve as serve_launch
@@ -2058,7 +2310,6 @@ def train_lm_phase(torch, ops):
     from repro_torch.optim import Optimizer, adamw, make_cg_ngd_step
     from repro_torch.train import loop as loop_mod
     from repro_torch.train.fault import FailureInjector
-    from repro_torch.train.step import make_loss_fn
 
     spec = TRAIN_LM
     out = {}
@@ -2069,7 +2320,6 @@ def train_lm_phase(torch, ops):
     n_seq = ["--seq", str(spec["seq"]), "--batch", str(spec["batch"])]
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=spec["seq"],
                                 global_batch=spec["batch"])
-    factories = (loop_mod.make_train_step, loop_mod.make_extended_train_step)
     ckpt_root = ROOT / "build" / "train_lm_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
@@ -2079,115 +2329,15 @@ def train_lm_phase(torch, ops):
     def card_gen(seed):  # the launchers' weights: a generator on the device
         return torch.Generator(device="cuda").manual_seed(seed)
 
-    def measured(fn):
-        """(fn's result, seconds, launches, peak bytes above the start)."""
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return (res, time.perf_counter() - t0, ops.launch_counts(),
-                torch.cuda.max_memory_allocated() - base)
-
-    def profiling(at, prof, kept=None, **kw):
-        """Profile the step of index ``at``; into ``kept`` its input weights
-        and batch (a step returns new tensors: they stay as they were)."""
-        profiled_ = _steps_profiled(at, prof, **kw)
-
-        def wrap(step):
-            inner = profiled_(step)
-
-            def wrapped(params, opt_state, batch, step_idx, *rest):
-                if kept is not None and step_idx == at:
-                    kept.update(params=params, batch=batch)
-                return inner(params, opt_state, batch, step_idx, *rest)
-            return wrapped
-
-        loop_mod.make_train_step = lambda *a, **k: wrap(factories[0](*a, **k))
-        loop_mod.make_extended_train_step = lambda *a, **k: wrap(factories[1](*a, **k))
-
-    def unpatch():
-        loop_mod.make_train_step, loop_mod.make_extended_train_step = factories
-
-    def last_step_check(run_, kept):
-        """The last step's batch through the weights it started from
-        (``kept``) and those it returned: the two losses, and for each
-        parameter (by its path) the share of its entries that the step moved
-        and max |Δ| / max |p|."""
-        loss_fn = make_loss_fn(run_["model"], loss)
-        before, batch = kept["params"], kept["batch"]
-        with torch.no_grad():
-            res = {f"loss_{k}": loss_fn(p, batch["inputs"], batch["labels"]).item()
-                   for k, p in (("before", before), ("after", run_["params"]))}
-        paths = tree_leaves(tree_map_with_path(lambda p_, _: "/".join(map(str, p_)), before))
-        res["moved_share"], res["max_rel_change"] = {}, {}
-        for path, a, b in zip(paths, tree_leaves(before), tree_leaves(run_["params"]),
-                              strict=True):
-            res["moved_share"][path] = (a != b).float().mean().item()
-            res["max_rel_change"][path] = ((b.float() - a.float()).abs().max()
-                                           / a.float().abs().max().clamp_min(1e-30)).item()
-        return res
-
-    groups = {"backpack_kernels": ("xty", "gram", "rowprod", "sum_partials", "diagonal"),
-              "attention_forward": ("flash_",), "gemm": ("gemm", "Gemm", "nvjet")}
-    ranges = {"attention_backward": "flash_attention_backward",
-              "attention_jvp": "flash_attention_jvp"}
-
     # -- the launcher at full width and depth, bf16 ------------------------------
-    launcher = {}
-    for opt, steps, extra, want in (
+    out["launcher"] = launcher_runs(
+        torch, ops, "train_lm", ["--arch", spec["arch"], "--full"] + n_seq, (
             ("adamw", spec["adamw_steps"], [], counts(flash_attention=L)),
             ("diag_ggn_mc", spec["mc_steps"], ["--track-variance"],
-             counts(flash_attention=L, fused_first_order=dense, fused_second_order=dense))):
-        prof, kept = {}, {}
-        # the host's operators recorded on AdamW's step alone (attention's
-        # backward is a range of them); a step of the MC sweep's thousands of
-        # operators would take the profiler minutes to summarize
-        profiling(steps - 1, prof, kept, groups=groups,
-                  ranges=ranges if opt == "adamw" else None, host_ops=opt == "adamw")
-        try:
-            run_, s, launches, peak = measured(lambda: train_launch.main(
-                ["--arch", spec["arch"], "--full", "--optimizer", opt, "--steps", str(steps)]
-                + n_seq + extra))
-        finally:
-            unpatch()
-        hist = run_["history"]
-        last = last_step_check(run_, kept)
-        del run_, kept
-        torch.cuda.empty_cache()
-        losses = [h["loss"] for h in hist]
-        want = {k: v * steps for k, v in want.items()}
-        row = dict(optimizer=opt, layers=L, d_model=full_cfg.d_model, vocab=full_cfg.vocab,
-                   dtype=full_cfg.dtype, batch=spec["batch"], seq=spec["seq"], steps=steps,
-                   losses=losses, step_s=[h["dur_s"] for h in hist],
-                   ms=medians_ms({"s": [h["dur_s"] for h in hist[1:-1]]})["s"],
-                   call_s=s, peak_bytes_above_start=peak, launches=launches,
-                   launches_derived=want, wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
-                   idle_share=prof["idle_share"],
-                   split_device_ms={k: prof[f"{k}_device_ms"] for k in (*groups, *ranges)
-                                    if f"{k}_device_ms" in prof},
-                   variance_mean=[h.get("variance_mean") for h in hist], last_step=last,
-                   profile=prof)
-        launcher[opt] = row
-        say("train_lm_launcher", top_kernels=prof["top"][:8],
-            **{k: v for k, v in row.items() if k != "profile"})
-        if launches != want:
-            fail(f"train_lm launcher {opt}: launched {launches}, derived {want}")
-        # Each step's loss is on a fresh batch whose offset moves with the
-        # step: the batches alone move it by ≈ 0.04, and what a step learns
-        # of its offset can raise the loss of another's (AdamW's six steps
-        # raise step 0's batch's).  The last step's own batch
-        # is read before and after it, by one deterministic forward each: a
-        # step that left the weights as they were reads the same loss.
-        if not all(math.isfinite(v) for v in losses):
-            fail(f"train_lm launcher {opt}: losses {losses}")
-        if not last["loss_after"] < last["loss_before"]:
-            fail(f"train_lm launcher {opt}: the last step did not lower its batch's loss: "
-                 f"{last}")
-    out["launcher"] = launcher
+             counts(flash_attention=L, fused_first_order=dense, fused_second_order=dense))),
+        dict(layers=L, d_model=full_cfg.d_model, vocab=full_cfg.vocab, dtype=full_cfg.dtype,
+             batch=spec["batch"], seq=spec["seq"]))
+    launcher = out["launcher"]
 
     # -- remat: the same plain step with build_model(cfg, remat=True) -----------
     # The step's peak is its optimizer update's (AdamW's new float32 moments
@@ -2206,7 +2356,7 @@ def train_lm_phase(torch, ops):
             return inner.update(grads, state, params_, **kw)
 
         start = torch.cuda.memory_allocated()
-        (params, _, hist, _), s, launches, peak = measured(lambda: loop_mod.fit(
+        (params, _, hist, _), s, launches, peak = _measured(torch, ops, lambda: loop_mod.fit(
             model, full_cfg, shape, Optimizer(inner.init, update),
             loop_mod.LoopConfig(steps=2, log_every=10)))
         remat[flag] = dict(losses=[h["loss"] for h in hist], step_s=[h["dur_s"] for h in hist],
@@ -2245,7 +2395,7 @@ def train_lm_phase(torch, ops):
                                  cg_iters=spec["cg_iters"])
     prof = {}
     wrap = _steps_profiled(spec["cg_steps"] - 1, prof, host_ops=False)
-    (_, _, hist, _), s, launches, peak = measured(lambda: loop_mod.fit(
+    (_, _, hist, _), s, launches, peak = _measured(torch, ops, lambda: loop_mod.fit(
         model, ccfg, shape, opt, loop_mod.LoopConfig(steps=spec["cg_steps"], log_every=10),
         step_fn=wrap(step)))
     iters = [int(h["cg_iters"]) for h in hist]
@@ -2294,7 +2444,7 @@ def train_lm_phase(torch, ops):
     kcfg = dataclasses.replace(full_cfg, vocab=spec["kfac_vocab"])
     model = build_model(kcfg, device="cuda", generator=card_gen(0))
     kw = train_launch.make_optimizer("kfac", model)
-    (_, _, hist, _), s, launches, peak = measured(lambda: loop_mod.fit(
+    (_, _, hist, _), s, launches, peak = _measured(torch, ops, lambda: loop_mod.fit(
         model, kcfg, shape, kw.pop("opt"), loop_mod.LoopConfig(steps=spec["kfac_steps"],
                                                                log_every=10), **kw))
     del model
@@ -2400,7 +2550,7 @@ def train_lm_phase(torch, ops):
         fail(f"train_lm restart: the losses differ from the uninterrupted run: {out['restart']}")
 
     # -- serve --full --uncertainty --------------------------------------------------
-    (mean, var), s, launches, peak = measured(lambda: serve_launch.main(
+    (mean, var), s, launches, peak = _measured(torch, ops, lambda: serve_launch.main(
         ["--arch", spec["arch"], "--full", "--uncertainty"]))
     want = counts(flash_attention=2 * L, fused_second_order=1)
     out["uncertainty"] = dict(shape=list(mean.shape), dtype=str(var.dtype), call_s=s,
@@ -2417,15 +2567,15 @@ def train_lm_phase(torch, ops):
 
     # -- the three LM examples ------------------------------------------------------
     examples = {}
-    hists, s, launches, _ = measured(lambda: curvature_training.main(
+    hists, s, launches, _ = _measured(torch, ops, lambda: curvature_training.main(
         ["--steps", str(spec["example_steps"]), "--seq", str(spec["example_seq"]),
          "--batch", str(spec["example_batch"])]))
     examples["curvature_training"] = dict(
         final_losses={k: h[-1]["loss"] for k, h in hists.items()},
         first_losses={k: h[0]["loss"] for k, h in hists.items()}, s=s, launches=launches)
-    rows, s, launches, _ = measured(lambda: noise_scale.main([]))
+    rows, s, launches, _ = _measured(torch, ops, lambda: noise_scale.main([]))
     examples["noise_scale"] = dict(rows=rows, s=s, launches=launches)
-    (mean, var), s, launches, _ = measured(lambda: laplace_uncertainty.main([]))
+    (mean, var), s, launches, _ = _measured(torch, ops, lambda: laplace_uncertainty.main([]))
     examples["laplace_uncertainty"] = dict(var_min=var.min().item(), s=s, launches=launches,
                                            finite=bool(torch.isfinite(mean).all()
                                                        and torch.isfinite(var).all()))
@@ -2443,6 +2593,363 @@ def train_lm_phase(torch, ops):
     out["launches"] = {k: sum(launcher[o]["launches"][k] for o in launcher)
                        + out["cg_ngd"]["launches"][k] + out["kfac"]["launches"][k]
                        + out["uncertainty"]["launches"][k] for k in ops.KERNELS}
+    return out
+
+
+def whisper_phase(torch, ops):
+    """Whisper (``WHISPER``): whisper-tiny at full width and depth through
+    the entry points a user calls, random weights drawn on the card, each
+    call with the launch counts set to 0 just before and read just after,
+    against the counts derived from the module tree:
+
+    * serving in bf16: ``encode`` of 4 × 1500 frames (flash_attention once an
+      encoder layer, nothing else), ``generate_whisper`` greedy over the 448
+      decoder positions (encode, then self- and cross-attention a decoder
+      layer a serve_step), decode steps timed from positions 32 and 439 and
+      the next step profiled (device ms, attention's, the idle share); a
+      float32 copy's serve_step chain over the 448 positions against the
+      forward (``CHAIN_TOL``), the card against the CPU (``TOL``); the
+      launcher ``launch.serve --arch whisper-tiny --full``;
+    * BackPACK ``run`` in float32 at 4 × 1500 frames, 448 tokens: the
+      first-order extensions and DiagGGN-MC at the full vocabulary
+      (fused_first_order and fused_second_order once a Dense layer of the
+      tree, flash_attention 12, nothing else), timed, profiled, the
+      gradient against autograd, Σ_n batch_grad against it; KFAC with
+      DiagGGN-MC at the vocabulary cut to 8192; the reduced config card
+      against CPU with the MC draws passed in;
+    * the training launcher in bf16 (``--seq 1500 --batch 4``), AdamW and
+      DiagGGN-MC with ``--track-variance`` (``launcher_runs``);
+    * the serving example (``repro_torch.examples.serving``) on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
+    from repro_torch.core.module import Dense, ScanStack, Sequential
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
+    from repro_torch.examples import serving as serving_example
+    from repro_torch.nn.models import build_model
+    from repro_torch.nn.wired import Wired
+    from repro_torch.serve import ServeConfig, generate_whisper
+
+    spec = WHISPER
+    out = {}
+    loss = CrossEntropyLoss()
+    cfg = get_config(spec["arch"])
+    n, s_len, d = spec["batch"], spec["frames"], cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def counts(**want):
+        return {k: want.get(k, 0) for k in ops.KERNELS}
+
+    def dense_layers(m):
+        """The Dense layers a sweep meets, counted on the module tree."""
+        if isinstance(m, Dense):
+            return 1
+        if isinstance(m, ScanStack):
+            return m.L * dense_layers(m.block)
+        kids = (m.children_map.values() if isinstance(m, Wired) else
+                m.mods if isinstance(m, Sequential) else ())
+        return sum(dense_layers(c) for c in kids)
+
+    def by_path(tree):
+        paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(map(str, p)), tree))
+        return dict(zip(paths, tree_leaves(tree), strict=True))
+
+    # -- serving, bf16 -------------------------------------------------------------
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    params = model.params()
+    torch.cuda.synchronize()
+    dense = dense_layers(model)
+    attn = cfg.enc_layers + 2 * cfg.dec_layers  # a forward: self and cross a decoder layer
+    out["model"] = dict(arch=cfg.name, dtype=cfg.dtype, enc_layers=cfg.enc_layers,
+                        dec_layers=cfg.dec_layers, d_model=d, heads=cfg.n_heads, vocab=cfg.vocab,
+                        max_dec=model.max_dec, param_count=cfg.param_count(model),
+                        build_s=time.perf_counter() - t0, dense_layers=dense,
+                        attention_a_forward=attn)
+    say("whisper_model", **out["model"])
+    # q, k, v, o and the two feed-forward layers an encoder layer; self q, k,
+    # v, o, cross q, k, v, o and the two feed-forward layers a decoder layer
+    if dense != 6 * cfg.enc_layers + 10 * cfg.dec_layers + 1:
+        fail(f"whisper: {dense} Dense layers in the tree, not 6 an encoder layer, 10 a "
+             "decoder layer and the head")
+    frames = torch.randn(n, s_len, d, device="cuda", generator=gen).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    enc = model.encode(params, frames)
+    torch.cuda.synchronize()
+    enc_launches = ops.launch_counts()
+    if enc_launches != counts(flash_attention=cfg.enc_layers):
+        fail(f"whisper encode launched {enc_launches}, not flash_attention {cfg.enc_layers}")
+    if tuple(enc.shape) != (n, s_len, d) or not torch.isfinite(enc.float()).all():
+        fail(f"whisper encode: {tuple(enc.shape)} not a finite [N, S, d]")
+    enc_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.encode(params, frames)
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+    prof = profiled(lambda: model.encode(params, frames), groups={"attention": "flash_"})
+    out["encode"] = dict(batch=n, frames=s_len, launches=enc_launches, step_s=enc_s,
+                         ms=medians_ms({"e": enc_s})["e"], wall_ms=prof["wall_ms"],
+                         device_ms=prof["device_ms"],
+                         attention_device_ms=prof["attention_device_ms"],
+                         idle_share=1 - prof["device_ms"] / prof["wall_ms"], top=prof["top"][:6])
+    say("whisper_encode", **out["encode"])
+
+    sc = ServeConfig(max_len=model.max_dec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = generate_whisper(model, params, frames, sc)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = ops.launch_counts()
+    want = counts(flash_attention=cfg.enc_layers + 2 * cfg.dec_layers * sc.max_len)
+    if gen_launches != want:
+        fail(f"generate_whisper launched {gen_launches}, derived {want}")
+    if (tuple(toks.shape) != (n, sc.max_len) or toks.dtype != torch.int32 or toks.min() < 0
+            or toks.max() >= cfg.vocab):
+        fail(f"generate_whisper: tokens {tuple(toks.shape)} {toks.dtype} out of [0, V)")
+    out["generate"] = dict(batch=n, steps=sc.max_len, s=gen_s,
+                           ms_per_serve_step=gen_s / sc.max_len * 1e3, launches=gen_launches,
+                           max_memory_allocated=torch.cuda.max_memory_allocated(),
+                           first_row=toks[0, :16].tolist())
+    say("whisper_generate", **out["generate"])
+
+    # decode steps timed from two positions; the step after them profiled
+    caches = model.init_serve_cache(params, n, model.max_dec, torch.float32, enc_out=enc)
+    tok = torch.zeros((n,), device="cuda", dtype=torch.int32)
+    pos, out["decode"] = 0, {}
+    for at in spec["decode_at"]:
+        while pos < at:
+            logits, caches = model.serve_step(params, caches, tok, pos)
+            tok, pos = logits.argmax(-1).int(), pos + 1
+        step_s = []
+        ops.reset_launch_counts()
+        for _ in range(spec["decode_steps"]):
+            t0 = time.perf_counter()
+            logits, caches = model.serve_step(params, caches, tok, pos)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            tok, pos = logits.argmax(-1).int(), pos + 1
+        step_launches = ops.launch_counts()
+        if step_launches != counts(flash_attention=2 * cfg.dec_layers * spec["decode_steps"]):
+            fail(f"whisper decode launched {step_launches}, not flash_attention "
+                 f"{2 * cfg.dec_layers} a step")
+        prof = profiled(lambda: model.serve_step(params, caches, tok, pos),
+                        groups={"attention": "flash_"})
+        row = dict(batch=n, position=at, profiled_position=pos, step_s=step_s,
+                   ms_per_token=medians_ms({"d": step_s})["d"], launches=step_launches,
+                   wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                   attention_device_ms=prof["attention_device_ms"],
+                   idle_share=1 - prof["device_ms"] / prof["wall_ms"], top=prof["top"][:6])
+        out["decode"][at] = row
+        say("whisper_decode", **row)
+        if not torch.isfinite(logits).all():
+            fail(f"whisper decode at {at}: non-finite logits")
+    del caches, logits, enc, toks
+
+    # float32: the 448-position chain against the forward, the card against the CPU
+    params32 = tree_map(lambda p: p.float(), params)
+    del params
+    frames32 = frames[:1].float()
+    seq = torch.randint(0, cfg.vocab, (1, model.max_dec), device="cuda", generator=gen)
+    caches = model.init_serve_cache(params32, 1, model.max_dec, torch.float32,
+                                    enc_out=model.encode(params32, frames32))
+    chain = torch.empty((model.max_dec, cfg.vocab), device="cuda")
+    t0 = time.perf_counter()
+    for t in range(model.max_dec):
+        step_logits, caches = model.serve_step(params32, caches, seq[:, t], t)
+        chain[t] = step_logits[0]
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    full = model.call(params32, {"frames": frames32, "tokens": seq})[0]
+    chain_err = _rel(chain, full)
+    del chain, caches, full
+    xc = {"frames": torch.randn(1, spec["cpu_frames"], d, device="cuda", generator=gen),
+          "tokens": torch.randint(0, cfg.vocab, (1, spec["cpu_tokens"]), device="cuda",
+                                  generator=gen)}
+    card = model.call(params32, xc)
+    t0 = time.perf_counter()
+    cpu = model.call(tree_map(lambda p: p.cpu(), params32), tree_map(lambda a: a.cpu(), xc))
+    cpu_s = time.perf_counter() - t0
+    cpu_err = _rel(card.cpu(), cpu)
+    del card, cpu, params32, model
+    out["agreement"] = dict(chain_len=seq.shape[1], chain_s=chain_s,
+                            chain_vs_forward_rel_err=chain_err, chain_tol=CHAIN_TOL,
+                            cpu_frames=spec["cpu_frames"], cpu_tokens=spec["cpu_tokens"],
+                            card_vs_cpu_rel_err=cpu_err, cpu_forward_s=cpu_s, cpu_tol=TOL)
+    say("whisper_agreement", **out["agreement"])
+    if not chain_err <= CHAIN_TOL:
+        fail(f"whisper decode chain vs forward: {chain_err:.3e} above {CHAIN_TOL}")
+    if not cpu_err <= TOL:
+        fail(f"whisper card vs CPU logits: {cpu_err:.3e} above {TOL}")
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT / "src"), env.get("PYTHONPATH")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                           spec["arch"], "--full"], env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    out["serve_launcher"] = dict(returncode=proc.returncode, s=time.perf_counter() - t0,
+                                 stdout=proc.stdout.strip().splitlines()[:1])
+    say("whisper_serve_launcher", **out["serve_launcher"])
+    if proc.returncode != 0:
+        fail(f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+    # -- BackPACK run, float32 -------------------------------------------------------
+    def whisper32(vocab=None, reduced=False):
+        c = dataclasses.replace(cfg.reduced() if reduced else cfg, dtype="float32",
+                                **({} if vocab is None else dict(vocab=vocab)))
+        m = build_model(c, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+        return c, m, m.params()
+
+    def batch(c, nb, frames_len, masked):
+        x = {"frames": torch.randn(nb, frames_len, c.d_model, device="cuda", generator=gen),
+             "tokens": torch.randint(0, c.vocab, (nb, c.dec_len), device="cuda", generator=gen)}
+        labels = torch.randint(0, c.vocab, (nb, c.dec_len), device="cuda", generator=gen)
+        labels.view(-1)[torch.randperm(labels.numel(), device="cuda", generator=gen)[:masked]] = -1
+        draws = torch.randint(0, c.vocab, (1, nb, c.dec_len), device="cuda", generator=gen)
+        return x, labels, draws
+
+    rcfg, model, params = whisper32()
+    x, labels, draws = batch(rcfg, n, s_len, spec["masked"])
+    names = LM_FIRST + ("diag_ggn_mc",)
+    exts = tuple(by_name(e) for e in names)
+    fused = ExtensionConfig(mc_samples=1)
+    want = counts(fused_first_order=dense, fused_second_order=dense, flash_attention=attn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(model, params, x, labels, loss, extensions=exts, cfg=fused, rng=draws)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if launches != want:
+        fail(f"whisper run launched {launches}, derived {want}")
+    step_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run(model, params, x, labels, loss, extensions=exts, cfg=fused, rng=draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    prof = profiled(lambda: run(model, params, x, labels, loss, extensions=exts, cfg=fused,
+                                rng=draws),
+                    groups=TRAIN_GROUPS, ranges={"attention_backward": "flash_attention_backward"})
+    prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+    prof["rest_device_ms"] = prof["device_ms"] - sum(
+        prof[f"{k}_device_ms"] for k in (*TRAIN_GROUPS, "attention_backward"))
+    tracked = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+    with torch.enable_grad():
+        auto = torch.autograd.grad(loss.value(model.call(tracked, x), labels),
+                                   tree_leaves(tracked))
+    del tracked
+    grad_err = max(_rel(a, b) for a, b in zip(tree_leaves(res.grads), auto, strict=True))
+    # pos_dec (a Param) has no per-sample statistics, as in JAX: by path
+    grads = by_path(res.grads)
+    sum_err = max(_rel(bg.sum(0), grads[k]) for k, bg in by_path(res.ext["batch_grad"]).items())
+    var_min = min((v.min() / m.abs().max()).item() for v, m in zip(
+        tree_leaves(res.ext["variance"]), tree_leaves(res.ext["second_moment"]), strict=True))
+    mc_min = min(v.min().item() for v in tree_leaves(res.ext["diag_ggn_mc"]))
+    finite = all(torch.isfinite(v).all() for v in tree_leaves(res.ext))
+    # the kernels' outputs at the path's own shapes, against float64
+    exact64 = _vs_float64_of_batch_grad(torch, tree_leaves(res.ext["batch_grad"]), res)
+    del auto, res, grads
+    out["run"] = dict(arch=rcfg.name, batch=n, frames=s_len, tokens=rcfg.dec_len,
+                      masked=spec["masked"], vocab=rcfg.vocab, extensions=names,
+                      first_call_s=first_s, step_s=step_s, ms=medians_ms({"s": step_s})["s"],
+                      peak_bytes_above_start=peak, launches=launches, launches_derived=want,
+                      wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                      idle_share=prof["idle_share"],
+                      split_device_ms={k: prof[f"{k}_device_ms"] for k in (
+                          *TRAIN_GROUPS, "attention_backward", "rest")},
+                      grads_vs_autograd=grad_err, batch_grad_sum_vs_grads=sum_err,
+                      variance_min_over_second_moment=var_min, diag_ggn_mc_min=mc_min,
+                      finite=bool(finite), vs_float64_of_batch_grad=exact64,
+                      f64_tol=F64_TOL, tol=TOL, profile=prof)
+    say("whisper_run", **{k: v for k, v in out["run"].items() if k != "profile"})
+    if not grad_err <= TOL or not sum_err <= TOL:
+        fail(f"whisper run: grads vs autograd {grad_err:.3e}, Σ batch_grad vs grads "
+             f"{sum_err:.3e} (limit {TOL})")
+    if not (finite and var_min >= -1e-6 and mc_min >= 0):
+        fail(f"whisper run: non-finite, or variance {var_min:.3e} or diag_ggn_mc "
+             f"{mc_min:.3e} below 0")
+    if max(e for e, _ in exact64.values()) > F64_TOL:
+        fail(f"whisper run against float64 of batch_grad: {exact64} (limit {F64_TOL})")
+    del model, params, x
+    torch.cuda.empty_cache()
+
+    # KFAC with DiagGGN-MC at the vocabulary of 8192
+    kcfg, model, params = whisper32(spec["kfac_vocab"])
+    x, labels, draws = batch(kcfg, n, s_len, spec["masked"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kres = run(model, params, x, labels, loss, extensions=(by_name("kfac"),
+                                                           by_name("diag_ggn_mc")),
+               cfg=fused, rng=draws)
+    torch.cuda.synchronize()
+    kfac_s = time.perf_counter() - t0
+    kfac_launches = ops.launch_counts()
+    head = kres.ext["kfac"]["head"]["w"]
+    finite = all(torch.isfinite(v).all() for v in tree_leaves(kres.ext))
+    out["kfac"] = dict(vocab=kcfg.vocab, s=kfac_s, launches=kfac_launches,
+                       head_factors=[list(head["A"].shape), list(head["B"].shape)],
+                       finite=bool(finite), diag_ggn_mc_min=min(
+                           v.min().item() for v in tree_leaves(kres.ext["diag_ggn_mc"])))
+    say("whisper_run_kfac", **out["kfac"])
+    kwant = counts(fused_second_order=dense, flash_attention=attn)
+    if kfac_launches != kwant:
+        fail(f"whisper kfac launched {kfac_launches}, derived {kwant}")
+    if (not finite or out["kfac"]["diag_ggn_mc_min"] < 0
+            or out["kfac"]["head_factors"] != [[d, d], [kcfg.vocab] * 2]):
+        fail(f"whisper kfac: {out['kfac']}")
+    del kres, model, params, x
+    torch.cuda.empty_cache()
+
+    # the reduced config, card against CPU, the draws passed in
+    ccfg, model, params = whisper32(reduced=True)
+    x, labels, draws = batch(ccfg, spec["cpu_batch"], spec["cpu_seq"], 3)
+    cnames = names + ("kfac",)
+    cexts = tuple(by_name(e) for e in cnames)
+    card = run(model, params, x, labels, loss, extensions=cexts, cfg=fused, rng=draws)
+    cpu = run(model, tree_map(lambda p: p.cpu(), params), tree_map(lambda a: a.cpu(), x),
+              labels.cpu(), loss, extensions=cexts, cfg=fused, rng=draws.cpu())
+    errs = _ext_errs(card, cpu, cnames)
+    out["run_card_vs_cpu"] = errs
+    say("whisper_run_card_vs_cpu", reduced=True, rel_err=errs, tol=TOL)
+    if max(errs.values()) > TOL:
+        fail(f"whisper run reduced card vs CPU: {errs}")
+    del card, cpu, model, params
+
+    # -- the training launcher, bf16 ---------------------------------------------------
+    out["launcher"] = launcher_runs(
+        torch, ops, "whisper_train", ["--arch", spec["arch"], "--full", "--seq", str(s_len),
+                                      "--batch", str(n)], (
+            ("adamw", spec["adamw_steps"], [], counts(flash_attention=attn)),
+            ("diag_ggn_mc", spec["mc_steps"], ["--track-variance"],
+             counts(flash_attention=attn, fused_first_order=dense, fused_second_order=dense))),
+        dict(enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers, d_model=d, vocab=cfg.vocab,
+             dtype=cfg.dtype, batch=n, frames=s_len, tokens=cfg.dec_len))
+
+    # -- the serving example ---------------------------------------------------------
+    # the reduced configs' 24 serve_steps (StableLM-2: 2 layers, RWKV6: 2);
+    # Whisper's encode (2 layers) and 16 steps of 2 decoder layers
+    rows, s, launches, _ = _measured(torch, ops, lambda: serving_example.main([]))
+    want = counts(flash_attention=24 * 2 + 2 + 16 * 2 * 2, wkv=24 * 2)
+    out["example"] = dict(s=s, launches=launches, launches_derived=want,
+                          shapes={k: list(v.shape) for k, v in rows.items()})
+    say("whisper_serving_example", **out["example"])
+    if launches != want:
+        fail(f"the serving example launched {launches}, derived {want}")
+    out["launches"] = {k: enc_launches[k] + gen_launches[k] + launches[k]
+                       + out["run"]["launches"][k] + kfac_launches[k]
+                       + sum(r["launches"][k] for r in out["launcher"].values())
+                       for k in ops.KERNELS}
     return out
 
 
@@ -2539,6 +3046,7 @@ def main():
     cases = backpack_cases(torch, randn, gen, l2_mod)
     cases += lm_kernel_cases(torch, randn, gen)
     cases += dense_kernel_cases(torch)
+    cases += whisper_kernel_cases(torch)
 
     wrapper = {k: getattr(ops, k) for k in ops.KERNELS}
     plain = {k: getattr(ref, k) for k in ops.KERNELS}
@@ -2649,7 +3157,7 @@ def main():
         # at every width the configs use, the tensor cores; float32 "simt"
         want_design = ("split" if "decode" in label.split()
                        else "wgmma" if label.startswith(("prefill bf16", "wide prefill bf16",
-                                                         "train_lm bf16"))
+                                                         "train_lm bf16", "whisper bf16"))
                        else "simt")
         if kernel == "flash_attention" and extra["design"] != want_design:
             fail(f"flash_attention {label}: design {extra['design']}, not {want_design}")
@@ -3015,7 +3523,8 @@ def main():
             ("serve_dense", lambda: serve_phase(torch, ops, SERVE_DENSE)),  # StableLM-2
             ("dense_heads", lambda: dense_heads_phase(torch, ops)),  # full width, cut depth
             ("lm_run", lambda: lm_run_phase(torch, ops)),  # BackPACK on StableLM-2
-            ("train_lm", lambda: train_lm_phase(torch, ops))):  # training LMs
+            ("train_lm", lambda: train_lm_phase(torch, ops)),  # training LMs
+            ("whisper", lambda: whisper_phase(torch, ops))):  # the encoder-decoder
         t0 = time.perf_counter()
         record[name] = phase()
         record["phase_s"][name] = time.perf_counter() - t0
@@ -3030,11 +3539,13 @@ def main():
     # the serving paths' checked prefill call and their generate call; the
     # dense heads' prefill and generate calls; the LM run's full-vocabulary
     # and KFAC calls; the LM training phase's launcher runs, cg_ngd, KFAC and
-    # --uncertainty calls).
+    # --uncertainty calls; Whisper's encode, generate, run, KFAC, launcher
+    # runs and the serving example).
     lm_launches = {k: record["lm_run"]["launches"][k] + record["train_lm"]["launches"][k]
-                   for k in ops.KERNELS}
+                   + record["whisper"]["launches"][k] for k in ops.KERNELS}
     attn = sum(record[p]["launches"]["flash_attention"]
-               for p in ("serve", "serve_dense", "dense_heads", "lm_run", "train_lm"))
+               for p in ("serve", "serve_dense", "dense_heads", "lm_run", "train_lm",
+                         "whisper"))
     path_launches = dict(launches,
                          fused_first_order=launches["fused_first_order"]
                          + lm_launches["fused_first_order"],
@@ -3047,7 +3558,8 @@ def main():
                          + record["matfree"]["cross_dot_launches"],
                          predictive_var=laplace_launches["predictive_var"],
                          flash_attention=attn,
-                         wkv=record["serve"]["launches"]["wkv"])
+                         wkv=record["serve"]["launches"]["wkv"]
+                         + record["whisper"]["launches"]["wkv"])
     table = []
     for k in ops.KERNELS:
         agg = per_kernel[k]

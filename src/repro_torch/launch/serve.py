@@ -8,8 +8,11 @@ uncertainty-aware endpoint backed by a last-layer Laplace posterior.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --batch 4 --prompt-len 8 --uncertainty [--device cpu]
 
-Port of ``src/repro/launch/serve.py`` for the decoder-only archs the port
-builds (the dense ones, e.g. ``--arch stablelm-1.6b``, and Hymba).  Without
+Port of ``src/repro/launch/serve.py`` for the archs the port builds: the
+decoder-only ones (the dense ones, e.g. ``--arch stablelm-1.6b``, Hymba and
+RWKV6) and Whisper (``--arch whisper-tiny``: ``--batch`` sets of 64 random
+frames drawn on the device, encoded once, then greedy decode; it has no
+``--uncertainty``).  Without
 ``--full`` the arch's ``reduced()`` config is served; weights are random,
 drawn from a generator seeded ``--seed`` on the device (the card's draws 1.6
 billion weights in a fraction of the CPU's time).  It runs on the card unless
@@ -25,7 +28,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.module import resolve_device
 from repro_torch.nn.models import build_model
-from repro_torch.serve.engine import ServeConfig, generate
+from repro_torch.serve.engine import ServeConfig, generate, generate_whisper
 
 
 def serve_uncertainty(cfg, model, params, prompts, *, marglik_steps=25, seed=0, top_k=5,
@@ -91,6 +94,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    if args.uncertainty and cfg.kind == "encdec":
+        raise SystemExit("--uncertainty supports decoder-only archs")
     device = resolve_device(args.device)
     model = build_model(cfg, device=device,
                         generator=torch.Generator(device=device).manual_seed(args.seed))
@@ -108,8 +113,13 @@ def main(argv=None):
               f"on {device} in {time.perf_counter() - t0:.2f} s "
               f"({cfg.name}, {cfg.n_layers} layers, {cfg.dtype})")
         return mean, var
-    toks = generate(model, params, prompts.to(device), sc,
-                    rng=torch.Generator(device=device).manual_seed(args.seed + 2))
+    if cfg.kind == "encdec":
+        frames = torch.randn((args.batch, 64, cfg.d_model), device=device,
+                             generator=torch.Generator(device=device).manual_seed(args.seed + 1))
+        toks = generate_whisper(model, params, frames.to(getattr(torch, cfg.dtype)), sc)
+    else:
+        toks = generate(model, params, prompts.to(device), sc,
+                        rng=torch.Generator(device=device).manual_seed(args.seed + 2))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

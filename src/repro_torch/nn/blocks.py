@@ -310,3 +310,103 @@ class HymbaBlock(AttnBlock):
         x = x + call("wo", y)
         x = self._ffn(call, x)
         return (x, pos), dict(kv_cache, ssm=sstate)
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder / decoder blocks
+# ---------------------------------------------------------------------------
+
+
+class EncBlock(AttnBlock):
+    """Whisper's encoder layer (``src/repro/nn/blocks.py:492``): a
+    non-causal ``AttnBlock`` with LayerNorm, qkv biases and a plain GELU
+    feed-forward.  It keeps ``AttnBlock``'s RoPE on q and k, as JAX's does."""
+
+    def __init__(self, d, n_heads, d_ff, dtype=torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(d, n_heads, n_heads, d_ff, causal=False, norm="layernorm",
+                         act="gelu", glu=False, qkv_bias=True, dtype=dtype, device=device,
+                         generator=generator)
+
+
+class DecBlock(Wired):
+    """Whisper's decoder layer (``src/repro/nn/blocks.py:499-576``).  Input
+    and output: the tuple (y [N, Td, d], enc [N, S, d]); enc passes through
+    unchanged and is read by the cross-attention's ``ck`` / ``cv``, so its
+    cotangent sums the pass-through and those reads.  Decode carries the
+    self-attention's KV cache and the cross K/V that
+    ``WhisperModel.init_serve_cache`` fills from the encoder output."""
+
+    def __init__(self, d, n_heads, d_ff, dtype=torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.d, self.h = d, n_heads
+        self.dh = d // n_heads
+        kw = dict(dtype=dtype, device=device, generator=generator)
+
+        def dense(bias=True):
+            return Dense(d, d, use_bias=bias, **kw)
+
+        self.set_children({
+            "ln1": LayerNorm(d, dtype=dtype, device=device),
+            "wq": dense(), "wk": dense(bias=False), "wv": dense(), "wo": dense(),
+            "lnx": LayerNorm(d, dtype=dtype, device=device),
+            "cq": dense(), "ck": dense(bias=False), "cv": dense(), "co": dense(),
+            "ln2": LayerNorm(d, dtype=dtype, device=device),
+            "w1": Dense(d, d_ff, use_bias=True, **kw),
+            "w2": Dense(d_ff, d, use_bias=True, **kw),
+        })
+
+    def _heads(self, x):
+        n, t = x.shape[:2]
+        return x.reshape(n, t, self.h, self.dh)
+
+    def wire(self, call, params, x):
+        y, enc = x
+        n, t = y.shape[:2]
+        h = call("ln1", y)
+        a = F.sdpa(self._heads(call("wq", h)), self._heads(call("wk", h)),
+                   self._heads(call("wv", h)), causal=True)
+        y = y + call("wo", a.reshape(n, t, self.d))
+        h = call("lnx", y)
+        c = F.sdpa(self._heads(call("cq", h)), self._heads(call("ck", enc)),
+                   self._heads(call("cv", enc)), causal=False)
+        y = y + call("co", c.reshape(n, t, self.d))
+        h = call("ln2", y)
+        y = y + call("w2", _gelu(call("w1", h)))
+        return (y, enc)
+
+    def init_cache(self, params, batch, max_len, dtype):
+        device = params["wq"]["w"].device
+        return {
+            "k": torch.zeros((batch, max_len, self.h, self.dh), dtype=dtype, device=device),
+            "v": torch.zeros((batch, max_len, self.h, self.dh), dtype=dtype, device=device),
+            "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+            # cross K/V, filled from the encoder output
+            "ck": None,
+            "cv": None,
+        }
+
+    def cross_kv(self, params, enc):
+        """The cross-attention's K and V [N, S, H, dh] of the encoder output."""
+        def call(name):
+            return self.children_map[name].call(params[name], enc)
+
+        return self._heads(call("ck")), self._heads(call("cv"))
+
+    def wire_step(self, call, params, xp, cache):
+        y, pos = xp  # y: [N, 1, d], pos: a 0-dimensional integer tensor
+        n = y.shape[0]
+        h = call("ln1", y)
+        ck_, cv_, pbuf = F.cache_update(cache["k"], cache["v"], cache["pos"],
+                                        self._heads(call("wk", h)), self._heads(call("wv", h)),
+                                        pos, ring=False)
+        a = F.sdpa(self._heads(call("wq", h)), ck_, cv_, causal=True,
+                   q_positions=pos.reshape(1), k_positions=pbuf)
+        y = y + call("wo", a.reshape(n, 1, self.d))
+        h = call("lnx", y)
+        c = F.sdpa(self._heads(call("cq", h)), cache["ck"], cache["cv"], causal=False)
+        y = y + call("co", c.reshape(n, 1, self.d))
+        h = call("ln2", y)
+        y = y + call("w2", _gelu(call("w1", h)))
+        return (y, pos), {"k": ck_, "v": cv_, "pos": pbuf, "ck": cache["ck"], "cv": cache["cv"]}

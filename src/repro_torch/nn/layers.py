@@ -191,13 +191,16 @@ class Flatten(Module):
 
 class Param(Module):
     """Raw learnable tensor; ``call`` ignores x and returns the tensor
-    (Hymba's ``a_log``), filled with the constant ``init`` (JAX's callable
-    initialisers come with the modules that use them)."""
+    (Hymba's ``a_log``), filled with the constant ``init``, or drawn from
+    N(0, scale²) with ``generator`` where ``scale`` is given (Whisper's
+    ``pos_dec``, JAX's ``0.01 * normal`` initialiser)."""
 
-    def __init__(self, shape, init=0.0, dtype=torch.float32, device="cuda"):
+    def __init__(self, shape, init=0.0, dtype=torch.float32, device="cuda", scale=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.shape = tuple(shape)
-        self.v = full_param(self.shape, init, device, dtype)
+        self.v = (full_param(self.shape, init, device, dtype) if scale is None
+                  else normal_param(self.shape, scale, device, generator, dtype))
 
     def params(self):
         return {"v": self.v}

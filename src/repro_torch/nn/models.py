@@ -1,15 +1,17 @@
-"""Model assemblies: ``CausalLM`` and ``build_model`` for the language-model
-zoo.
+"""Model assemblies: ``CausalLM``, ``WhisperModel`` and ``build_model`` for
+the language-model zoo.
 
-Port of ``src/repro/nn/models.py`` (``TokenEmbed``, ``CausalLM``,
-``_expand_segments``, ``make_stacks``, ``build_model``).  The same module tree
-serves the full-sequence forward (``call``, the prefill step) and decode
-(``serve_step`` with per-block caches) and BackPACK's ``run``.  The dense,
-Hymba and RWKV6 kinds are built; the other kinds raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Port of ``src/repro/nn/models.py`` (``sinusoid_pos``, ``TokenEmbed``,
+``CausalLM``, ``WhisperModel``, ``_expand_segments``, ``make_stacks``,
+``build_model``).  The same module tree serves the full-sequence forward
+(``call``, the prefill step) and decode (``serve_step`` with per-block
+caches) and BackPACK's ``run``.  The dense, Hymba, RWKV6 and encoder-decoder
+kinds are built; the mixture-of-experts kinds raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -23,14 +25,27 @@ from repro_torch.core.module import (
     ScanStack,
     Sequential,
 )
-from repro_torch.nn.blocks import AttnBlock, HymbaBlock, RWKV6Block
+from repro_torch.core.module import _layer
+from repro_torch.nn.blocks import AttnBlock, DecBlock, EncBlock, HymbaBlock, RWKV6Block
+from repro_torch.nn.layers import Param
 from repro_torch.nn.wired import Wired
 
 _STILL_TO_PORT = {
     "moe_gqa": "BatchedDense / MoE: ROADMAP queue A item 13",
     "moe_mla": "MLA and BatchedDense / MoE: ROADMAP queue A item 13",
-    "encdec": "Whisper (encoder-decoder, LayerNorm): ROADMAP queue A item 13",
 }
+
+
+def sinusoid_pos(t, d, dtype=torch.float32, device=None):
+    """The [t, d] sinusoidal positions (sin at even, cos at odd columns),
+    computed in float32 and cast to ``dtype``."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((t, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
 
 
 class PrefixEmbed(Wired):
@@ -98,6 +113,82 @@ class CausalLM(Sequential):
         return logits[:, 0], tuple(new_caches)
 
 
+class WhisperModel(Wired):
+    """Encoder-decoder; the audio frontend is a stub that feeds precomputed
+    frame embeddings.  x: {'frames': [N, S, d], 'tokens': [N, Td] int} →
+    logits [N, Td, V].  The encoder is a ``ScanStack`` of ``EncBlock``s, the
+    decoder one of ``DecBlock``s carrying (y, enc); their sweeps run inside
+    this module's through ``Wired``'s opaque children.  The head is not tied
+    to the embedding."""
+
+    def __init__(self, vocab, d, n_heads, d_ff, enc_layers, dec_layers, max_dec=448,
+                 dtype=torch.float32, device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.d, self.max_dec = d, max_dec
+
+        def enc_block(dev):
+            return EncBlock(d, n_heads, d_ff, dtype=dtype, device=dev, generator=generator)
+
+        def dec_block(dev):
+            return DecBlock(d, n_heads, d_ff, dtype=dtype, device=dev, generator=generator)
+
+        self.set_children({
+            "emb": Embedding(vocab, d, dtype=dtype, device=device, generator=generator),
+            "pos_dec": Param((max_dec, d), scale=0.01, dtype=dtype, device=device,
+                             generator=generator),
+            "enc": ScanStack(enc_block, enc_layers, device=device),
+            "ln_post": LayerNorm(d, dtype=dtype, device=device),
+            "dec": ScanStack(dec_block, dec_layers, device=device),
+            "ln_f": LayerNorm(d, dtype=dtype, device=device),
+            "head": Dense(d, vocab, use_bias=False, dtype=dtype, device=device,
+                          generator=generator),
+        })
+
+    def _positions(self, frames):
+        return frames + sinusoid_pos(frames.shape[1], self.d, frames.dtype, frames.device)[None]
+
+    def wire(self, call, params, x):
+        frames, tokens = x["frames"], x["tokens"]
+        td = tokens.shape[1]
+        e = call("enc", self._positions(frames))
+        e = call("ln_post", e)
+        t = call("emb", tokens) + call("pos_dec", None)[:td][None]
+        y, _ = call("dec", (t, e))
+        y = call("ln_f", y)
+        return call("head", y)
+
+    # -- serving -----------------------------------------------------------------
+    def encode(self, params, frames):
+        """The encoder output [N, S, d] of the frames."""
+        e = self.children_map["enc"].call(params["enc"], self._positions(frames))
+        return self.children_map["ln_post"].call(params["ln_post"], e)
+
+    def init_serve_cache(self, params, batch, max_len, dtype, enc_out=None):
+        """The decoder's caches, ``max_dec`` slots a layer (``max_len`` is
+        ignored, as in JAX); with ``enc_out`` each layer's cross K/V filled
+        from it, in its dtype."""
+        dec = self.children_map["dec"]
+        caches = dec.init_cache(params["dec"], batch, self.max_dec, dtype)
+        if enc_out is not None:
+            ks, vs = zip(*(dec.block.cross_kv(_layer(params["dec"], i), enc_out)
+                           for i in range(dec.L)))
+            caches = dict(caches, ck=torch.stack(ks), cv=torch.stack(vs))
+        return caches
+
+    def serve_step(self, params, caches, tokens, pos):
+        """tokens: [N] int; pos: int or 0-dimensional tensor → (logits [N, V],
+        caches).  Positions past ``max_dec`` reuse its last row of
+        ``pos_dec``."""
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+        h = self.children_map["emb"].call(params["emb"], tokens[:, None])
+        row = torch.clamp(pos, max=self.max_dec - 1).reshape(1).long()
+        h = h + params["pos_dec"]["v"].index_select(0, row)[None]
+        x, caches = self.children_map["dec"].decode_step(params["dec"], (h, pos), caches)
+        y = self.children_map["ln_f"].call(params["ln_f"], x[0])
+        logits = self.children_map["head"].call(params["head"], y)
+        return logits[:, 0], caches
+
+
 def _expand_segments(cfg):
     """cfg.window_segments: list[(window_or_None, count)], cfg.pattern_repeat."""
     segs = cfg.window_segments or [(None, cfg.n_layers)]
@@ -136,11 +227,14 @@ def build_model(cfg, remat=False, attn_impl="naive", wkv_chunk=16, device="cuda"
     (:class:`~repro_torch.core.module.ScanStack`).  JAX's ``seq_constraint``
     comes with the sharded lane (ROADMAP queue A item 12).  ``wkv_chunk`` is
     RWKV6's scan chunk (Hymba scans with chunks of 16)."""
-    if cfg.kind not in ("hymba", "dense", "rwkv"):
+    if cfg.kind not in ("hymba", "dense", "rwkv", "encdec"):
         raise NotImplementedError(f"{cfg.name} (kind {cfg.kind!r}) needs "
                                   f"{_STILL_TO_PORT.get(cfg.kind, 'ROADMAP queue A item 13')}")
     dtype = getattr(torch, cfg.dtype)
     d = cfg.d_model
+    if cfg.kind == "encdec":  # no remat, as in JAX; max_dec stays 448
+        return WhisperModel(cfg.vocab, d, cfg.n_heads, cfg.d_ff, cfg.enc_layers,
+                            cfg.dec_layers, dtype=dtype, device=device, generator=generator)
 
     def mk(w, dev):
         if cfg.kind == "rwkv":

@@ -24,6 +24,15 @@ graph one column at a time (a loop over C): ``torch.func.vmap`` cannot batch
 a graph that holds the card's attention and WKV kernels, whose backward is
 an ``autograd.Function`` (:mod:`repro_torch.kernels.ops`).  C is 1 in the MC
 sweep and ``cfg.class_chunk`` in the exact sweep.
+
+Inputs, outputs and cotangents may be trees of tensors, as JAX's pytrees
+(Whisper's ``DecBlock`` takes and returns the tuple (y, enc)).  A child
+that records a graph of its own (a ``Wired`` block or a ``ScanStack`` of
+them, as in ``WhisperModel``) returns outputs that this graph does not
+connect to the child's input: such an *opaque* child is crossed by its own
+sweep, the children called after it first, so every child's sweep runs
+once and the cotangents of what feeds it include what flows back through
+it.
 """
 from __future__ import annotations
 
@@ -47,34 +56,98 @@ def _on_graph(y):
     return y if y.requires_grad else y.detach().requires_grad_(True)
 
 
-class _Recorded:
-    """The graph of one ``wire`` run: its output ``y``, the input leaves and
-    the children's outputs it is differentiated with respect to."""
+def _tracked(tree):
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor) and t.requires_grad]
 
-    def __init__(self, y, x, outs):
-        self.y, self.x, self.outs = y, x, outs
+
+def _cuts_graph(xin, y):
+    """Whether a child's ``forward_tape`` returned outputs that autograd does
+    not connect to its tracked inputs: a child that records its own graph (a
+    ``Wired`` block, a ``ScanStack`` of them)."""
+    return bool(_tracked(xin)) and not _tracked(y)
+
+
+def _stack_rows(rows):
+    return tree_map(lambda *ts: torch.stack(ts), *rows)
+
+
+def _unstack_rows(tree, c):
+    return [tree_map(lambda t: t[i], tree) for i in range(c)]
+
+
+class _Recorded:
+    """The graph of one ``wire`` run: its output ``y`` (a tree), the input
+    leaves and the children's outputs it is differentiated with respect to.
+
+    ``opaque`` lists, in call order, the children whose outputs the graph
+    does not connect to their inputs (``_cuts_graph``) with the input each
+    was given.  A cotangent crosses such a child through the child's own
+    sweep (``through``): the children called after it are pulled back
+    first, then its output cotangent goes through it and its input
+    cotangent back into the graph, so each child's sweep runs once."""
+
+    def __init__(self, y, x, outs, opaque=()):
+        self.y, self.x, self.outs, self.opaque = y, x, outs, list(opaque)
         self.x_leaves = [t for t in tree_leaves(x) if t.requires_grad]
         self.names = sorted(outs)
         self.out_leaves = [tree_leaves(outs[n]) for n in self.names]
         self.inputs = self.x_leaves + [t for ls in self.out_leaves for t in ls]
+        opaque_names = {n for n, _ in self.opaque}
+        self.cut_inputs = self.x_leaves + [t for n, ls in zip(self.names, self.out_leaves)
+                                           if n in opaque_names for t in ls]
 
-    def vjp(self, g, with_outs=True):
-        """(g_x, {child: cotangent of its output}) for the output cotangent g."""
-        inputs = self.inputs if with_outs else self.x_leaves
+    @staticmethod
+    def _grad(outputs, g, inputs):
+        """autograd's cotangents of ``inputs`` (None where unused) for the
+        tree ``outputs`` given the cotangent tree ``g``."""
+        ys, gs = [], []
+
+        def pair(t, gi):
+            if gi is not None and t.requires_grad:
+                ys.append(t)
+                gs.append(gi.to(t.dtype))
+
+        tree_map(pair, outputs, g)
+        if not ys:
+            return [None] * len(inputs)
+        return list(torch.autograd.grad(ys, inputs, gs, retain_graph=True, allow_unused=True))
+
+    def pullback(self, rows, with_outs=True, through=None):
+        """(g_x, {child: cotangent of its output}) for each output cotangent
+        tree of ``rows``.  ``through(name, rows)`` takes an opaque child's
+        output cotangents (a list, one a row) and returns its input
+        cotangents."""
+        inputs = self.inputs if with_outs else self.cut_inputs
         if not inputs:
-            return None, {}
-        gs = torch.autograd.grad(self.y, inputs, g.to(self.y.dtype), retain_graph=True,
-                                 allow_unused=True)
-        gs = [torch.zeros_like(t) if gi is None else gi for t, gi in zip(inputs, gs)]
+            return [None] * len(rows), [{} for _ in rows]
+        acc = [self._grad(self.y, g, inputs) for g in rows]
+        index = {id(t): i for i, t in enumerate(inputs)}
+        for name, xin in reversed(self.opaque):
+            leaves = tree_leaves(self.outs[name])
+            g_out = [tree_unflatten(self.outs[name], [
+                torch.zeros_like(t) if a[index[id(t)]] is None else a[index[id(t)]]
+                for t in leaves]) for a in acc]
+            for r, g_in in enumerate(through(name, g_out)):
+                for i, c in enumerate(self._grad(xin, g_in, inputs)):
+                    if c is not None:
+                        acc[r][i] = c if acc[r][i] is None else acc[r][i] + c
         nx = len(self.x_leaves)
-        g_x = self._x_tree(gs[:nx])
-        if not with_outs:
-            return g_x, {}
-        rest, g_outs = gs[nx:], {}
-        for name, leaves in zip(self.names, self.out_leaves):
-            g_outs[name] = tree_unflatten(self.outs[name], rest[:len(leaves)])
-            rest = rest[len(leaves):]
-        return g_x, g_outs
+        out_x, out_outs = [], []
+        for a in acc:
+            gs = [torch.zeros_like(t) if gi is None else gi for t, gi in zip(inputs, a)]
+            out_x.append(self._x_tree(gs[:nx]))
+            rest, g_outs = gs[nx:], {}
+            if with_outs:
+                for name, leaves in zip(self.names, self.out_leaves):
+                    g_outs[name] = tree_unflatten(self.outs[name], rest[:len(leaves)])
+                    rest = rest[len(leaves):]
+            out_outs.append(g_outs)
+        return out_x, out_outs
+
+    def vjp(self, g, with_outs=True, through=None):
+        """(g_x, {child: cotangent of its output}) for the output cotangent g."""
+        g_x, g_outs = self.pullback([g], with_outs, through)
+        return g_x[0], g_outs[0]
 
     def _x_tree(self, gx_leaves):
         """The input cotangent in x's structure (None at integer leaves), or
@@ -84,15 +157,14 @@ class _Recorded:
         it = iter(gx_leaves)
         return tree_map(lambda t: next(it) if t.requires_grad else None, self.x)
 
-    def vjp_rows(self, S, with_outs=True):
-        """:meth:`vjp` of each row of S [C, ...], stacked on a leading C axis."""
-        rows = [self.vjp(S[c], with_outs) for c in range(S.shape[0])]
-        g_x = (None if rows[0][0] is None else
-               tree_map(lambda *ts: None if ts[0] is None else torch.stack(ts),
-                        *[r[0] for r in rows]))
-        g_outs = {n: tree_map(lambda *ts: torch.stack(ts), *[r[1][n] for r in rows])
-                  for n in rows[0][1]}
-        return g_x, g_outs
+    def vjp_rows(self, S, with_outs=True, through=None):
+        """:meth:`vjp` of each row of the tree S (leaves [C, ...]), stacked on
+        a leading C axis."""
+        rows = _unstack_rows(S, tree_leaves(S)[0].shape[0])
+        g_xs, g_outs = self.pullback(rows, with_outs, through)
+        g_x = (None if g_xs[0] is None else
+               tree_map(lambda *ts: None if ts[0] is None else torch.stack(ts), *g_xs))
+        return g_x, {n: _stack_rows([r[n] for r in g_outs]) for n in g_outs[0]}
 
 
 class Wired(Module):
@@ -121,11 +193,13 @@ class Wired(Module):
     def forward_tape(self, params, x):
         """Run ``wire`` once, recording its graph; the tape is (child tapes,
         the recorded graph)."""
-        tapes, outs = {}, {}
+        tapes, outs, opaque = {}, {}, []
 
         def call(name, xin):
             y, t = self.children_map[name].forward_tape(params[name], xin)
             tapes[name] = tree_map(lambda a: a.detach() if isinstance(a, torch.Tensor) else a, t)
+            if _cuts_graph(xin, y):
+                opaque.append((name, xin))
             y = tree_map(_on_graph, y)
             outs[name] = y
             return y
@@ -135,14 +209,23 @@ class Wired(Module):
             y = self.wire(call, params, xg)
         for n in self.children_map:
             tapes.setdefault(n, ())
-        return y.detach(), (tapes, _Recorded(y, xg, outs))
+        return tree_map(torch.Tensor.detach, y), (tapes, _Recorded(y, xg, outs, opaque))
 
     def backward(self, params, tape, g, exts, cfg):
         tapes, rec = tape
-        g_x, g_outs = rec.vjp(g)
+        done = {}  # the opaque children's (grads, stats), from inside the pullback
+
+        def through(name, rows):
+            g_in, *done[name] = self.children_map[name].backward(
+                params[name], tapes[name], rows[0], exts, cfg)
+            return [g_in]
+
+        g_x, g_outs = rec.vjp(g, through=through)
         grads, stats = {}, {}
         for name, child in self.children_map.items():
-            if name in g_outs:
+            if name in done:
+                grads[name], st = done[name]
+            elif name in g_outs:
                 _, grads[name], st = child.backward(params[name], tapes[name], g_outs[name],
                                                     exts, cfg)
             else:  # a child the wiring does not reach (a static config branch)
@@ -157,15 +240,28 @@ class Wired(Module):
         return g_x, grads, stats
 
     def jac_t_mat(self, params, tape, M):
-        return tape[1].vjp_rows(M, with_outs=False)[0]
+        tapes, rec = tape
+
+        def through(name, rows):
+            return _unstack_rows(self.children_map[name].jac_t_mat(
+                params[name], tapes[name], _stack_rows(rows)), len(rows))
+
+        return rec.vjp_rows(M, with_outs=False, through=through)[0]
 
     def curv_backward(self, params, tape, S, exts, cfg, ext_prefix):
         tapes, rec = tape
-        S_x, S_outs = rec.vjp_rows(S)
+        done = {}
+
+        def through(name, rows):
+            S_in, done[name] = self.children_map[name].curv_backward(
+                params[name], tapes[name], _stack_rows(rows), exts, cfg, ext_prefix)
+            return _unstack_rows(S_in, len(rows))
+
+        S_x, S_outs = rec.vjp_rows(S, through=through)
         curv = {}
         for name, child in self.children_map.items():
-            cv = {}
-            if name in S_outs:
+            cv = done.get(name, {})
+            if name not in done and name in S_outs:
                 _, cv = child.curv_backward(params[name], tapes[name], S_outs[name], exts, cfg,
                                             ext_prefix)
             for k, v in cv.items():

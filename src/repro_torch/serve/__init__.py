@@ -1,4 +1,5 @@
-"""Serving: batched prefill and decode with KV caches (:mod:`.engine`)."""
-from .engine import ServeConfig, generate, prefill
+"""Serving: batched prefill and decode with KV caches (:mod:`.engine`), and
+the encoder-decoder's ``generate_whisper``."""
+from .engine import ServeConfig, generate, generate_whisper, prefill
 
-__all__ = ["ServeConfig", "generate", "prefill"]
+__all__ = ["ServeConfig", "generate", "generate_whisper", "prefill"]

@@ -4,9 +4,9 @@ Port of ``src/repro/serve/engine.py``.  ``generate`` runs a static-batch
 decode loop with greedy/temperature sampling and per-sequence EOS tracking
 (finished slots keep decoding token 0: the static-shape analogue of
 continuous batching's slot reuse).  Where JAX scans, the port loops in
-Python, one ``serve_step`` a position.  The ``obs`` spans and gauges wait for
-the observability layer (ROADMAP queue A item 11); ``generate_whisper`` for
-the encoder-decoder (item 13).
+Python, one ``serve_step`` a position.  ``generate_whisper`` serves the
+encoder-decoder: the frames encoded once, then greedy decode.  The ``obs``
+spans and gauges wait for the observability layer (ROADMAP queue A item 11).
 """
 from __future__ import annotations
 
@@ -72,3 +72,20 @@ def generate(model, params, prompts, cfg: ServeConfig,
     if not toks:
         return prompts
     return torch.cat([prompts, torch.stack(toks, dim=1)], dim=1)
+
+
+def generate_whisper(model, params, frames, cfg: ServeConfig, bos=0):
+    """Whisper: encode ``frames`` [N, S, d] once, fill each decoder layer's
+    cross K/V from the encoder output, then decode greedily from ``bos`` for
+    ``min(cfg.max_len, model.max_dec)`` steps → tokens [N, steps], int32."""
+    n = frames.shape[0]
+    enc_out = model.encode(params, frames)
+    caches = model.init_serve_cache(params, n, model.max_dec, getattr(torch, cfg.cache_dtype),
+                                    enc_out=enc_out)
+    tok = torch.full((n,), bos, dtype=torch.int32, device=frames.device)
+    toks = []
+    for t in range(min(cfg.max_len, model.max_dec)):
+        logits, caches = model.serve_step(params, caches, tok, t)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+    return torch.stack(toks, dim=1)

@@ -65,7 +65,7 @@ def make_train_step(model, loss, opt, *, microbatch: int = 1,
     loss_fn = make_loss_fn(model, loss, remat=remat)
 
     def accumulate(params, batch):
-        n = batch["inputs"].shape[0]
+        n = tree_leaves(batch["inputs"])[0].shape[0]
         if n % microbatch:
             raise ValueError(f"batch of {n} does not split into {microbatch} microbatches")
         size = n // microbatch
@@ -74,7 +74,7 @@ def make_train_step(model, loss, opt, *, microbatch: int = 1,
                                                device=p.device), params)
         for i in range(microbatch):
             sl = slice(i * size, (i + 1) * size)
-            lv, g = _value_and_grad(loss_fn, params, batch["inputs"][sl],
+            lv, g = _value_and_grad(loss_fn, params, tree_map(lambda a: a[sl], batch["inputs"]),
                                     batch["labels"][sl])
             if grad_dtype is not None:
                 g = tree_map(lambda a: a.to(grad_dtype), g)
