@@ -8,12 +8,16 @@ nvcc per source, all at once) and holds each against its plain PyTorch
 version at the shapes its path gives it: BackPACK's on 3C3D at batch 128,
 Hymba-1.5B's and StableLM-2-1.6B's serving shapes for flash_attention and
 wkv, the LM run's shapes for fused_first_order, fused_second_order and
-flash_attention, and whisper-tiny's (non-causal attention over 1500 frames,
+flash_attention, whisper-tiny's (non-causal attention over 1500 frames,
 cross-attention of 448 queries against them, its head and encoder
-feed-forward).  Then it drives thirteen paths through the entry points a
-user calls, seven on 3C3D (CIFAR-10 shapes, full width, random weights from
-a seed), five on language models and one on the encoder-decoder, each with
-the launch counts set to 0 just before and read just after:
+feed-forward) and Granite-3.0-1B-A400M's (GQA attention at 16 over 8 heads,
+fused_first_order with its 32 experts as the group axis at R = 1, and
+every Dense shape of its BackPACK sweep: q, k, v, o, the router and the
+head).  Then it drives fourteen paths through the entry points a user
+calls, seven on 3C3D (CIFAR-10 shapes, full width, random weights from a
+seed), five on language models, one on the encoder-decoder and one on the
+mixture of experts, each with the launch counts set to 0 just before and
+read just after:
 
 * the main path, ``repro_torch.core.run`` with the ten first-order,
   exact-GGN and MC extensions on the fused route (the default), which must
@@ -70,9 +74,10 @@ the launch counts set to 0 just before and read just after:
   ``make_prefill_step`` on 4 prompts of 2048 tokens (flash_attention and wkv
   32 launches each, nothing else), greedy ``generate`` on 4 prompts of 32
   tokens to 128 (each kernel 32 times a serve_step), timed decode steps and
-  one profiled, from a 32-token cache and at a long context (16 steps after
-  a 1500-token prefill into caches of 2048, ``serve_decode_long``: wall and
-  device ms, idle share, attention's device ms); the serve_step chain over
+  one profiled, from a 32-token cache and at a long context (on a model cut
+  to 4 layers, global, two windowed, global: 16 steps after a 1500-token
+  prefill into caches of 2048, ``serve_decode_long``: wall and device ms,
+  idle share, attention's device ms); the serve_step chain over
   1040 tokens of a float32 model cut to 4 layers (global, two windowed,
   global) matches its full forward (the window-1024 rings wrap, limit 1e-3)
   and a float32 copy of the full model matches the CPU (batch 1, T 64,
@@ -125,10 +130,23 @@ the launch counts set to 0 just before and read just after:
   fused_second_order once a Dense layer of the tree, 65; flash_attention
   12) against autograd, KFAC at a vocabulary of 8192, the reduced config
   card against CPU; the training launcher with AdamW and DiagGGN-MC; the
-  serving example (StableLM-2, RWKV6 and Whisper reduced).
+  serving example (StableLM-2, RWKV6 and Whisper reduced);
+* the mixture of experts (``moe_phase``): Granite-3.0-1B-A400M at full
+  width and depth in bf16, a prefill call of 4 × 2048 tokens
+  (flash_attention 24, the pairs each layer drops at capacity 2560 printed),
+  greedy ``generate`` from 4 × 32 to 128, decode timed and profiled at 32
+  cached tokens; in float32 at capacity factor E / top_k (nothing dropped,
+  asserted) the 64-token chain against the forward and 2 layers card
+  against CPU; BackPACK ``run`` in float32 on 4 layers at 4 × 512
+  (fused_first_order 33, 12 of them over the 32 experts; fused_second_order
+  21; flash_attention 4) against autograd, BatchL2, BatchDot and
+  SecondMoment off the experts against float64 of batch_grad, the experts'
+  moments against float64; the reduced config card against CPU; the
+  training launcher with AdamW and DiagGGN-MC + Variance.
 
 The two kernels with a library counterpart (sq_matmul: ``torch.matmul`` of
-the squares; flash_attention: SDPA) are timed in turns with it (kernel,
+the squares; flash_attention: SDPA), and fused_first_order's expert rows
+(``torch.bmm`` of the squares), are timed in turns with it (kernel,
 library, library, kernel); they and wkv get their device time a call from
 a profiler window, taken after every row's event times so that no event
 time follows a profiler window; flash_attention's rows name the design
@@ -225,11 +243,14 @@ ENTRY_TOL = 2.5e-6
 # the window-1024 rings wrap, at 4 layers (global, two windowed, global):
 # at 32 it took ≈ 1 min of the script.  The long-context decode is timed after
 # 1500 tokens fed a serve_step each (the rings wrap; the decode rows of the
-# kernel table sit at the same position).
+# kernel table sit at the same position), at ``long_cut``'s depth: the two
+# fills at full depth took 232.7–305.6 s of calls of 891.6–1074.2 s
+# against the script's limit of 1200 (H100 80GB HBM3, 700.00 W).
 SERVE = dict(arch="hymba-1.5b", batch=4, prefill_len=2048, prompt_len=32, max_len=128,
              chain_len=1040, cpu_len=64, layers=32, global_layers=3, window=1024,
              long_pos=1500, long_max_len=2048, kernels=("flash_attention", "wkv"),
-             chain_cut=dict(n_layers=4, window_segments=[(None, 1), (1024, 2), (None, 1)]))
+             chain_cut=dict(n_layers=4, window_segments=[(None, 1), (1024, 2), (None, 1)]),
+             long_cut=dict(n_layers=4, window_segments=[(None, 1), (1024, 2), (None, 1)]))
 # decode chain vs full forward, float32 weights: here Hymba's 4-layer cut and the
 # dense chains; Hymba's 32 layers in test_card_hymba_full_depth_chain
 # (tests/test_torch_card.py, gpu-marked)
@@ -240,7 +261,8 @@ CHAIN_TOL = 1e-3
 # window), so it runs 96 tokens.
 SERVE_DENSE = dict(arch="stablelm-1.6b", batch=4, prefill_len=2048, prompt_len=32, max_len=128,
                    chain_len=96, cpu_len=64, layers=24, global_layers=24, window=None,
-                   long_pos=1500, long_max_len=2048, kernels=("flash_attention",))
+                   long_pos=1500, long_max_len=2048, kernels=("flash_attention",),
+                   long_cut=dict(n_layers=4))
 # The other dense configs at full width, cut in depth (the cut named in each
 # line): one bf16 prefill call of 2 × 1024 tokens, greedy decode of 4 tokens
 # after a 16-token prompt, and in float32 the card against the CPU at batch 1,
@@ -291,6 +313,25 @@ TRAIN_LM = dict(arch="stablelm-1.6b", seq=512, batch=4, adamw_steps=6, mc_steps=
 WHISPER = dict(arch="whisper-tiny", batch=4, frames=1500, masked=6, decode_at=(32, 439),
                decode_steps=8, cpu_frames=64, cpu_tokens=16, kfac_vocab=8192, cpu_batch=2,
                cpu_seq=16, adamw_steps=4, mc_steps=3)
+
+# The mixture of experts (moe_phase): Granite-3.0-1B-A400M at full width and
+# depth (24 layers of d 1024, 16 query heads over 8 KV heads of 64, 32 experts
+# of 512, top-8, capacity factor 1.25, vocabulary 49155; bf16), weights drawn
+# on the card.  Serving: a prefill call of 4 × 2048 tokens (capacity 2560 an
+# expert), greedy generate from 4 prompts of 32 tokens to 128, 16 decode steps
+# timed at 32 cached tokens (4 tokens a step: capacity 4, nothing dropped).
+# The float32 decode chain over 64 tokens against the forward runs at capacity
+# factor E / top_k = 4, where an expert's capacity (64) is the forward's token
+# count, so the forward drops nothing and the chain has a reference: at 1.25
+# the reference's capacity semantics drop tokens in the forward that a decode
+# step never drops.  The card against the CPU on 2 of the 24 layers, 1 × 64.
+# BackPACK run in float32 on 4 of the 24 layers, 4 × 512 tokens (capacity 640),
+# the first-order extensions and DiagGGN-MC; the reduced config card vs CPU at
+# 2 × 16.  The training launcher in bf16 at 4 × 512, AdamW 6 steps and
+# DiagGGN-MC with Variance 4.
+MOE = dict(arch="granite-moe-1b-a400m", batch=4, prefill_len=2048, prompt_len=32, max_len=128,
+           decode_steps=16, chain_len=64, cpu_layers=2, run_layers=4, seq=512, masked=6,
+           cpu_batch=2, cpu_seq=16, adamw_steps=6, mc_steps=4)
 
 FIRST = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot")
 EXACT = ("diag_ggn", "kflr", "ggn_trace")
@@ -1436,7 +1477,8 @@ def serve_phase(torch, ops, spec=SERVE):
     prompts of 2048 tokens (each of ``spec["kernels"]`` once a layer,
     nothing else); greedy ``generate`` on 4 prompts of 32 tokens to 128
     (the same a serve_step); decode steps timed and one profiled, from a
-    32-token cache and at ``long_pos`` (1500) cached tokens; then, in a float32 copy of the
+    32-token cache and, on a bf16 model cut to ``long_cut``'s 4 layers, at
+    ``long_pos`` (1500) cached tokens; then, in a float32 copy of the
     weights, the card against the CPU at batch 1, T 64, and the serve_step
     chain over ``chain_len`` tokens against the full forward (Hymba: 1040,
     past the window-1024 rings' wrap, at ``chain_cut``'s 4 layers); and the
@@ -1532,11 +1574,16 @@ def serve_phase(torch, ops, spec=SERVE):
     say("serve_decode", **out["decode"])
     del caches, logits
 
-    # -- decode at a long context: long_pos tokens prefilled, 16 steps timed -----
+    # -- decode at a long context, cut in depth: long_pos tokens prefilled, 16 timed --
     pos, long_len = spec["long_pos"], spec["long_max_len"]
-    caches = model.init_serve_cache(params, n, long_len, torch.float32)
+    lcfg = dataclasses.replace(cfg, **spec["long_cut"])
+    lmodel = build_model(lcfg, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    lparams, ldecode = lmodel.params(), make_decode_step(lmodel)
+    long_per_layer = {k: lcfg.n_layers if k in spec["kernels"] else 0 for k in ops.KERNELS}
+    caches = lmodel.init_serve_cache(lparams, n, long_len, torch.float32)
     t0 = time.perf_counter()
-    caches, logits = prefill(model, params, caches, prompts[:, :pos].contiguous(), pos)
+    caches, logits = prefill(lmodel, lparams, caches, prompts[:, :pos].contiguous(), pos)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     step_s = []
@@ -1544,25 +1591,26 @@ def serve_phase(torch, ops, spec=SERVE):
     for t in range(pos, pos + 16):
         tok = logits.argmax(-1).int()
         t0 = time.perf_counter()
-        logits, caches = decode(params, caches, tok, t)
+        logits, caches = ldecode(lparams, caches, tok, t)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     long_launches = ops.launch_counts()
-    if long_launches != {k: 16 * v for k, v in per_layer.items()}:
-        fail(f"{cfg.name} long-context decode must launch {per_layer} a step, "
+    if long_launches != {k: 16 * v for k, v in long_per_layer.items()}:
+        fail(f"{cfg.name} long-context decode must launch {long_per_layer} a step, "
              f"got {long_launches}")
     if not torch.isfinite(logits).all():
         fail("long-context decode: non-finite logits")
     tok = logits.argmax(-1).int()
-    prof = profiled(lambda: decode(params, caches, tok, pos + 16), groups={"attention": "flash_"})
+    prof = profiled(lambda: ldecode(lparams, caches, tok, pos + 16),
+                    groups={"attention": "flash_"})
     prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
     out["decode_long"] = dict(
-        batch=n, position=pos, max_len=long_len, prefill_s=prefill_s, step_s=step_s,
-        ms_per_token=medians_ms({"d": step_s})["d"], launches=long_launches,
+        batch=n, position=pos, max_len=long_len, layers=lcfg.n_layers, prefill_s=prefill_s,
+        step_s=step_s, ms_per_token=medians_ms({"d": step_s})["d"], launches=long_launches,
         wall_ms=prof["wall_ms"], device_ms=prof["device_ms"], idle_share=prof["idle_share"],
         attention_device_ms=prof["attention_device_ms"], profile=prof)
     say("serve_decode_long", **out["decode_long"])
-    del caches, logits, last
+    del caches, logits, last, lmodel, lparams
 
     # -- agreement in a float32 copy of the same weights -------------------------
     # The chain runs at ``spec["chain_cut"]``'s depth where one is given (a
@@ -1785,6 +1833,79 @@ def whisper_kernel_cases(torch):
     return cases
 
 
+def moe_kernel_cases(torch):
+    """Granite-3.0-1B-A400M's rows (``MOE``), from a generator of their own
+    (seed 16): flash_attention with 16 query heads over 8 KV heads of 64 (g
+    = 2) in bf16 prefill at 4 × 2048 ("wgmma", 24 a prefill call), in
+    decode against the float32 cache at 32 cached tokens ("split", 24 a
+    serve_step, weight 0) and in float32 at the run's 4 × 512 ("simt", 4);
+    fused_first_order with the experts as its group axis, E = 32 × 640
+    capacity slots × R = 1, SecondMoment's moment alone, at ``e_gate`` /
+    ``e_up`` (1024 × 512, 2 a layer of the run) and ``e_down`` (512 × 1024,
+    1 a layer), its library call ``torch.bmm`` of the squares (TF32 off);
+    and every Dense shape of the run's sweep (R = 512, N = 4): ``wq``/``wo``
+    (1024 × 1024, 2 a layer), ``wk``/``wv`` (1024 × 512, 2 a layer), the
+    router (1024 × 32, 1 a layer) and the head (1024 × 49155, once; an odd
+    b), fused_first_order's l2, moment and dot and fused_second_order's MC
+    diagonal at the full vocabulary (``fused_dense_cases``), weighted by
+    their 21 launches a sweep."""
+    from repro_torch.nn.moe import capacity
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    cases = []
+    d, h, kv, dh, e, de, L, vocab = 1024, 16, 8, 64, 32, 512, 24, 49155
+    lr, nb, tb = MOE["run_layers"], MOE["batch"], MOE["seq"]
+    bf, i32 = torch.bfloat16, dict(device="cuda", dtype=torch.int32)
+    n, t = MOE["batch"], MOE["prefill_len"]
+    q, k, v = randn(n, t, h, dh).to(bf), randn(n, t, kv, dh).to(bf), randn(n, t, kv, dh).to(bf)
+    cases.append(("flash_attention", f"prefill bf16 g2 (granite-moe-1b-a400m) q[{n},{t},{h},{dh}] "
+                  f"k,v[{n},{t},{kv},{dh}]", L, L, (q, k, v), dict(window=None),
+                  4 * dh * n * h * seen_pairs(torch, t, t, None),
+                  2 * (2 * n * t * h * dh + 2 * n * t * kv * dh), BF16_TOL, PEAK_BF16))
+    s, pos = MOE["max_len"], MOE["prompt_len"]
+    kp = torch.arange(s, **i32)
+    kp[pos + 1:] = -1
+    qp = torch.tensor([pos], **i32)
+    cases.append(("flash_attention", f"decode g2 (granite-moe-1b-a400m) q bf16 [{n},1,{h},{dh}] "
+                  f"fp32 cache[{n},{s},{kv},{dh}] at {pos} cached (per call: a serve_step)", L, 0,
+                  (randn(n, 1, h, dh).to(bf), randn(n, s, kv, dh), randn(n, s, kv, dh)),
+                  dict(window=None, q_positions=qp, k_positions=kp),
+                  4 * dh * n * h * seen_pairs(torch, 1, s, None, qp, kp),
+                  # q and out in bf16; K and V at the pos + 1 valid keys; the positions
+                  2 * 2 * n * h * dh + 4 * (2 * n * (pos + 1) * kv * dh + s + 1),
+                  BF16_TOL, PEAK_BF16))
+    q, k, v = randn(nb, tb, h, dh), randn(nb, tb, kv, dh), randn(nb, tb, kv, dh)
+    cases.append(("flash_attention", f"granite fp32 g2 (forward of run) q[{nb},{tb},{h},{dh}] "
+                  f"k,v[{nb},{tb},{kv},{dh}]", lr, lr, (q, k, v), dict(window=None),
+                  4 * dh * nb * h * seen_pairs(torch, tb, tb, None),
+                  4 * (2 * nb * tb * h * dh + 2 * nb * tb * kv * dh), TOL, PEAK_FLOPS))
+    cap = capacity(nb * tb, e, 8, 1.25)
+    for name, a, b, per_call in (("e_gate/e_up", d, de, 2 * lr), ("e_down", de, d, lr)):
+        A, B = randn(e, cap, 1, a), randn(e, cap, 1, b)
+        cases.append(("fused_first_order", f"granite experts {name} moment E={e} "
+                      f"A[{e},{cap},1,{a}] B[{e},{cap},1,{b}]", per_call, per_call, (A, B),
+                      dict(want_l2=False, want_moment=True),
+                      2 * e * cap * a * b + e * cap * (a + b),
+                      4 * (e * cap * (a + b) + e * a * b), TOL, PEAK_FLOPS, 2 * e * cap * a * b))
+    # every Dense shape of the sweep (q, k, v, o and the router a layer, the
+    # head: 21), its launches a sweep; the run takes no KFAC
+    return cases + [c for c in fused_dense_cases(torch, randn, "granite", nb, (
+        ("wq/wo", tb, d, d, 2 * lr), ("wk/wv", tb, d, kv * dh, 2 * lr), ("router", tb, d, e, lr),
+        ("head", tb, d, vocab, 1)), e) if " kfac " not in c[1]]
+
+
+def expert_moment_library(torch):
+    """The library call for fused_first_order's expert rows (R = 1,
+    moment alone): ``torch.bmm`` of the squares, (A∘A)ᵀ(B∘B) per expert."""
+    def moment(A, B, **_):
+        return {"moment": torch.bmm(A[:, :, 0].square().transpose(1, 2), B[:, :, 0].square())}
+    return moment
+
+
 def dense_heads_phase(torch, ops):
     """The other dense configs at full width and reduced depth
     (``DENSE_HEADS``), bf16 weights drawn on the card: one prefill call of
@@ -1896,6 +2017,385 @@ def dense_heads_phase(torch, ops):
     return out
 
 
+def moe_phase(torch, ops):
+    """Granite-3.0-1B-A400M (``MOE``), the mixture of experts, at full width
+    through the entry points a user calls, random weights drawn on the card,
+    each call with the launch counts set to 0 just before and read just
+    after, against the counts derived from the module tree:
+
+    * serving in bf16 at full depth: ``make_prefill_step`` on 4 × 2048
+      tokens (flash_attention once a layer, nothing else; the (token, slot)
+      pairs each layer drops at capacity 2560, read by a spy on the blocks'
+      ``moe_apply`` in the counted call), tokens/s, profiled; greedy
+      ``generate`` from 4 prompts of 32 tokens to 128; 16 decode steps timed
+      at 32 cached tokens and one profiled (device ms, idle share);
+    * in float32 at capacity factor E / top_k (the forward drops nothing,
+      asserted): the serve_step chain over 64 tokens against the forward
+      (``CHAIN_TOL``), and 2 of the 24 layers card against CPU (``TOL``);
+    * BackPACK ``run`` in float32 on 4 layers at 4 × 512 tokens, the
+      first-order extensions and DiagGGN-MC: fused_first_order once a Dense
+      and once a BatchedDense (its experts the group axis), fused_second_order
+      once a Dense, flash_attention once a layer, nothing else; timed,
+      profiled, the gradient against autograd, Σ_n batch_grad against it,
+      BatchL2, BatchDot and SecondMoment off the experts against their
+      float64 formula on batch_grad (``F64_TOL``), the experts' moments (a
+      spy on ``BatchedDense.backward``) against float64; the reduced config
+      card against CPU with the MC draws passed in;
+    * the training launcher in bf16 at full depth, 4 × 512, AdamW and
+      DiagGGN-MC with ``--track-variance`` (``launcher_runs``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
+    from repro_torch.core.module import Dense, ScanStack, Sequential
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
+    from repro_torch.nn import blocks as blocks_mod
+    from repro_torch.nn.layers import BatchedDense
+    from repro_torch.nn.models import build_model
+    from repro_torch.nn.moe import capacity, dropped
+    from repro_torch.nn.wired import Wired
+    from repro_torch.serve import ServeConfig, generate, prefill
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    spec = MOE
+    out = {}
+    loss = CrossEntropyLoss()
+    cfg = get_config(spec["arch"])
+    L, E, top_k = cfg.n_layers, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def counts(**want):
+        return {k: want.get(k, 0) for k in ops.KERNELS}
+
+    def layers_of(m, cls):
+        """The ``cls`` layers a sweep meets, counted on the module tree."""
+        if isinstance(m, cls):
+            return 1
+        if isinstance(m, ScanStack):
+            return m.L * layers_of(m.block, cls)
+        kids = (m.children_map.values() if isinstance(m, Wired) else
+                m.mods if isinstance(m, Sequential) else ())
+        return sum(layers_of(c, cls) for c in kids)
+
+    def drop_spy():
+        """Each ``moe_apply`` call's tokens, capacity and dropped pairs, into
+        the returned list until ``unpatch()``."""
+        real, seen = blocks_mod.moe_apply, []
+
+        def spy(call, h, logits, n_experts, k, factor, act):
+            m = h.shape[0] * h.shape[1]
+            seen.append(dict(tokens=m, capacity=capacity(m, n_experts, k, factor),
+                             dropped=dropped(logits, k, factor)))
+            return real(call, h, logits, n_experts, k, factor, act)
+
+        blocks_mod.moe_apply = spy
+        return seen, lambda: setattr(blocks_mod, "moe_apply", real)
+
+    def by_path(tree):
+        paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(map(str, p)), tree))
+        return dict(zip(paths, tree_leaves(tree), strict=True))
+
+    # -- serving, bf16, full depth ---------------------------------------------------
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    params = model.params()
+    torch.cuda.synchronize()
+    dense, experts = layers_of(model, Dense), layers_of(model, BatchedDense)
+    out["model"] = dict(arch=cfg.name, dtype=cfg.dtype, layers=L, d_model=cfg.d_model,
+                        heads=cfg.n_heads, kv_heads=cfg.kv_heads, experts=E, top_k=top_k,
+                        d_expert=cfg.d_expert, capacity_factor=cfg.capacity_factor,
+                        vocab=cfg.vocab, param_count=cfg.param_count(model),
+                        active_param_count=cfg.active_param_count(model),
+                        param_bytes=sum(p.numel() * p.element_size()
+                                        for p in tree_leaves(params)),
+                        build_s=time.perf_counter() - t0, dense_layers=dense,
+                        batched_dense_layers=experts)
+    say("moe_model", **out["model"])
+    # q, k, v, o and the router a layer, and the head; three expert layers a layer
+    if dense != 5 * L + 1 or experts != 3 * L:
+        fail(f"moe: {dense} Dense and {experts} BatchedDense layers in the tree, not "
+             f"{5 * L + 1} and {3 * L}")
+    n, t_pre = spec["batch"], spec["prefill_len"]
+    per_layer = counts(flash_attention=L)
+    prompts = torch.randint(0, cfg.vocab, (n, t_pre), device="cuda", generator=gen)
+    prefill_step = make_prefill_step(model)
+    seen, unpatch = drop_spy()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        last = prefill_step(params, prompts)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        unpatch()
+    if launches != per_layer:
+        fail(f"moe prefill must launch {per_layer}, got {launches}")
+    if tuple(last.shape) != (n, cfg.vocab) or not torch.isfinite(last.float()).all():
+        fail(f"moe prefill: logits {tuple(last.shape)} not finite [N, V]")
+    if [r["capacity"] for r in seen] != [capacity(n * t_pre, E, top_k, cfg.capacity_factor)] * L:
+        fail(f"moe prefill: capacities {seen}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill_step(params, prompts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = medians_ms({"p": times})["p"]
+    prof = profiled(lambda: prefill_step(params, prompts), groups={"attention": "flash_"})
+    out["prefill"] = dict(batch=n, prompt_len=t_pre, capacity=seen[0]["capacity"],
+                          dropped_per_layer=[r["dropped"] for r in seen],
+                          pairs_per_layer=n * t_pre * top_k, launches=launches, step_s=times,
+                          ms=ms, tokens_per_s=n * t_pre / ms * 1e3,
+                          max_memory_allocated=torch.cuda.max_memory_allocated(),
+                          wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                          attention_device_ms=prof["attention_device_ms"],
+                          idle_share=1 - prof["device_ms"] / prof["wall_ms"], top=prof["top"][:8])
+    say("moe_prefill", **out["prefill"])
+
+    short = prompts[:, :spec["prompt_len"]].contiguous()
+    sc = ServeConfig(max_len=spec["max_len"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = generate(model, params, short, sc)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = ops.launch_counts()
+    if gen_launches != counts(flash_attention=L * sc.max_len):
+        fail(f"moe generate must launch flash_attention {L} a serve_step ({sc.max_len} "
+             f"steps), got {gen_launches}")
+    if (tuple(toks.shape) != (n, sc.max_len) or not torch.equal(toks[:, :short.shape[1]],
+                                                                 short.int())
+            or toks.min() < 0 or toks.max() >= cfg.vocab):
+        fail(f"moe generate: tokens {tuple(toks.shape)} are not the prompts and a continuation")
+    out["generate"] = dict(batch=n, prompt_len=short.shape[1], max_len=sc.max_len, s=gen_s,
+                           ms_per_serve_step=gen_s / sc.max_len * 1e3, launches=gen_launches,
+                           first_row=toks[0, short.shape[1]:short.shape[1] + 16].tolist())
+    say("moe_generate", **out["generate"])
+
+    decode = make_decode_step(model)
+    caches = model.init_serve_cache(params, n, sc.max_len, torch.float32)
+    caches, logits = prefill(model, params, caches, short, short.shape[1])
+    pos, step_s = short.shape[1], []
+    for _ in range(spec["decode_steps"]):
+        tok = logits.argmax(-1).int()
+        t0 = time.perf_counter()
+        logits, caches = decode(params, caches, tok, pos)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        pos += 1
+    tok = logits.argmax(-1).int()
+    prof = profiled(lambda: decode(params, caches, tok, pos), groups={"attention": "flash_"})
+    out["decode"] = dict(batch=n, cached=short.shape[1], step_s=step_s,
+                         ms_per_token=medians_ms({"d": step_s})["d"],
+                         capacity=capacity(n, E, top_k, cfg.capacity_factor),
+                         wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                         attention_device_ms=prof["attention_device_ms"],
+                         idle_share=1 - prof["device_ms"] / prof["wall_ms"], top=prof["top"][:8])
+    say("moe_decode", **out["decode"])
+    if not torch.isfinite(logits).all() or out["decode"]["capacity"] < n:
+        fail(f"moe decode: non-finite logits, or capacity {out['decode']['capacity']} "
+             f"below the step's {n} tokens")
+    del caches, logits, toks, last, params, model, prefill_step, decode
+    torch.cuda.empty_cache()
+
+    # -- float32 at capacity factor E / top_k: the chain, the card against the CPU ----
+    ccfg = dataclasses.replace(cfg, dtype="float32", capacity_factor=E / top_k)
+    model = build_model(ccfg, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    params = model.params()
+    seq = torch.randint(0, cfg.vocab, (1, spec["chain_len"]), device="cuda", generator=gen)
+    seen, unpatch = drop_spy()
+    try:
+        full = model.call(params, seq)[0]
+    finally:
+        unpatch()
+    drops = [r["dropped"] for r in seen]
+    caches = model.init_serve_cache(params, 1, spec["chain_len"], torch.float32)
+    chain = torch.empty_like(full)
+    t0 = time.perf_counter()
+    for t in range(spec["chain_len"]):
+        step_logits, caches = model.serve_step(params, caches, seq[:, t], t)
+        chain[t] = step_logits[0]
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    chain_err = _rel(chain, full)
+    del chain, caches, full
+    # 2 of the layers: the stacked weights' first two, through a meta model's call
+    cut = build_model(dataclasses.replace(ccfg, n_layers=spec["cpu_layers"]), device="meta")
+    cut_params = tuple(tree_map(lambda p: p[:spec["cpu_layers"]], p) if i == 1 else p
+                       for i, p in enumerate(params))
+    card = cut.call(cut_params, seq)
+    t0 = time.perf_counter()
+    cpu = cut.call(tree_map(lambda p: p.cpu(), cut_params), seq.cpu())
+    cpu_s = time.perf_counter() - t0
+    cpu_err = _rel(card.cpu(), cpu)
+    del card, cpu, cut_params, params, model
+    torch.cuda.empty_cache()
+    out["agreement"] = dict(capacity_factor=ccfg.capacity_factor,
+                            capacity=seen[0]["capacity"], chain_len=spec["chain_len"],
+                            forward_dropped_per_layer=drops, chain_s=chain_s,
+                            chain_vs_forward_rel_err=chain_err, chain_tol=CHAIN_TOL,
+                            cpu_layers=spec["cpu_layers"], card_vs_cpu_rel_err=cpu_err,
+                            cpu_forward_s=cpu_s, cpu_tol=TOL)
+    say("moe_agreement", **out["agreement"])
+    if any(drops) or len(drops) != L:
+        fail(f"moe chain: the forward at capacity factor {ccfg.capacity_factor} dropped {drops}")
+    if not chain_err <= CHAIN_TOL:
+        fail(f"moe decode chain vs forward: {chain_err:.3e} above {CHAIN_TOL}")
+    if not cpu_err <= TOL:
+        fail(f"moe card vs CPU logits: {cpu_err:.3e} above {TOL}")
+
+    # -- BackPACK run, float32, 4 layers ------------------------------------------------
+    def granite32(reduced=False):
+        c = dataclasses.replace(cfg.reduced() if reduced else cfg, dtype="float32",
+                                **({} if reduced else dict(n_layers=spec["run_layers"])))
+        m = build_model(c, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+        return c, m, m.params()
+
+    def batch(c, nb, t, masked):
+        toks = torch.randint(0, c.vocab, (nb, t), device="cuda", generator=gen)
+        labels = torch.randint(0, c.vocab, (nb, t), device="cuda", generator=gen)
+        labels.view(-1)[torch.randperm(labels.numel(), device="cuda", generator=gen)[:masked]] = -1
+        draws = torch.randint(0, c.vocab, (1, nb, t), device="cuda", generator=gen)
+        return toks, labels, draws
+
+    rcfg, model, params = granite32()
+    nr, tr, lr = spec["batch"], spec["seq"], rcfg.n_layers
+    toks, labels, draws = batch(rcfg, nr, tr, spec["masked"])
+    names = LM_FIRST + ("diag_ggn_mc",)
+    exts = tuple(by_name(e) for e in names)
+    fused = ExtensionConfig(mc_samples=1)
+    rdense, rexperts = layers_of(model, Dense), layers_of(model, BatchedDense)
+    want = counts(fused_first_order=rdense + rexperts, fused_second_order=rdense,
+                  flash_attention=lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run(model, params, toks, labels, loss, extensions=exts, cfg=fused, rng=draws)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if launches != want:
+        fail(f"moe run launched {launches}, derived {want}")
+    step_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run(model, params, toks, labels, loss, extensions=exts, cfg=fused, rng=draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    prof = profiled(lambda: run(model, params, toks, labels, loss, extensions=exts, cfg=fused,
+                                rng=draws),
+                    groups=TRAIN_GROUPS, ranges={"attention_backward": "flash_attention_backward"})
+    prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+    # the experts' moments at the path's own data against float64 (a spy on
+    # BatchedDense.backward: the kernel's moment and the tape's x and g)
+    real_backward, moments = BatchedDense.backward, []
+
+    def backward_spy(self, p, tape, g, exts_, cfg_):
+        g_in, grads, stats = real_backward(self, p, tape, g, exts_, cfg_)
+        want64 = (tape.double().square().transpose(1, 2) @ g.double().square())
+        moments.append(f64_readings(torch, "fused_first_order",
+                                    {"moment": stats["_sum_grad2"]["w"]}, {"moment": want64}))
+        return g_in, grads, stats
+
+    BatchedDense.backward = backward_spy
+    try:
+        run(model, params, toks, labels, loss, extensions=(by_name("second_moment"),),
+            cfg=fused)
+    finally:
+        BatchedDense.backward = real_backward
+    moment64 = {k: max(m[k] for m in moments) for k in ("rel64", "entry_median")}
+    tracked = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+    with torch.enable_grad():
+        auto = torch.autograd.grad(loss.value(model.call(tracked, toks), labels),
+                                   tree_leaves(tracked))
+    del tracked
+    grad_err = max(_rel(a, b) for a, b in zip(tree_leaves(res.grads), auto, strict=True))
+    grads = by_path(res.grads)  # the experts have no per-sample entries, as in JAX
+    bgs = by_path(res.ext["batch_grad"])
+    sum_err = max(_rel(bg.sum(0), grads[k]) for k, bg in bgs.items())
+    # BatchL2, BatchDot and SecondMoment off the experts against float64 of batch_grad
+    moment = by_path(res.ext["second_moment"])
+    exact64 = _vs_float64_of_batch_grad(torch, list(bgs.values()), res,
+                                        moments=[moment[k] for k in bgs])
+    # Variance ≥ 0 off the experts: theirs is JAX's N·Σ_slots g² − (Σ g)², a
+    # token-level sum against the sequence count N, below 0 where more than N
+    # slots of an expert carry a gradient (as in JAX)
+    var_min = min((v.min() / moment[k].abs().max()).item()
+                  for k, v in by_path(res.ext["variance"]).items() if "/e_" not in k)
+    mc_min = min(v.min().item() for v in tree_leaves(res.ext["diag_ggn_mc"]))
+    finite = all(torch.isfinite(v).all() for v in tree_leaves(res.ext))
+    layer = res.ext["second_moment"][1]
+    expert_shapes = {k: list(layer[k]["w"].shape) for k in ("e_gate", "e_up", "e_down")}
+    del auto, res, grads, moment, bgs
+    out["run"] = dict(arch=rcfg.name, layers=lr, batch=nr, seq=tr, masked=spec["masked"],
+                      vocab=rcfg.vocab, capacity=capacity(nr * tr, E, top_k, cfg.capacity_factor),
+                      extensions=names, first_call_s=first_s, step_s=step_s,
+                      ms=medians_ms({"s": step_s})["s"], peak_bytes_above_start=peak,
+                      launches=launches, launches_derived=want,
+                      expert_launches=rexperts, wall_ms=prof["wall_ms"],
+                      device_ms=prof["device_ms"], idle_share=prof["idle_share"],
+                      split_device_ms={k: prof[f"{k}_device_ms"] for k in (
+                          *TRAIN_GROUPS, "attention_backward")},
+                      top=prof["top"][:8], grads_vs_autograd=grad_err,
+                      batch_grad_sum_vs_grads=sum_err, vs_float64_of_batch_grad=exact64,
+                      variance_min_over_second_moment=var_min, diag_ggn_mc_min=mc_min,
+                      finite=bool(finite), expert_second_moment_shapes=expert_shapes,
+                      expert_moment_vs_float64=moment64, f64_tol=F64_TOL,
+                      entry_tol=ENTRY_TOL, tol=TOL)
+    say("moe_run", **out["run"])
+    if not grad_err <= TOL or not sum_err <= TOL:
+        fail(f"moe run: grads vs autograd {grad_err:.3e}, Σ batch_grad vs grads "
+             f"{sum_err:.3e} (limit {TOL})")
+    if max(e for e, _ in exact64.values()) > F64_TOL:
+        fail(f"moe run against float64 of batch_grad: {exact64} (limit {F64_TOL})")
+    if not (finite and var_min >= -1e-6 and mc_min >= 0):
+        fail(f"moe run: non-finite, or variance {var_min:.3e} or diag_ggn_mc {mc_min:.3e} "
+             "below 0")
+    if expert_shapes["e_gate"] != [lr, E, cfg.d_model, cfg.d_expert]:
+        fail(f"moe run: expert SecondMoment shapes {expert_shapes}")
+    if len(moments) != rexperts or not (moment64["rel64"] <= F64_TOL
+                                        and moment64["entry_median"] <= ENTRY_TOL):
+        fail(f"moe run: the experts' moments against float64 {moment64} "
+             f"({len(moments)} of {rexperts} read)")
+    del model, params, toks
+    torch.cuda.empty_cache()
+
+    # the reduced config, card against CPU, the draws passed in
+    ccfg, model, params = granite32(reduced=True)
+    toks, labels, draws = batch(ccfg, spec["cpu_batch"], spec["cpu_seq"], 3)
+    cnames = names + ("kfac",)
+    cexts = tuple(by_name(e) for e in cnames)
+    card = run(model, params, toks, labels, loss, extensions=cexts, cfg=fused, rng=draws)
+    cpu = run(model, tree_map(lambda p: p.cpu(), params), toks.cpu(), labels.cpu(), loss,
+              extensions=cexts, cfg=fused, rng=draws.cpu())
+    errs = _ext_errs(card, cpu, cnames)
+    out["run_card_vs_cpu"] = errs
+    say("moe_run_card_vs_cpu", reduced=True, rel_err=errs, tol=TOL)
+    if max(errs.values()) > TOL:
+        fail(f"moe run reduced card vs CPU: {errs}")
+    del card, cpu, model, params
+
+    # -- the training launcher, bf16, full depth ------------------------------------------
+    mc = counts(flash_attention=L, fused_first_order=dense + experts, fused_second_order=dense)
+    out["launcher"] = launcher_runs(
+        torch, ops, "moe_train", ["--arch", spec["arch"], "--full", "--seq", str(spec["seq"]),
+                                  "--batch", str(n)], (
+            ("adamw", spec["adamw_steps"], [], counts(flash_attention=L)),
+            ("diag_ggn_mc", spec["mc_steps"], ["--track-variance"], mc)),
+        dict(layers=L, experts=E, top_k=top_k, dtype=cfg.dtype, batch=n, seq=spec["seq"],
+             capacity=capacity(n * spec["seq"], E, top_k, cfg.capacity_factor)))
+    out["launches"] = {k: launches_prefill + gen_launches[k] + out["run"]["launches"][k]
+                       + sum(r["launches"][k] for r in out["launcher"].values())
+                       for k, launches_prefill in out["prefill"]["launches"].items()}
+    return out
+
+
 def _rel(a, b):
     """max |a − b| / max |b|, b moved to a's device."""
     return ((a.float() - b.float().to(a.device)).abs().max()
@@ -1920,17 +2420,20 @@ def _ext_errs(got, want, names):
     return errs
 
 
-def _vs_float64_of_batch_grad(torch, bgs, res):
+def _vs_float64_of_batch_grad(torch, bgs, res, moments=None):
     """BatchL2, BatchDot and SecondMoment (N · Σ_n g_n²) of a ``run`` result
     against their float64 formula on the per-sample gradients ``bgs`` (a
     batch_grad's leaves), leaf by leaf: {name: (the worst leaf's max |got − want| / max
     |want|, its index in tree_leaves order)}.  A stacked leaf is [N, L, ...]
-    (BatchL2 [N, L], BatchDot [N, L, N])."""
+    (BatchL2 [N, L], BatchDot [N, L, N]).  ``moments``: the SecondMoment
+    leaves that ``bgs`` have, where the tree has more (a mixture's experts)."""
     from repro_torch.core.tree import tree_leaves
 
+    if moments is None:
+        moments = tree_leaves(res.ext["second_moment"])
     worst = {}
     for i, (bg, l2, dot, sm) in enumerate(zip(
-            bgs, *(tree_leaves(res.ext[k]) for k in ("batch_l2", "batch_dot", "second_moment")),
+            bgs, *(tree_leaves(res.ext[k]) for k in ("batch_l2", "batch_dot")), moments,
             strict=True)):
         g64 = bg.double()
         flat = g64.reshape(bg.shape[0], l2[0].numel(), -1)
@@ -3047,18 +3550,32 @@ def main():
     cases += lm_kernel_cases(torch, randn, gen)
     cases += dense_kernel_cases(torch)
     cases += whisper_kernel_cases(torch)
+    cases += moe_kernel_cases(torch)
 
     wrapper = {k: getattr(ops, k) for k in ops.KERNELS}
     plain = {k: getattr(ref, k) for k in ops.KERNELS}
-    plain["fused_first_order"] = lambda A, B, **w: ref.fused_first_order(A[None], B[None], **w)
+    # [N, R, a] rows get a group axis of 1; the experts' rows come with theirs
+    plain["fused_first_order"] = lambda A, B, **w: ref.fused_first_order(
+        A if A.dim() == 4 else A[None], B if B.dim() == 4 else B[None], **w)
     plain["batch_l2"] = lambda A, B, form, **w: ref.batch_l2(A, B, **w)
     plain["cross_dot"] = lambda A1, B1, A2, B2, **w: ref.cross_dot(
         ops.full_a_side(A1, B1), B1, ops.full_a_side(A2, B2), B2, **w)
     library = {"sq_matmul": lambda A, B: torch.matmul(A.square().T, B.square()),
                "flash_attention": library_attention(torch)}
+
+    def library_of(kernel, args, kw):
+        """The row's library call: the kernel's (every row of it has one), or
+        for fused_first_order's expert rows (R = 1, moment alone) ``bmm`` of
+        the squares; None where there is none."""
+        if kernel in library:
+            return library[kernel]
+        if (kernel == "fused_first_order" and args[0].dim() == 4 and args[0].shape[2] == 1
+                and not kw.get("want_l2", True) and not kw.get("want_dot", False)):
+            return expert_moment_library(torch)
+        return None
     per_kernel = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_tf32_ms=0.0,
                           library_ms=0.0, ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0,
-                          max_rel_err=0.0, shapes=[])
+                          max_rel_err=0.0, shapes=[], library_rows=[])
                   for k in ops.KERNELS}
     record["checks"] = []
     profiled_rows = []  # (row, args, kw): device times after every row's event times
@@ -3093,10 +3610,12 @@ def main():
         def run_kernel():
             return wrapper[kernel](*args, **kw)
 
-        def run_library():
-            return library[kernel](*args, **kw)
+        lib = library_of(kernel, args, kw)
 
-        if kernel in library:  # in turns: kernel, library, library, kernel
+        def run_library():
+            return lib(*args, **kw)
+
+        if lib is not None:  # in turns: kernel, library, library, kernel
             turns = [timed(f) for f in (run_kernel, run_library, run_library, run_kernel)]
             ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             extra["turns_ms"] = turns
@@ -3128,8 +3647,8 @@ def main():
         record["checks"].append(row)
         # device times: wkv's decode event time is the host's; the library
         # rows and the 3xTF32 kernels are read against their bounds
-        if kernel in library or kernel == "wkv" or kernel in F64_CHECKED:
-            profiled_rows.append((row, args, kw))
+        if lib is not None or kernel == "wkv" or kernel in F64_CHECKED:
+            profiled_rows.append((row, args, kw, lib))
         # A float32 plain version may sit farther from the formula in float64
         # than ``tol`` (cuBLAS's sum over the LM head's K = 2048 · 100352 for
         # fused_first_order's dot reads 1.3e-4): the row is then held to
@@ -3146,7 +3665,7 @@ def main():
         if kernel == "cross_dot" and "two row sets" not in label and not torch.equal(
                 got["out"], got["out"].transpose(1, 2)):
             fail(f"cross_dot {label}: one row set, but not symmetric bit for bit")
-        if kernel == "fused_first_order" and not (
+        if kernel == "fused_first_order" and "dot" in got and not (
                 torch.equal(got["dot"], got["dot"].T)
                 and torch.equal(got["l2"], torch.diagonal(got["dot"]))):
             fail(f"fused_first_order {label}: dot not symmetric, or l2 not its diagonal, "
@@ -3171,16 +3690,18 @@ def main():
         agg["bound_tf32_ms"] += weight * extra.get("bound_tf32_ms", 0.0)
         agg["ops_ms"] += weight * flops / peak * 1e3
         agg["bytes_ms"] += weight * nbytes / PEAK_BYTES * 1e3
-        if lib_ms is not None:
+        if lib_ms is not None and kernel in library:
             agg["library_ms"] += weight * lib_ms
+        elif lib_ms is not None:  # a library call for some of the kernel's rows only
+            agg["library_rows"].append(dict(shape=label, ms=ms, library_ms=lib_ms))
     # Device time a call, each from a profiler window of its own.
-    for row, args, kw in profiled_rows:
+    for row, args, kw, lib in profiled_rows:
         kernel = row["kernel"]
         extra = dict(device_ms=device_per_call(torch, lambda: wrapper[kernel](*args, **kw))[0])
         extra["device_share"] = row["bound_ms"] / extra["device_ms"]
-        if kernel in library:
+        if lib is not None:
             extra["library_device_ms"], extra["library_kernels"] = device_per_call(
-                torch, lambda: library[kernel](*args, **kw))
+                torch, lambda: lib(*args, **kw))
         row.update(extra)
         say("device", kernel=row["kernel"], shape=row["shape"], **extra)
     del cases, profiled_rows  # free the check inputs before the main path
@@ -3524,7 +4045,8 @@ def main():
             ("dense_heads", lambda: dense_heads_phase(torch, ops)),  # full width, cut depth
             ("lm_run", lambda: lm_run_phase(torch, ops)),  # BackPACK on StableLM-2
             ("train_lm", lambda: train_lm_phase(torch, ops)),  # training LMs
-            ("whisper", lambda: whisper_phase(torch, ops))):  # the encoder-decoder
+            ("whisper", lambda: whisper_phase(torch, ops)),  # the encoder-decoder
+            ("moe", lambda: moe_phase(torch, ops))):  # the mixture of experts
         t0 = time.perf_counter()
         record[name] = phase()
         record["phase_s"][name] = time.perf_counter() - t0
@@ -3540,12 +4062,14 @@ def main():
     # dense heads' prefill and generate calls; the LM run's full-vocabulary
     # and KFAC calls; the LM training phase's launcher runs, cg_ngd, KFAC and
     # --uncertainty calls; Whisper's encode, generate, run, KFAC, launcher
-    # runs and the serving example).
+    # runs and the serving example; Granite's checked prefill call, generate,
+    # run and launcher runs).
     lm_launches = {k: record["lm_run"]["launches"][k] + record["train_lm"]["launches"][k]
-                   + record["whisper"]["launches"][k] for k in ops.KERNELS}
+                   + record["whisper"]["launches"][k] + record["moe"]["launches"][k]
+                   for k in ops.KERNELS}
     attn = sum(record[p]["launches"]["flash_attention"]
                for p in ("serve", "serve_dense", "dense_heads", "lm_run", "train_lm",
-                         "whisper"))
+                         "whisper", "moe"))
     path_launches = dict(launches,
                          fused_first_order=launches["fused_first_order"]
                          + lm_launches["fused_first_order"],
@@ -3571,7 +4095,7 @@ def main():
             bound_by="operations" if agg["ops_ms"] >= agg["bytes_ms"] else "bytes",
             bound_tf32_ms=agg["bound_tf32_ms"] if k not in ROW_CHECKED else None,
             library_ms=agg["library_ms"] if k in library else None,
-            shapes=agg["shapes"]))
+            library_rows=agg["library_rows"], shapes=agg["shapes"]))
     record["kernels"] = table
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

@@ -90,9 +90,9 @@ def sq_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def fused_first_order(A, B, want_l2=True, want_moment=False, want_dot=False):
     """Fused first-order stats; A/B may be [N, R, a] (a leading group axis of
     1 is added and stripped) or [E, N, R, a].  Returns the requested keys of
-    l2 [E, N] / moment [E, a, b] / dot [E, N, N].  The module sweeps pass
-    [N, R, a]; E > 1 is the experts of a mixture-of-experts layer
-    (``src/repro/nn/layers.py:125``), not ported yet."""
+    l2 [E, N] / moment [E, a, b] / dot [E, N, N].  The Dense sweeps pass
+    [N, R, a]; ``BatchedDense`` passes [E, cap, 1, a], its experts the group
+    axis and its capacity slots the samples (R = 1)."""
     squeeze = A.dim() == 3
     if squeeze:
         A, B = A[None], B[None]

@@ -125,11 +125,24 @@ def fused_first_order(A, B, want_l2=True, want_moment=False,
     A: [E, N, R, a], B: [E, N, R, b] → dict of requested stats
     (l2 [E, N] · moment [E, a, b] · dot [E, N, N]), all in ``dtype``
     (float32; float64 is the exact formula the card checks hold to).
+    At R = 1 G is rank one and every stat has a closed form that never
+    forms it: moment (A∘A)ᵀ(B∘B), l2 ‖A_n‖²‖B_n‖², dot (AAᵀ)∘(BBᵀ), each per
+    group.  G would take 42.9 GB in float32 at a mixture of experts' 32
+    experts × 640 slots × 1024 × 512.
     """
     dtype = _dtype(dtype, A, B)
     Af, Bf = A.to(dtype), B.to(dtype)
-    g = torch.einsum("enra,enrb->enab", Af, Bf)
     out = {}
+    if A.shape[2] == 1:
+        a1, b1 = Af[:, :, 0], Bf[:, :, 0]
+        if want_l2:
+            out["l2"] = (a1 * a1).sum(-1) * (b1 * b1).sum(-1)
+        if want_moment:
+            out["moment"] = (a1 * a1).transpose(1, 2) @ (b1 * b1)
+        if want_dot:
+            out["dot"] = (a1 @ a1.transpose(1, 2)) * (b1 @ b1.transpose(1, 2))
+        return out
+    g = torch.einsum("enra,enrb->enab", Af, Bf)
     if want_l2:
         out["l2"] = (g * g).sum(dim=(2, 3))
     if want_moment:

@@ -9,9 +9,10 @@ uncertainty-aware endpoint backed by a last-layer Laplace posterior.
         --batch 4 --prompt-len 8 --uncertainty [--device cpu]
 
 Port of ``src/repro/launch/serve.py`` for the archs the port builds: the
-decoder-only ones (the dense ones, e.g. ``--arch stablelm-1.6b``, Hymba and
-RWKV6) and Whisper (``--arch whisper-tiny``: ``--batch`` sets of 64 random
-frames drawn on the device, encoded once, then greedy decode; it has no
+decoder-only ones (the dense ones, e.g. ``--arch stablelm-1.6b``, Hymba,
+RWKV6 and the mixture of experts ``--arch granite-moe-1b-a400m``) and
+Whisper (``--arch whisper-tiny``: ``--batch`` sets of 64 random frames
+drawn on the device, encoded once, then greedy decode; it has no
 ``--uncertainty``).  Without
 ``--full`` the arch's ``reduced()`` config is served; weights are random,
 drawn from a generator seeded ``--seed`` on the device (the card's draws 1.6

@@ -1,8 +1,11 @@
-"""Layers beyond Dense (convolution, pooling, flattening, raw parameters),
-and the language models: mixing functions (:mod:`.functional`), ``Wired``
-(:mod:`.wired`), decoder blocks (:mod:`.blocks`) and model assemblies
+"""Layers beyond Dense (convolution, pooling, flattening, per-expert
+weights, raw parameters), and the language models: mixing functions
+(:mod:`.functional`), ``Wired`` (:mod:`.wired`), mixture-of-experts routing
+(:mod:`.moe`), decoder blocks (:mod:`.blocks`) and model assemblies
 (:mod:`.models`, among them the encoder-decoder ``WhisperModel``)."""
-from .layers import Conv2d, Flatten, MaxPool2d, Param
+from .blocks import AttnMoEBlock
+from .layers import BatchedDense, Conv2d, Flatten, MaxPool2d, Param
 from .models import WhisperModel
 
-__all__ = ["Conv2d", "Flatten", "MaxPool2d", "Param", "WhisperModel"]
+__all__ = ["AttnMoEBlock", "BatchedDense", "Conv2d", "Flatten", "MaxPool2d", "Param",
+           "WhisperModel"]

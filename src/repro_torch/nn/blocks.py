@@ -2,18 +2,20 @@
 
 Port of ``src/repro/nn/blocks.py``: ``AttnBlock`` (GQA attention with full or
 partial RoPE, optional qkv biases, a GLU or plain feed-forward, RMSNorm or
-LayerNorm), ``RWKV6Block`` (token-shift time and channel mixes around the
-WKV recurrence) and ``HymbaBlock`` (parallel attention and SSD heads sharing
-one block), each with its full-sequence ``wire`` and its single-token
-``wire_step`` against a KV cache (a ring of ``window`` slots in the
-sliding-window layers), the SSD or WKV state, and RWKV's shifted inputs.  One block = one
-decoder layer, so a layer stack is a single homogeneous ``ScanStack``.
+LayerNorm), ``AttnMoEBlock`` (that attention with a routed mixture of
+experts in place of the feed-forward), ``RWKV6Block`` (token-shift time and
+channel mixes around the WKV recurrence) and ``HymbaBlock`` (parallel
+attention and SSD heads sharing one block), each with its full-sequence
+``wire`` and its single-token ``wire_step`` against a KV cache (a ring of
+``window`` slots in the sliding-window layers), the SSD or WKV state, and
+RWKV's shifted inputs.  One block = one decoder layer, so a layer stack is a
+single homogeneous ``ScanStack``.
 
-Every parameter lives in a Dense / norm / Param child, in the JAX layout.
-Attention is ``functional.sdpa`` (``attn_impl="naive"``, the JAX default) or
-``functional.sdpa_chunked`` (``"chunked"``), both of which the card runs in
-the ``flash_attention`` kernel; the SSD scan is ``functional.wkv_chunked``,
-which it runs in the ``wkv`` kernel.
+Every parameter lives in a Dense / BatchedDense / norm / Param child, in the
+JAX layout.  Attention is ``functional.sdpa`` (``attn_impl="naive"``, the
+JAX default) or ``functional.sdpa_chunked`` (``"chunked"``), both of which
+the card runs in the ``flash_attention`` kernel; the SSD scan is
+``functional.wkv_chunked``, which it runs in the ``wkv`` kernel.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import torch.nn.functional as TF
 
 from repro_torch.core.module import Dense, GroupRMSNorm, LayerNorm, RMSNorm
 from repro_torch.nn import functional as F
-from repro_torch.nn.layers import Param
+from repro_torch.nn.layers import BatchedDense, Param
+from repro_torch.nn.moe import moe_apply
 from repro_torch.nn.wired import Wired
 
 
@@ -72,14 +75,16 @@ class AttnBlock(Wired):
             "wo": Dense(n_heads * dh, d, use_bias=False, **kw),
             "ln2": _norm(norm, d, dtype, device),
         }
-        if glu:
-            ch["w_gate"] = Dense(d, d_ff, use_bias=False, **kw)
-            ch["w_up"] = Dense(d, d_ff, use_bias=False, **kw)
-            ch["w_down"] = Dense(d_ff, d, use_bias=False, **kw)
-        else:
-            ch["w_up"] = Dense(d, d_ff, use_bias=True, **kw)
-            ch["w_down"] = Dense(d_ff, d, use_bias=True, **kw)
+        ch.update(self._ffn_children(d, d_ff, kw))
         self.set_children(ch)
+
+    def _ffn_children(self, d, d_ff, kw):
+        if self.glu:
+            return {"w_gate": Dense(d, d_ff, use_bias=False, **kw),
+                    "w_up": Dense(d, d_ff, use_bias=False, **kw),
+                    "w_down": Dense(d_ff, d, use_bias=False, **kw)}
+        return {"w_up": Dense(d, d_ff, use_bias=True, **kw),
+                "w_down": Dense(d_ff, d, use_bias=True, **kw)}
 
     def _rope(self, x, positions):
         """RoPE on the first ``rot = ⌊dh·rope_pct⌋`` (rounded down to even)
@@ -145,6 +150,41 @@ class AttnBlock(Wired):
         x = x + call("wo", a.reshape(n, 1, self.h * self.dh))
         x = self._ffn(call, x)
         return (x, pos), cache
+
+
+# ---------------------------------------------------------------------------
+# GQA attention + routed mixture-of-experts FFN (Granite)
+# ---------------------------------------------------------------------------
+
+
+class AttnMoEBlock(AttnBlock):
+    """Port of ``src/repro/nn/blocks.py:292-322``: ``AttnBlock``'s attention
+    (RMSNorm, SiLU, full RoPE, no window) with the FFN replaced by ``ln2`` →
+    ``router`` → :func:`~repro_torch.nn.moe.moe_apply` over the experts
+    ``e_gate``, ``e_up`` and ``e_down`` (``BatchedDense``).  The children
+    are JAX's after its ``pop``s: no dense FFN is drawn.  Decode is
+    ``AttnBlock.wire_step``, the capacity counted for the step's tokens."""
+
+    def __init__(self, d, n_heads, kv_heads, d_expert, n_experts, top_k, *,
+                 capacity_factor=1.25, act="silu", rope_theta=10000.0,
+                 dtype=torch.float32, head_dim=None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        self.E, self.k_top, self.cf = n_experts, top_k, capacity_factor
+        self.d_expert = d_expert
+        super().__init__(d, n_heads, kv_heads, 4 * d, head_dim=head_dim, act=act,
+                         rope_theta=rope_theta, dtype=dtype, device=device,
+                         generator=generator)
+
+    def _ffn_children(self, d, d_ff, kw):
+        return {"router": Dense(d, self.E, use_bias=False, **kw),
+                "e_gate": BatchedDense(self.E, d, self.d_expert, **kw),
+                "e_up": BatchedDense(self.E, d, self.d_expert, **kw),
+                "e_down": BatchedDense(self.E, self.d_expert, d, **kw)}
+
+    def _ffn(self, call, x):
+        h = call("ln2", x)
+        logits = call("router", h)
+        return x + moe_apply(call, h, logits, self.E, self.k_top, self.cf, self.act)
 
 
 # ---------------------------------------------------------------------------

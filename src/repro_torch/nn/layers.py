@@ -1,6 +1,7 @@
-"""Conv2d, MaxPool2d, Flatten and Param in the BackPACK module protocol.
+"""Conv2d, MaxPool2d, Flatten, BatchedDense and Param in the BackPACK
+module protocol.
 
-Port of ``src/repro/nn/layers.py:158-251``.  Activations stay NHWC between
+Port of ``src/repro/nn/layers.py:87-251``.  Activations stay NHWC between
 layers, as in JAX, so ``Flatten`` orders features the same way and Dense
 weights line up across the two packages.
 
@@ -13,6 +14,11 @@ end; ``F.unfold`` pads symmetrically, so the padding is applied with
 ``F.pad`` first.  The forward pass is unfold + ``torch.matmul``, never
 cuDNN, and the input cotangent is ``F.fold`` of ``B @ wᵀ``, the exact
 adjoint of the unfold.
+
+``BatchedDense`` holds a mixture of experts' weights ``[E, a, b]``; its
+statistics are token-level (each routed token is a sample unit: a
+per-sequence moment is undefined once a sequence's tokens route to
+different experts), so it has no per-sample entries.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.core.module import (
     normal_param,
     zeros_param,
 )
+from repro_torch.kernels import ops as kops
 
 
 def _pair(v):
@@ -187,6 +194,68 @@ class Flatten(Module):
 
     def jac_t_mat(self, params, tape, M):
         return M.reshape((M.shape[0],) + tape)
+
+
+class BatchedDense(Module):
+    """Per-expert weights: x [E, cap, a] → [E, cap, b] through ``w`` [E, a,
+    b] (``[L, E, a, b]`` once a ``ScanStack`` stacks it), drawn at scale
+    a^-1/2 as JAX draws them.
+
+    ``backward`` gives the gradient, the input cotangent and, for
+    SecondMoment / Variance, the token-level Σ_slots G∘G with G = xᵀg per
+    capacity slot: on the fused route one ``fused_first_order`` launch with
+    the experts as its group axis and R = 1 (``[E, cap, 1, a]``), else
+    ``(x∘x)ᵀ(g∘g)``; for KFAC / KFLR the A factor xᵀx / cap.  The GGN
+    diagonal and the B factor of ``curv_backward`` are plain products, as
+    in JAX (no kernel there)."""
+
+    def __init__(self, n_experts, d_in, d_out, init_scale=None, dtype=torch.float32,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.E, self.d_in, self.d_out = n_experts, d_in, d_out
+        scale = d_in ** -0.5 if init_scale is None else init_scale
+        self.w = normal_param((n_experts, d_in, d_out), scale, device, generator, dtype)
+
+    def params(self):
+        return {"w": self.w}
+
+    def call(self, params, x):
+        return torch.bmm(x, params["w"])
+
+    def backward(self, params, tape, g, exts, cfg):
+        x = tape
+        Af, Bf = _f32(x), _f32(g)
+        grads = {"w": Af.transpose(1, 2) @ Bf}
+        g_in = g @ params["w"].transpose(1, 2)
+        names = {e.name for e in exts}
+        stats = {}
+        if "second_moment" in names or "variance" in names:
+            if cfg.use_kernels and cfg.use_fused:
+                w = kops.fused_first_order(Af[:, :, None, :].contiguous(),
+                                           Bf[:, :, None, :].contiguous(),
+                                           want_l2=False, want_moment=True)["moment"]
+            else:
+                w = (Af * Af).transpose(1, 2) @ (Bf * Bf)
+            stats["_sum_grad2"] = {"w": w}
+        if "kfac" in names or "kflr" in names:
+            stats["_kron_a"] = {"w": Af.transpose(1, 2) @ Af / float(x.shape[1])}
+        return g_in, grads, stats
+
+    def jac_t_mat(self, params, tape, M):
+        return M @ params["w"].transpose(1, 2)
+
+    def curv_backward(self, params, tape, S, exts, cfg, ext_prefix):
+        names = {e.name for e in exts}
+        stats = {}
+        Sf = _f32(S)
+        diag_name = "diag_ggn_mc" if ext_prefix == "mc" else "diag_ggn"
+        kron_name = "kfac" if ext_prefix == "mc" else "kflr"
+        if diag_name in names:
+            x2 = _f32(tape) ** 2
+            stats[diag_name] = {"w": torch.einsum("eca,xecb->eab", x2, Sf * Sf)}
+        if kron_name in names:
+            stats[kron_name] = {"w": {"B": torch.einsum("xeci,xecj->eij", Sf, Sf)}}
+        return self.jac_t_mat(params, tape, S), stats
 
 
 class Param(Module):

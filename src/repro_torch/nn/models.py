@@ -5,9 +5,10 @@ Port of ``src/repro/nn/models.py`` (``sinusoid_pos``, ``TokenEmbed``,
 ``CausalLM``, ``WhisperModel``, ``_expand_segments``, ``make_stacks``,
 ``build_model``).  The same module tree serves the full-sequence forward
 (``call``, the prefill step) and decode (``serve_step`` with per-block
-caches) and BackPACK's ``run``.  The dense, Hymba, RWKV6 and encoder-decoder
-kinds are built; the mixture-of-experts kinds raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+caches) and BackPACK's ``run``.  The dense, Hymba, RWKV6, encoder-decoder
+and GQA mixture-of-experts (``moe_gqa``) kinds are built; ``moe_mla``
+(DeepSeek-V2's MLA attention with shared experts) raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -26,13 +27,20 @@ from repro_torch.core.module import (
     Sequential,
 )
 from repro_torch.core.module import _layer
-from repro_torch.nn.blocks import AttnBlock, DecBlock, EncBlock, HymbaBlock, RWKV6Block
+from repro_torch.nn.blocks import (
+    AttnBlock,
+    AttnMoEBlock,
+    DecBlock,
+    EncBlock,
+    HymbaBlock,
+    RWKV6Block,
+)
 from repro_torch.nn.layers import Param
 from repro_torch.nn.wired import Wired
 
 _STILL_TO_PORT = {
-    "moe_gqa": "BatchedDense / MoE: ROADMAP queue A item 13",
-    "moe_mla": "MLA and BatchedDense / MoE: ROADMAP queue A item 13",
+    "moe_mla": "MLA attention, its absorbed decode cache and shared experts: "
+               "ROADMAP queue A item 13.5",
 }
 
 
@@ -227,7 +235,7 @@ def build_model(cfg, remat=False, attn_impl="naive", wkv_chunk=16, device="cuda"
     (:class:`~repro_torch.core.module.ScanStack`).  JAX's ``seq_constraint``
     comes with the sharded lane (ROADMAP queue A item 12).  ``wkv_chunk`` is
     RWKV6's scan chunk (Hymba scans with chunks of 16)."""
-    if cfg.kind not in ("hymba", "dense", "rwkv", "encdec"):
+    if cfg.kind not in ("hymba", "dense", "rwkv", "encdec", "moe_gqa"):
         raise NotImplementedError(f"{cfg.name} (kind {cfg.kind!r}) needs "
                                   f"{_STILL_TO_PORT.get(cfg.kind, 'ROADMAP queue A item 13')}")
     dtype = getattr(torch, cfg.dtype)
@@ -245,6 +253,11 @@ def build_model(cfg, remat=False, attn_impl="naive", wkv_chunk=16, device="cuda"
                               ssm_state=cfg.ssm_state, window=w, act=cfg.act,
                               attn_impl=attn_impl, rope_theta=cfg.rope_theta, dtype=dtype,
                               device=dev, generator=generator)
+        if cfg.kind == "moe_gqa":  # window, norm and attn_impl are not passed, as in JAX
+            return AttnMoEBlock(d, cfg.n_heads, cfg.kv_heads, cfg.d_expert, cfg.n_experts,
+                                cfg.top_k, capacity_factor=cfg.capacity_factor, act=cfg.act,
+                                rope_theta=cfg.rope_theta, dtype=dtype, head_dim=cfg.head_dim,
+                                device=dev, generator=generator)
         return AttnBlock(d, cfg.n_heads, cfg.kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
                          window=w, norm=cfg.norm, act=cfg.act, glu=cfg.glu,
                          rope_theta=cfg.rope_theta, rope_pct=cfg.rope_pct,

@@ -35,11 +35,21 @@ def _ema(old, new, decay):
     return tree_map(lambda o, n: decay * o + (1 - decay) * n, old, new)
 
 
+PER_EXPERT_KFAC = (
+    "Kronecker factors of stacked per-expert weights (B of shape [L, E, b, b]) are not "
+    "supported: the reference's preconditioner (src/repro/optim/precond.py:62-64) vmaps "
+    "once, over a B of 3 dimensions, and fails on them (ROADMAP queue C, faults in the "
+    "reference); train a mixture of experts with diag_ggn_mc or cg_ngd")
+
+
 def _kron_step(c, gf, damping):
     """(A⊗B + λI)⁻¹ g for one Kronecker leaf; a ``B`` of 3 dimensions is a
-    stack of layers (or experts), solved one by one."""
+    stack of layers (or experts), solved one by one.  A ``B`` of 4 (a layer
+    stack of experts) raises, as the reference fails there."""
     A = c.get("A", c.get("A_diag"))
     B = c["B"]
+    if B.dim() > 3:
+        raise NotImplementedError(PER_EXPERT_KFAC)
     if A is None:
         def solve(b_, g_):
             return K.kron_solve_bias(b_, g_, damping)

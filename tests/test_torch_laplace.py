@@ -13,6 +13,11 @@
   ``probit_predictive``; and the chain fit → evidence → predictive → probit
   on c2d2 against JAX's chain.
 
+The evidence, ``optimize_marglik``, the GLM and MC predictives and the chain
+are in ``tests/test_torch_laplace_predictive.py`` (so that the two files run
+on separate workers), the helpers both use in
+``tests/_torch_laplace_common.py``.
+
 JAX fits on its plain route (``use_kernels=False``, its default) and, on
 c2d2, on its kernel route (Pallas interpret) too; the port names both of its
 routing flags.  Parameters cross through numpy (``repro_torch.bridge``),
@@ -29,54 +34,30 @@ Tolerances: the fit's pieces and the predictive rtol 1e-5 (atol 1e-6 of the
 largest entry for the curvature, whose small entries are float32 sums that
 cancel); evidence rtol 1e-5; the marglik trajectory rtol 1e-4.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_laplace_common import (
+    PRIOR,
+    STRUCTURES,
+    _close,
+    _diag_evidence64,
+    _inner,
+    _rand,
+    fits,
+    setup,
+)
 
-from repro.configs import papernets as jnets
-from repro.core import CrossEntropyLoss as JCrossEntropy
-from repro.core import Dense as JDense
-from repro.core import ExtensionConfig as JConfig
-from repro.core import MSELoss as JMSE
-from repro.core import Sequential as JSequential
-from repro.core import Activation as JActivation
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro import laplace as jl
 from repro.laplace.posterior import _map_kron as j_map_kron
 from repro_torch import laplace as tl
-from repro_torch.bridge import params_from_numpy
-from repro_torch.configs import papernets as tnets
-from repro_torch.core import (
-    Activation,
-    CrossEntropyLoss,
-    Dense,
-    ExtensionConfig,
-    MSELoss,
-    Sequential,
-)
+from repro_torch.core import Activation, Dense, ExtensionConfig, Sequential
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops
-
-STRUCTURES = {"diag": ("diag", False), "kron": ("kron", False),
-              "last_diag": ("diag", True), "last_kron": ("kron", True)}
-PRIOR = 3.0
-
-
-def _rand(seed, *shape):
-    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
-
-
-def _np(x):
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _close(got, want, rtol=1e-5, atol=0.0, msg=""):
-    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=rtol, atol=atol, err_msg=msg)
 
 
 # ---------------------------------------------------------------------------
@@ -96,90 +77,6 @@ def test_predictive_var_matches_jax(shape, with_sigma):
     j = (jnp.asarray(A), jnp.asarray(S), None if Sigma is None else jnp.asarray(Sigma))
     for want in (jops.predictive_var(*j), jref.predictive_var(*j)):
         _close(got, want, rtol=1e-5)
-
-
-# ---------------------------------------------------------------------------
-# setups: the mlp and c2d2 of tests/test_laplace.py, batches from numpy
-# ---------------------------------------------------------------------------
-
-N, D, H, C = 9, 6, 7, 4
-
-
-def _setup(name):
-    rs = np.random.RandomState(1)
-    if name == "c2d2":
-        jm = jnets.c2d2(n_classes=10, in_ch=1, img=8)
-        tm = tnets.c2d2(n_classes=10, in_ch=1, img=8, device="cpu")
-        x, x2 = rs.randn(8, 8, 8, 1).astype(np.float32), rs.randn(6, 8, 8, 1).astype(np.float32)
-        y, loss = rs.randint(0, 10, 8), "ce"
-    else:
-        jm = JSequential([JDense(D, H), JActivation("sigmoid"), JDense(H, C)])
-        tm = Sequential([Dense(D, H, device="cpu"), Activation("sigmoid"),
-                         Dense(H, C, device="cpu")])
-        x, x2 = rs.randn(N, D).astype(np.float32), rs.randn(5, D).astype(np.float32)
-        if name == "mlp_mse":
-            y, loss = rs.randn(N, C).astype(np.float32), "mse"
-        else:
-            y, loss = rs.randint(0, C, N), "ce"
-    jp = jm.init(jax.random.PRNGKey(0))
-    tp = params_from_numpy(tm, jax.tree.map(np.asarray, jp), "cpu")
-    jloss, tloss = (JCrossEntropy(), CrossEntropyLoss()) if loss == "ce" else (JMSE(), MSELoss())
-    return dict(jm=jm, jp=jp, tm=tm, tp=tp, x=x, y=y, x2=x2, jloss=jloss, tloss=tloss)
-
-
-_SETUPS, _FITS = {}, {}
-
-
-def setup(name):
-    if name not in _SETUPS:
-        _SETUPS[name] = _setup(name)
-    return _SETUPS[name]
-
-
-def fits(name, structure, jax_kernels=False, use_kernels=True):
-    """(JAX posterior, port posterior) of one setup and structure (once)."""
-    key = (name, structure, jax_kernels, use_kernels)
-    if key not in _FITS:
-        s = setup(name)
-        st, last = STRUCTURES[structure]
-        jpost = jl.fit_posterior(s["jm"], s["jp"], jnp.asarray(s["x"]), jnp.asarray(s["y"]),
-                                 s["jloss"], structure=st, last_layer=last,
-                                 options=jl.FitOptions(prior_prec=PRIOR,
-                                                       cfg=JConfig(use_kernels=jax_kernels)))
-        tpost = tl.fit_posterior(s["tm"], s["tp"], torch.from_numpy(s["x"]),
-                                 torch.from_numpy(s["y"]), s["tloss"], structure=st,
-                                 last_layer=last,
-                                 options=tl.FitOptions(prior_prec=PRIOR, cfg=ExtensionConfig(
-                                     use_kernels=use_kernels, use_fused=True)))
-        _FITS[key] = (jpost, tpost)
-    return _FITS[key]
-
-
-def _inner(post):
-    return post.inner if hasattr(post, "inner") else post
-
-
-def _diag_evidence64(jpost, log_d):
-    """JAX's diagonal evidence and its derivative in log δ, in float64 on
-    JAX's fitted curvature (classification)."""
-    d, m = float(np.exp(log_d)), float(jpost.n_data)
-    cs = [np.asarray(c, np.float64) for c in jax.tree.leaves(jpost.curv)]
-    sq = sum(np.sum(np.asarray(p, np.float64) ** 2) for p in jax.tree.leaves(jpost.mean))
-    ldr = sum(np.sum(np.log(c * m + d)) for c in cs) - sum(c.size for c in cs) * np.log(d)
-    dldr = sum(np.sum(-(c * m) / (c * m + d)) for c in cs)
-    return -m * jpost.loss_map - 0.5 * (d * sq + ldr), -0.5 * (d * sq + dldr), ldr
-
-
-def _adam64(jpost, d0, n_steps, lr):
-    """optimize_marglik's Adam steps on :func:`_diag_evidence64`."""
-    theta, mo, v, hist = np.log(d0), 0.0, 0.0, []
-    for t in range(1, n_steps + 1):
-        ev, g, _ = _diag_evidence64(jpost, theta)
-        g = -g
-        mo, v = 0.9 * mo + 0.1 * g, 0.999 * v + 0.001 * g * g
-        theta -= lr * (mo / (1 - 0.9 ** t)) / (np.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
-        hist.append(ev)
-    return np.exp(theta), np.asarray(hist)
 
 
 FIT_PARAMS = [(n, s, False) for n in ("mlp", "c2d2") for s in STRUCTURES] + [
@@ -220,28 +117,6 @@ def test_fit_matches_jax(name, structure, jax_kernels):
         _close(tpost.log_det_ratio(), jpost.log_det_ratio())
 
 
-@pytest.mark.parametrize("structure", ["diag", "kron", "last_kron"])
-@pytest.mark.parametrize("name", ["mlp", "c2d2"])
-def test_marglik_and_its_optimizer_match_jax(name, structure):
-    jpost, tpost = fits(name, structure)
-    ji = _inner(jpost)
-    diag = isinstance(ji, jl.DiagLaplace)
-    for d in (0.3, PRIOR, 20.0):
-        want = (_diag_evidence64(ji, np.log(d))[0] if diag
-                else float(jl.log_marglik(jpost, d)))
-        _close(tl.log_marglik(tpost, d), want, msg=f"delta={d}")
-    tuned, res = tl.optimize_marglik(tpost, n_steps=25, lr=0.2)
-    if diag:
-        want_d, want_hist = _adam64(ji, PRIOR, 25, 0.2)
-    else:
-        jtuned, jres = jl.optimize_marglik(jpost, n_steps=25, lr=0.2)
-        want_d, want_hist = jres.prior_prec, jres.history
-    _close(res.history, want_hist, rtol=1e-4)
-    np.testing.assert_allclose(res.prior_prec, want_d, rtol=1e-4)
-    assert tuned.prior_prec == res.prior_prec
-    assert float(tl.log_marglik(tuned)) > float(tl.log_marglik(tpost))
-
-
 def test_marglik_tunes_sigma_like_jax():
     """Regression: σ is tuned too (``tune_sigma`` defaults to True)."""
     jpost, tpost = fits("mlp_mse", "kron")
@@ -252,26 +127,6 @@ def test_marglik_tunes_sigma_like_jax():
     _close(res.history, jres.history, rtol=1e-4)
     np.testing.assert_allclose((res.prior_prec, res.sigma_noise),
                                (jres.prior_prec, jres.sigma_noise), rtol=1e-4)
-
-
-GLM_PARAMS = [(n, s, k) for n in ("mlp", "c2d2") for s in STRUCTURES for k in (False, True)]
-
-
-@pytest.mark.parametrize("name,structure,use_kernels", GLM_PARAMS,
-                         ids=[f"{n}-{s}-{'kernels' if k else 'einsum'}"
-                              for n, s, k in GLM_PARAMS])
-def test_glm_predictive_matches_jax(name, structure, use_kernels):
-    s = setup(name)
-    jpost, tpost = fits(name, structure)
-    jmean, jvar = jl.glm_predictive(s["jm"], s["jp"], jpost, jnp.asarray(s["x2"]),
-                                    use_kernels=False)
-    mean, var = tl.glm_predictive(s["tm"], s["tp"], tpost, torch.from_numpy(s["x2"]),
-                                  use_kernels=use_kernels)
-    _close(mean, jmean, atol=1e-6)
-    _close(var, jvar)
-    assert (var > 0).all()
-    _close(tl.probit_predictive(mean, var), jl.probit_predictive(jmean, jvar), atol=1e-7)
-    _close(tl.probit_predictive(mean, var).sum(-1), np.ones(len(s["x2"])))
 
 
 F64_PARAMS = [(n, s) for n in ("mlp", "c2d2") for s in STRUCTURES]
@@ -325,46 +180,6 @@ def test_glm_predictive_calls_predictive_var(monkeypatch):
     assert calls == [False, False, True, True]
 
 
-def _jax_diag_draws(jpost, key, k):
-    leaves, treedef = jax.tree_util.tree_flatten(jpost.mean)
-    keys = jax.random.split(key, len(leaves))
-    return jax.tree_util.tree_unflatten(treedef, [
-        np.array(jax.random.normal(kk, (k,) + m.shape, jnp.float32))
-        for m, kk in zip(leaves, keys)])
-
-
-def _jax_kron_draws(jpost, key, k):
-    counter = [0]
-
-    def draw(mean_leaf, block):
-        kk = jax.random.fold_in(key, counter[0])
-        counter[0] += 1
-        return np.array(jax.random.normal(kk, (k,) + mean_leaf.shape, jnp.float32))
-
-    return j_map_kron(draw, jpost.mean, jpost.kron)
-
-
-@pytest.mark.parametrize("structure", ["diag", "kron", "last_diag", "last_kron"])
-@pytest.mark.parametrize("name", ["mlp", "c2d2"])
-def test_sample_and_mc_predictive_match_jax(name, structure):
-    s = setup(name)
-    jpost, tpost = fits(name, structure)
-    key, k = jax.random.PRNGKey(3), 6
-    ji = _inner(jpost)
-    draws = (_jax_diag_draws(ji, key, k) if isinstance(ji, jl.DiagLaplace)
-             else _jax_kron_draws(ji, key, k))
-    jthetas = jpost.sample(key, k)
-    thetas = tpost.sample(draws, k)
-    for a, b in zip(tree_leaves(thetas), jax.tree.leaves(jthetas), strict=True):
-        # A'^{-1/2} and B'^{-1/2} are eigh sums whose terms cancel.
-        _close(a, b, atol=1e-5 * np.abs(np.asarray(b)).max())
-    jmean, jvar = jl.mc_predictive(s["jm"], s["jp"], jpost, jnp.asarray(s["x2"]), key, k)
-    mean, var = tl.mc_predictive(s["tm"], s["tp"], tpost, torch.from_numpy(s["x2"]), draws, k)
-    # The outputs carry the samples' rounding, scaled by the largest output.
-    _close(mean, jmean, atol=1e-5 * np.abs(np.asarray(jmean)).max())
-    _close(var, jvar, rtol=1e-4, atol=1e-5 * np.abs(np.asarray(jvar)).max())
-
-
 def test_sample_from_a_generator():
     _, tpost = fits("mlp", "kron")
     a = tpost.sample(torch.Generator().manual_seed(0), 3)
@@ -374,31 +189,6 @@ def test_sample_from_a_generator():
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     with pytest.raises(ValueError, match="draws"):
         tpost.sample([torch.zeros(3, 2)], 3)
-
-
-def test_fit_to_predictive_chain_matches_jax():
-    """The slice end to end on c2d2: fit a Kronecker posterior with the
-    kernel route named, tune δ on the evidence, predict on held-out inputs,
-    and turn the predictive into class probabilities — against JAX's chain
-    (JAX on its Pallas kernels too)."""
-    s = setup("c2d2")
-    x, y, x2 = (jnp.asarray(s[k]) for k in ("x", "y", "x2"))
-    jpost = jl.fit_posterior(s["jm"], s["jp"], x, y, s["jloss"], structure="kron",
-                             options=jl.FitOptions(prior_prec=1.0,
-                                                   cfg=JConfig(use_kernels=True)))
-    jpost, jres = jl.optimize_marglik(jpost, n_steps=15, lr=0.3)
-    jprobs = jl.probit_predictive(*jl.glm_predictive(s["jm"], s["jp"], jpost, x2))
-    post = tl.fit_posterior(s["tm"], s["tp"], torch.from_numpy(s["x"]), torch.from_numpy(s["y"]),
-                            s["tloss"], structure="kron",
-                            options=tl.FitOptions(prior_prec=1.0, cfg=ExtensionConfig(
-                                use_kernels=True, use_fused=True)))
-    post, res = tl.optimize_marglik(post, n_steps=15, lr=0.3)
-    probs = tl.probit_predictive(*tl.glm_predictive(s["tm"], s["tp"], post,
-                                                    torch.from_numpy(s["x2"]),
-                                                    use_kernels=True))
-    _close(res.history, jres.history, rtol=1e-4)
-    np.testing.assert_allclose(res.prior_prec, jres.prior_prec, rtol=1e-4)
-    _close(probs, jprobs, rtol=1e-5, atol=1e-7)
 
 
 MB_PARAMS = [("mlp", "kron", 4), ("mlp", "last_kron", 3), ("c2d2", "diag", 3),

@@ -93,7 +93,7 @@ def _batch(cfg, n, t, seed, masked=3):
 
 def _jax_run(model, params, x, y, names, rng=None, **cfg):
     exts = tuple(jby_name(e) for e in names)
-    jcfg = JConfig(use_kernels=True, **cfg)
+    jcfg = JConfig(**{"use_kernels": True, **cfg})
 
     @jax.jit
     def go(p, xx, yy):
