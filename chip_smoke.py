@@ -10,14 +10,15 @@ Hymba-1.5B's and StableLM-2-1.6B's serving shapes for flash_attention and
 wkv, the LM run's shapes for fused_first_order, fused_second_order and
 flash_attention, whisper-tiny's (non-causal attention over 1500 frames,
 cross-attention of 448 queries against them, its head and encoder
-feed-forward) and Granite-3.0-1B-A400M's (GQA attention at 16 over 8 heads,
+feed-forward), Granite-3.0-1B-A400M's (GQA attention at 16 over 8 heads,
 fused_first_order with its 32 experts as the group axis at R = 1, and
 every Dense shape of its BackPACK sweep: q, k, v, o, the router and the
-head).  Then it drives fourteen paths through the entry points a user
-calls, seven on 3C3D (CIFAR-10 shapes, full width, random weights from a
-seed), five on language models, one on the encoder-decoder and one on the
-mixture of experts, each with the launch counts set to 0 just before and
-read just after:
+head) and DeepSeek-V2-Lite's (MLA attention at q, k 192 and v 128, its 64
+experts at R = 1, every Dense shape of its sweep).  Then it drives fifteen
+paths through the entry points a user calls, seven on 3C3D (CIFAR-10
+shapes, full width, random weights from a seed), five on language models,
+one on the encoder-decoder and two on the mixtures of experts, each with
+the launch counts set to 0 just before and read just after:
 
 * the main path, ``repro_torch.core.run`` with the ten first-order,
   exact-GGN and MC extensions on the fused route (the default), which must
@@ -142,7 +143,20 @@ read just after:
   21; flash_attention 4) against autograd, BatchL2, BatchDot and
   SecondMoment off the experts against float64 of batch_grad, the experts'
   moments against float64; the reduced config card against CPU; the
-  training launcher with AdamW and DiagGGN-MC + Variance.
+  training launcher with AdamW and DiagGGN-MC + Variance;
+* MLA with routed and shared experts (``mla_phase``): DeepSeek-V2-Lite at
+  full width and depth in bf16, a prefill call of 4 × 2048 tokens
+  (flash_attention 27, the pairs each layer drops at capacity 960
+  printed), greedy ``generate`` from 4 × 32 to 128 and decode at 32 cached
+  tokens (no kernel a serve_step: the absorbed decode over the compressed
+  cache is float32 einsums), decode at 1500 cached tokens on 4 layers; in
+  float32 at capacity factor E / top_k the absorbed 64-token chain on 4
+  layers against the unabsorbed forward and 2 layers card against CPU;
+  BackPACK ``run`` in float32 on 2 layers at 4 × 512 (fused_first_order
+  25, 6 of them over the 64 experts; fused_second_order 19;
+  flash_attention 2) with the same checks as Granite's; training through
+  ``fit`` in bf16 at full width on 4 layers with AdamW and DiagGGN-MC +
+  Variance, KFAC refused, and the training launcher on the reduced config.
 
 The two kernels with a library counterpart (sq_matmul: ``torch.matmul`` of
 the squares; flash_attention: SDPA), and fused_first_order's expert rows
@@ -153,8 +167,8 @@ time follows a profiler window; flash_attention's rows name the design
 that ran (``flash_attention.design``: "split" for decode, T·g < 64, with its
 split count and scratch bytes; "wgmma" for bf16 prefill and the training
 launcher's forward at (dh, dv) ∈
-{(64, 64), (128, 128)} and at the other configs' wider heads, (120, 120),
-(192, 128) and (240, 240); "simt" else: float32), and their device time's
+{(64, 64), (128, 128), (192, 128)} and at the other configs' wider heads,
+(120, 120) and (240, 240); "simt" else: float32), and their device time's
 share of the bound.  bf16 attention and wkv outputs are
 also held row by row (``ROW_TOL``).
 
@@ -331,7 +345,29 @@ WHISPER = dict(arch="whisper-tiny", batch=4, frames=1500, masked=6, decode_at=(3
 # DiagGGN-MC with Variance 4.
 MOE = dict(arch="granite-moe-1b-a400m", batch=4, prefill_len=2048, prompt_len=32, max_len=128,
            decode_steps=16, chain_len=64, cpu_layers=2, run_layers=4, seq=512, masked=6,
-           cpu_batch=2, cpu_seq=16, adamw_steps=6, mc_steps=4)
+           cpu_batch=2, cpu_seq=16, adamw_steps=6, mc_steps=4, seed=17)
+# The MLA mixture of experts: DeepSeek-V2-Lite-16B (arXiv:2405.04434; 27
+# layers, d 2048, 16 heads, kv_lora 512, qk 128 + 64 RoPE, v 128, 64 experts
+# of 1408 top-6 and 2 shared, vocabulary 102400) at full width, weights drawn
+# on the card.  Serving in bf16 at full depth (≈ 32.4 GB of weights): a
+# prefill call of 4 × 2048 tokens (capacity 960 an expert), greedy generate
+# from 4 prompts of 32 tokens to 128, 16 decode steps timed at 32 cached
+# tokens, and 16 at 1500 cached tokens on 4 of the 27 layers over a
+# compressed cache written directly (random ckv / kpe at positions 0..1499 of
+# 2048), not filled token by token.  In float32 at capacity factor E / top_k
+# (the forward drops nothing): the absorbed chain over 64 tokens on 4 layers
+# against the unabsorbed forward, 2 layers card against CPU at 1 × 64.  The
+# BackPACK run in float32 on 2 layers at 4 × 512 (capacity 240): its result
+# holds 4 float32 copies of the parameters beside the weights (gradient,
+# SecondMoment, Variance, DiagGGN-MC) and BatchGrad ×4 of those off the
+# experts.  Training in bf16 through ``fit`` on 4 layers: full depth does
+# not fit (AdamW's float32 moments alone are 8 B × 16.2B ≈ 130 GB).  The
+# training launcher on the reduced config.
+MLA = dict(arch="deepseek-v2-lite-16b", batch=4, prefill_len=2048, prompt_len=32, max_len=128,
+           decode_steps=16, long_cached=1500, long_len=2048, long_layers=4, chain_len=64,
+           chain_layers=4, cpu_layers=2, run_layers=2, seq=512, masked=6, cpu_batch=2,
+           cpu_seq=16, train_layers=4, adamw_steps=6, mc_steps=4, launcher_seq=16,
+           launcher_batch=2, launcher_steps=3, seed=19)
 
 FIRST = ("batch_grad", "batch_l2", "second_moment", "variance", "batch_dot")
 EXACT = ("diag_ggn", "kflr", "ggn_trace")
@@ -636,8 +672,10 @@ def wide_attention_cases(torch, randn, pos, ring, glob):
     serving path (weight 0), bf16 queries ("wgmma" in prefill, "split" in
     decode): h2o-danube3-4b's
     dh 120 (32 heads over 8, window 8192), deepseek-v2-lite's MLA (dh 192,
-    dv 128, 16 heads) and gemma3-12b's dh 240 (16 heads over 8, window 1024)
-    in prefill of 4×2048; CodeQwen1.5-7B's dh 128 (32 heads, no GQA) and
+    dv 128, 16 heads; weighted on its path by ``mla_kernel_cases``, and kept
+    here: these rows draw from the generator that then draws 3C3D's data)
+    and gemma3-12b's dh 240 (16 heads over 8, window 1024) in prefill of
+    4×2048; CodeQwen1.5-7B's dh 128 (32 heads, no GQA) and
     gemma3-12b in decode at position 1500 against float32 caches (a global
     cache of 2048, a ring of 1024)."""
     cases = []
@@ -1898,6 +1936,56 @@ def moe_kernel_cases(torch):
         ("head", tb, d, vocab, 1)), e) if " kfac " not in c[1]]
 
 
+def mla_kernel_cases(torch):
+    """DeepSeek-V2-Lite's rows (``MLA``), from a generator of their own (seed
+    18): flash_attention at MLA's widths, 16 heads with q and k of 192 (128
+    + the shared RoPE key's 64) and v of 128, in bf16 prefill at 4 × 2048
+    ("wgmma", 27 a prefill call) and in float32 at the run's 4 × 512
+    ("simt", 2); decode attention is the absorbed float32 einsums, no kernel.
+    fused_first_order with the experts as its group axis, E = 64 × 240
+    capacity slots × R = 1, SecondMoment's moment alone, at ``e_gate`` /
+    ``e_up`` (2048 × 1408, 2 a layer of the run) and ``e_down`` (1408 ×
+    2048, 1 a layer), its library call ``torch.bmm`` of the squares (TF32
+    off); and every Dense shape of the run's sweep (R = 512, N = 4): ``dq``
+    (2048 × 3072), ``dkv`` (2048 × 576), ``uk`` / ``uv`` (512 × 2048),
+    ``wo`` (2048 × 2048), the router (2048 × 64), ``s_gate`` / ``s_up``
+    (2048 × 2816), ``s_down`` (2816 × 2048) and the head (2048 × 102400,
+    once), fused_first_order's l2, moment and dot and fused_second_order's
+    MC diagonal (``fused_dense_cases``), weighted by their 19 launches a
+    sweep."""
+    from repro_torch.nn.moe import capacity
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    cases = []
+    d, h, dh, dv, e, de, L, vocab = 2048, 16, 192, 128, 64, 1408, 27, 102400
+    lr, nb, tb = MLA["run_layers"], MLA["batch"], MLA["seq"]
+    for tag, dtype, n, t, per_call, tol, peak in (
+            ("prefill bf16 mla", torch.bfloat16, MLA["batch"], MLA["prefill_len"], L, BF16_TOL,
+             PEAK_BF16),
+            ("deepseek fp32 mla (forward of run)", torch.float32, nb, tb, lr, TOL, PEAK_FLOPS)):
+        q, k, v = (randn(n, t, h, w).to(dtype) for w in (dh, dh, dv))
+        cases.append(("flash_attention", f"{tag} (deepseek-v2-lite-16b) q,k[{n},{t},{h},{dh}] "
+                      f"v[{n},{t},{h},{dv}]", per_call, per_call, (q, k, v), dict(window=None),
+                      2 * (dh + dv) * n * h * seen_pairs(torch, t, t, None),
+                      dtype.itemsize * 2 * n * t * h * (dh + dv), tol, peak))
+    cap = capacity(nb * tb, e, 6, 1.25)
+    for name, a, b, per_call in (("e_gate/e_up", d, de, 2 * lr), ("e_down", de, d, lr)):
+        A, B = randn(e, cap, 1, a), randn(e, cap, 1, b)
+        cases.append(("fused_first_order", f"deepseek experts {name} moment E={e} "
+                      f"A[{e},{cap},1,{a}] B[{e},{cap},1,{b}]", per_call, per_call, (A, B),
+                      dict(want_l2=False, want_moment=True),
+                      2 * e * cap * a * b + e * cap * (a + b),
+                      4 * (e * cap * (a + b) + e * a * b), TOL, PEAK_FLOPS, 2 * e * cap * a * b))
+    return cases + [c for c in fused_dense_cases(torch, randn, "deepseek", nb, (
+        ("dq", tb, d, h * dh, lr), ("dkv", tb, d, 512 + 64, lr), ("uk/uv", tb, 512, h * 128, 2 * lr),
+        ("wo", tb, h * dv, d, lr), ("router", tb, d, e, lr), ("s_gate/s_up", tb, d, 2 * de, 2 * lr),
+        ("s_down", tb, 2 * de, d, lr), ("head", tb, d, vocab, 1)), e) if " kfac " not in c[1]]
+
+
 def expert_moment_library(torch):
     """The library call for fused_first_order's expert rows (R = 1,
     moment alone): ``torch.bmm`` of the squares, (A∘A)ᵀ(B∘B) per expert."""
@@ -2017,109 +2105,95 @@ def dense_heads_phase(torch, ops):
     return out
 
 
-def moe_phase(torch, ops):
-    """Granite-3.0-1B-A400M (``MOE``), the mixture of experts, at full width
-    through the entry points a user calls, random weights drawn on the card,
-    each call with the launch counts set to 0 just before and read just
-    after, against the counts derived from the module tree:
+def _counts(ops, **want):
+    return {k: want.get(k, 0) for k in ops.KERNELS}
 
-    * serving in bf16 at full depth: ``make_prefill_step`` on 4 × 2048
-      tokens (flash_attention once a layer, nothing else; the (token, slot)
-      pairs each layer drops at capacity 2560, read by a spy on the blocks'
-      ``moe_apply`` in the counted call), tokens/s, profiled; greedy
-      ``generate`` from 4 prompts of 32 tokens to 128; 16 decode steps timed
-      at 32 cached tokens and one profiled (device ms, idle share);
-    * in float32 at capacity factor E / top_k (the forward drops nothing,
-      asserted): the serve_step chain over 64 tokens against the forward
-      (``CHAIN_TOL``), and 2 of the 24 layers card against CPU (``TOL``);
-    * BackPACK ``run`` in float32 on 4 layers at 4 × 512 tokens, the
-      first-order extensions and DiagGGN-MC: fused_first_order once a Dense
-      and once a BatchedDense (its experts the group axis), fused_second_order
-      once a Dense, flash_attention once a layer, nothing else; timed,
-      profiled, the gradient against autograd, Σ_n batch_grad against it,
-      BatchL2, BatchDot and SecondMoment off the experts against their
-      float64 formula on batch_grad (``F64_TOL``), the experts' moments (a
-      spy on ``BatchedDense.backward``) against float64; the reduced config
-      card against CPU with the MC draws passed in;
-    * the training launcher in bf16 at full depth, 4 × 512, AdamW and
-      DiagGGN-MC with ``--track-variance`` (``launcher_runs``)."""
-    import dataclasses
 
-    from repro_torch.configs import get_config
-    from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
-    from repro_torch.core.module import Dense, ScanStack, Sequential
-    from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
-    from repro_torch.nn import blocks as blocks_mod
+def _card_gen(torch, seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _cut_params(torch, params, layers):
+    """A ``CausalLM``'s weights with the first ``layers`` of its stacked layers."""
+    from repro_torch.core.tree import tree_map
+
+    return tuple(tree_map(lambda p: p[:layers], p) if i == 1 else p
+                 for i, p in enumerate(params))
+
+
+def _nbytes(tree):
+    from repro_torch.core.tree import tree_leaves
+
+    return sum(p.numel() * p.element_size() for p in tree_leaves(tree))
+
+
+def _timed_decode(torch, ops, model, params, caches, logits, pos, steps, tag, want, **meta):
+    """``steps`` timed decode steps from position ``pos`` (their launches read
+    and held to ``want`` a step), then one profiled: a row printed under
+    ``tag`` and returned."""
+    from repro_torch.train import make_decode_step
+
+    decode = make_decode_step(model)
+    step_s = []
+    ops.reset_launch_counts()
+    for _ in range(steps):
+        tok = logits.argmax(-1).int()
+        t0 = time.perf_counter()
+        logits, caches = decode(params, caches, tok, pos)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        pos += 1
+    launches = ops.launch_counts()
+    tok = logits.argmax(-1).int()
+    prof = profiled(lambda: decode(params, caches, tok, pos), groups={"attention": "flash_"})
+    row = dict(**meta, step_s=step_s, launches=launches,
+               ms_per_token=medians_ms({"d": step_s})["d"], wall_ms=prof["wall_ms"],
+               device_ms=prof["device_ms"], attention_device_ms=prof["attention_device_ms"],
+               idle_share=1 - prof["device_ms"] / prof["wall_ms"], top=prof["top"][:8])
+    say(tag, **row)
+    if launches != {k: v * steps for k, v in want.items()} or not torch.isfinite(logits).all():
+        fail(f"{tag}: launched {launches}, not {want} a step, or non-finite logits")
+    return row
+
+
+def _moe_serving(torch, ops, cfg, spec, tag, dense_per_layer, step_attention, **model_meta):
+    """A mixture of experts served in bf16 at full depth, weights drawn on the
+    card: ``make_prefill_step`` on ``spec``'s prompts (flash_attention once a
+    layer, nothing else; the pairs each layer drops, by ``_drop_spy``),
+    tokens/s, profiled; greedy ``generate`` (``step_attention``
+    flash_attention launches a serve_step); decode timed at the prompt's
+    length.  Returns (rows, model, params)."""
+    from repro_torch.core.module import Dense
     from repro_torch.nn.layers import BatchedDense
     from repro_torch.nn.models import build_model
-    from repro_torch.nn.moe import capacity, dropped
-    from repro_torch.nn.wired import Wired
+    from repro_torch.nn.moe import capacity
     from repro_torch.serve import ServeConfig, generate, prefill
-    from repro_torch.train import make_decode_step, make_prefill_step
+    from repro_torch.train import make_prefill_step
 
-    spec = MOE
     out = {}
-    loss = CrossEntropyLoss()
-    cfg = get_config(spec["arch"])
     L, E, top_k = cfg.n_layers, cfg.n_experts, cfg.top_k
-    gen = torch.Generator(device="cuda").manual_seed(17)
-
-    def counts(**want):
-        return {k: want.get(k, 0) for k in ops.KERNELS}
-
-    def layers_of(m, cls):
-        """The ``cls`` layers a sweep meets, counted on the module tree."""
-        if isinstance(m, cls):
-            return 1
-        if isinstance(m, ScanStack):
-            return m.L * layers_of(m.block, cls)
-        kids = (m.children_map.values() if isinstance(m, Wired) else
-                m.mods if isinstance(m, Sequential) else ())
-        return sum(layers_of(c, cls) for c in kids)
-
-    def drop_spy():
-        """Each ``moe_apply`` call's tokens, capacity and dropped pairs, into
-        the returned list until ``unpatch()``."""
-        real, seen = blocks_mod.moe_apply, []
-
-        def spy(call, h, logits, n_experts, k, factor, act):
-            m = h.shape[0] * h.shape[1]
-            seen.append(dict(tokens=m, capacity=capacity(m, n_experts, k, factor),
-                             dropped=dropped(logits, k, factor)))
-            return real(call, h, logits, n_experts, k, factor, act)
-
-        blocks_mod.moe_apply = spy
-        return seen, lambda: setattr(blocks_mod, "moe_apply", real)
-
-    def by_path(tree):
-        paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(map(str, p)), tree))
-        return dict(zip(paths, tree_leaves(tree), strict=True))
-
-    # -- serving, bf16, full depth ---------------------------------------------------
+    gen = _card_gen(torch, spec["seed"])
     t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model = build_model(cfg, device="cuda", generator=_card_gen(torch, 0))
     params = model.params()
     torch.cuda.synchronize()
-    dense, experts = layers_of(model, Dense), layers_of(model, BatchedDense)
+    dense, experts = _layers_of(model, Dense), _layers_of(model, BatchedDense)
     out["model"] = dict(arch=cfg.name, dtype=cfg.dtype, layers=L, d_model=cfg.d_model,
-                        heads=cfg.n_heads, kv_heads=cfg.kv_heads, experts=E, top_k=top_k,
-                        d_expert=cfg.d_expert, capacity_factor=cfg.capacity_factor,
-                        vocab=cfg.vocab, param_count=cfg.param_count(model),
+                        heads=cfg.n_heads, experts=E, top_k=top_k, d_expert=cfg.d_expert,
+                        capacity_factor=cfg.capacity_factor, vocab=cfg.vocab,
+                        param_count=cfg.param_count(model),
                         active_param_count=cfg.active_param_count(model),
-                        param_bytes=sum(p.numel() * p.element_size()
-                                        for p in tree_leaves(params)),
-                        build_s=time.perf_counter() - t0, dense_layers=dense,
-                        batched_dense_layers=experts)
-    say("moe_model", **out["model"])
-    # q, k, v, o and the router a layer, and the head; three expert layers a layer
-    if dense != 5 * L + 1 or experts != 3 * L:
-        fail(f"moe: {dense} Dense and {experts} BatchedDense layers in the tree, not "
-             f"{5 * L + 1} and {3 * L}")
+                        param_bytes=_nbytes(params), build_s=time.perf_counter() - t0,
+                        dense_layers=dense, batched_dense_layers=experts, **model_meta)
+    say(f"{tag}_model", **out["model"])
+    # the head and ``dense_per_layer`` Dense a layer; three expert layers a layer
+    if dense != dense_per_layer * L + 1 or experts != 3 * L:
+        fail(f"{tag}: {dense} Dense and {experts} BatchedDense layers in the tree, not "
+             f"{dense_per_layer * L + 1} and {3 * L}")
     n, t_pre = spec["batch"], spec["prefill_len"]
-    per_layer = counts(flash_attention=L)
     prompts = torch.randint(0, cfg.vocab, (n, t_pre), device="cuda", generator=gen)
     prefill_step = make_prefill_step(model)
-    seen, unpatch = drop_spy()
+    seen, unpatch = _drop_spy()
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2129,12 +2203,12 @@ def moe_phase(torch, ops):
         launches = ops.launch_counts()
     finally:
         unpatch()
-    if launches != per_layer:
-        fail(f"moe prefill must launch {per_layer}, got {launches}")
+    if launches != _counts(ops, flash_attention=L):
+        fail(f"{tag} prefill must launch {_counts(ops, flash_attention=L)}, got {launches}")
     if tuple(last.shape) != (n, cfg.vocab) or not torch.isfinite(last.float()).all():
-        fail(f"moe prefill: logits {tuple(last.shape)} not finite [N, V]")
+        fail(f"{tag} prefill: logits {tuple(last.shape)} not finite [N, V]")
     if [r["capacity"] for r in seen] != [capacity(n * t_pre, E, top_k, cfg.capacity_factor)] * L:
-        fail(f"moe prefill: capacities {seen}")
+        fail(f"{tag} prefill: capacities {seen}")
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2151,7 +2225,7 @@ def moe_phase(torch, ops):
                           wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
                           attention_device_ms=prof["attention_device_ms"],
                           idle_share=1 - prof["device_ms"] / prof["wall_ms"], top=prof["top"][:8])
-    say("moe_prefill", **out["prefill"])
+    say(f"{tag}_prefill", **out["prefill"])
 
     short = prompts[:, :spec["prompt_len"]].contiguous()
     sc = ServeConfig(max_len=spec["max_len"])
@@ -2162,51 +2236,47 @@ def moe_phase(torch, ops):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     gen_launches = ops.launch_counts()
-    if gen_launches != counts(flash_attention=L * sc.max_len):
-        fail(f"moe generate must launch flash_attention {L} a serve_step ({sc.max_len} "
-             f"steps), got {gen_launches}")
+    if gen_launches != _counts(ops, flash_attention=step_attention * sc.max_len):
+        fail(f"{tag} generate must launch flash_attention {step_attention} a serve_step "
+             f"({sc.max_len} steps), got {gen_launches}")
     if (tuple(toks.shape) != (n, sc.max_len) or not torch.equal(toks[:, :short.shape[1]],
                                                                  short.int())
             or toks.min() < 0 or toks.max() >= cfg.vocab):
-        fail(f"moe generate: tokens {tuple(toks.shape)} are not the prompts and a continuation")
+        fail(f"{tag} generate: tokens {tuple(toks.shape)} are not the prompts and a continuation")
     out["generate"] = dict(batch=n, prompt_len=short.shape[1], max_len=sc.max_len, s=gen_s,
                            ms_per_serve_step=gen_s / sc.max_len * 1e3, launches=gen_launches,
                            first_row=toks[0, short.shape[1]:short.shape[1] + 16].tolist())
-    say("moe_generate", **out["generate"])
+    say(f"{tag}_generate", **out["generate"])
 
-    decode = make_decode_step(model)
     caches = model.init_serve_cache(params, n, sc.max_len, torch.float32)
     caches, logits = prefill(model, params, caches, short, short.shape[1])
-    pos, step_s = short.shape[1], []
-    for _ in range(spec["decode_steps"]):
-        tok = logits.argmax(-1).int()
-        t0 = time.perf_counter()
-        logits, caches = decode(params, caches, tok, pos)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        pos += 1
-    tok = logits.argmax(-1).int()
-    prof = profiled(lambda: decode(params, caches, tok, pos), groups={"attention": "flash_"})
-    out["decode"] = dict(batch=n, cached=short.shape[1], step_s=step_s,
-                         ms_per_token=medians_ms({"d": step_s})["d"],
-                         capacity=capacity(n, E, top_k, cfg.capacity_factor),
-                         wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
-                         attention_device_ms=prof["attention_device_ms"],
-                         idle_share=1 - prof["device_ms"] / prof["wall_ms"], top=prof["top"][:8])
-    say("moe_decode", **out["decode"])
-    if not torch.isfinite(logits).all() or out["decode"]["capacity"] < n:
-        fail(f"moe decode: non-finite logits, or capacity {out['decode']['capacity']} "
-             f"below the step's {n} tokens")
-    del caches, logits, toks, last, params, model, prefill_step, decode
-    torch.cuda.empty_cache()
+    cap = capacity(n, E, top_k, cfg.capacity_factor)
+    out["decode"] = _timed_decode(torch, ops, model, params, caches, logits, short.shape[1],
+                                  spec["decode_steps"], f"{tag}_decode",
+                                  _counts(ops, flash_attention=step_attention), batch=n,
+                                  cached=short.shape[1], layers=L, capacity=cap)
+    if cap < n:
+        fail(f"{tag} decode: capacity {cap} below the step's {n} tokens")
+    return out, model, params
 
-    # -- float32 at capacity factor E / top_k: the chain, the card against the CPU ----
-    ccfg = dataclasses.replace(cfg, dtype="float32", capacity_factor=E / top_k)
-    model = build_model(ccfg, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+def _moe_agreement(torch, cfg, spec, tag, layers):
+    """In float32 at capacity factor E / top_k on ``layers`` layers, weights
+    drawn on the card: the forward drops nothing (asserted), the serve_step
+    chain over ``spec["chain_len"]`` tokens against it (``CHAIN_TOL``), and
+    the first ``spec["cpu_layers"]`` layers card against CPU (``TOL``)."""
+    import dataclasses
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.nn.models import build_model
+
+    gen = _card_gen(torch, spec["seed"] + 1)
+    ccfg = dataclasses.replace(cfg, dtype="float32", capacity_factor=cfg.n_experts / cfg.top_k,
+                               n_layers=layers)
+    model = build_model(ccfg, device="cuda", generator=_card_gen(torch, 0))
     params = model.params()
     seq = torch.randint(0, cfg.vocab, (1, spec["chain_len"]), device="cuda", generator=gen)
-    seen, unpatch = drop_spy()
+    seen, unpatch = _drop_spy()
     try:
         full = model.call(params, seq)[0]
     finally:
@@ -2222,36 +2292,62 @@ def moe_phase(torch, ops):
     chain_s = time.perf_counter() - t0
     chain_err = _rel(chain, full)
     del chain, caches, full
-    # 2 of the layers: the stacked weights' first two, through a meta model's call
     cut = build_model(dataclasses.replace(ccfg, n_layers=spec["cpu_layers"]), device="meta")
-    cut_params = tuple(tree_map(lambda p: p[:spec["cpu_layers"]], p) if i == 1 else p
-                       for i, p in enumerate(params))
-    card = cut.call(cut_params, seq)
+    cparams = _cut_params(torch, params, spec["cpu_layers"])
+    card = cut.call(cparams, seq)
     t0 = time.perf_counter()
-    cpu = cut.call(tree_map(lambda p: p.cpu(), cut_params), seq.cpu())
+    cpu = cut.call(tree_map(lambda p: p.cpu(), cparams), seq.cpu())
     cpu_s = time.perf_counter() - t0
     cpu_err = _rel(card.cpu(), cpu)
-    del card, cpu, cut_params, params, model
+    del card, cpu, cparams, params, model
     torch.cuda.empty_cache()
-    out["agreement"] = dict(capacity_factor=ccfg.capacity_factor,
-                            capacity=seen[0]["capacity"], chain_len=spec["chain_len"],
-                            forward_dropped_per_layer=drops, chain_s=chain_s,
-                            chain_vs_forward_rel_err=chain_err, chain_tol=CHAIN_TOL,
-                            cpu_layers=spec["cpu_layers"], card_vs_cpu_rel_err=cpu_err,
-                            cpu_forward_s=cpu_s, cpu_tol=TOL)
-    say("moe_agreement", **out["agreement"])
-    if any(drops) or len(drops) != L:
-        fail(f"moe chain: the forward at capacity factor {ccfg.capacity_factor} dropped {drops}")
+    row = dict(capacity_factor=ccfg.capacity_factor, capacity=seen[0]["capacity"],
+               chain_len=spec["chain_len"], chain_layers=layers,
+               forward_dropped_per_layer=drops, chain_s=chain_s,
+               chain_vs_forward_rel_err=chain_err, chain_tol=CHAIN_TOL,
+               cpu_layers=spec["cpu_layers"], card_vs_cpu_rel_err=cpu_err, cpu_forward_s=cpu_s,
+               cpu_tol=TOL)
+    say(f"{tag}_agreement", **row)
+    if any(drops) or len(drops) != layers:
+        fail(f"{tag} chain: the forward at capacity factor {ccfg.capacity_factor} dropped "
+             f"{drops}")
     if not chain_err <= CHAIN_TOL:
-        fail(f"moe decode chain vs forward: {chain_err:.3e} above {CHAIN_TOL}")
+        fail(f"{tag} decode chain vs forward: {chain_err:.3e} above {CHAIN_TOL}")
     if not cpu_err <= TOL:
-        fail(f"moe card vs CPU logits: {cpu_err:.3e} above {TOL}")
+        fail(f"{tag} card vs CPU logits: {cpu_err:.3e} above {TOL}")
+    return row
 
-    # -- BackPACK run, float32, 4 layers ------------------------------------------------
-    def granite32(reduced=False):
+
+def _moe_run(torch, ops, cfg, spec, tag):
+    """BackPACK ``run`` in float32 on ``spec["run_layers"]`` layers at
+    ``spec["batch"]`` × ``spec["seq"]`` tokens, the first-order extensions
+    and DiagGGN-MC: fused_first_order once a Dense and once a BatchedDense
+    (its experts the group axis), fused_second_order once a Dense,
+    flash_attention once a layer, nothing else.  The result's float32 bytes
+    reckoned before, the peak read after; the gradient against autograd, Σ_n
+    batch_grad against it, BatchL2, BatchDot and SecondMoment off the
+    experts against their float64 formula on batch_grad (``F64_TOL``), the
+    experts' moments (a spy on ``BatchedDense.backward``) against float64;
+    then, with no result kept (two of DeepSeek's do not fit beside each
+    other), timed and profiled; the reduced config card against CPU with the
+    MC draws passed in.  Returns (the run's row, the card-vs-CPU errors)."""
+    import dataclasses
+
+    from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
+    from repro_torch.core.module import Dense
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.nn.layers import BatchedDense
+    from repro_torch.nn.models import build_model
+    from repro_torch.nn.moe import capacity
+
+    loss = CrossEntropyLoss()
+    gen = _card_gen(torch, spec["seed"] + 2)
+    E, top_k = cfg.n_experts, cfg.top_k
+
+    def model32(reduced=False):
         c = dataclasses.replace(cfg.reduced() if reduced else cfg, dtype="float32",
                                 **({} if reduced else dict(n_layers=spec["run_layers"])))
-        m = build_model(c, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1))
+        m = build_model(c, device="cuda", generator=_card_gen(torch, 1))
         return c, m, m.params()
 
     def batch(c, nb, t, masked):
@@ -2261,15 +2357,21 @@ def moe_phase(torch, ops):
         draws = torch.randint(0, c.vocab, (1, nb, t), device="cuda", generator=gen)
         return toks, labels, draws
 
-    rcfg, model, params = granite32()
+    rcfg, model, params = model32()
     nr, tr, lr = spec["batch"], spec["seq"], rcfg.n_layers
     toks, labels, draws = batch(rcfg, nr, tr, spec["masked"])
     names = LM_FIRST + ("diag_ggn_mc",)
     exts = tuple(by_name(e) for e in names)
     fused = ExtensionConfig(mc_samples=1)
-    rdense, rexperts = layers_of(model, Dense), layers_of(model, BatchedDense)
-    want = counts(fused_first_order=rdense + rexperts, fused_second_order=rdense,
-                  flash_attention=lr)
+    rdense, rexperts = _layers_of(model, Dense), _layers_of(model, BatchedDense)
+    want = _counts(ops, fused_first_order=rdense + rexperts, fused_second_order=rdense,
+                   flash_attention=lr)
+    # the result's float32 copies: the gradient, SecondMoment, Variance and
+    # DiagGGN-MC of every parameter, BatchGrad (N of them) off the experts,
+    # which carry no per-sample entry
+    pbytes = _nbytes(params)
+    ebytes = sum(_nbytes(p) for k, p in params[1].items() if k.startswith("e_"))
+    reckoned = 4 * pbytes + nr * (pbytes - ebytes)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2281,17 +2383,7 @@ def moe_phase(torch, ops):
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() - base
     if launches != want:
-        fail(f"moe run launched {launches}, derived {want}")
-    step_s = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        run(model, params, toks, labels, loss, extensions=exts, cfg=fused, rng=draws)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    prof = profiled(lambda: run(model, params, toks, labels, loss, extensions=exts, cfg=fused,
-                                rng=draws),
-                    groups=TRAIN_GROUPS, ranges={"attention_backward": "flash_attention_backward"})
-    prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+        fail(f"{tag} run launched {launches}, derived {want}")
     # the experts' moments at the path's own data against float64 (a spy on
     # BatchedDense.backward: the kernel's moment and the tape's x and g)
     real_backward, moments = BatchedDense.backward, []
@@ -2316,58 +2408,70 @@ def moe_phase(torch, ops):
                                    tree_leaves(tracked))
     del tracked
     grad_err = max(_rel(a, b) for a, b in zip(tree_leaves(res.grads), auto, strict=True))
-    grads = by_path(res.grads)  # the experts have no per-sample entries, as in JAX
-    bgs = by_path(res.ext["batch_grad"])
+    grads = _by_path(res.grads)
+    bgs = _by_path(res.ext["batch_grad"])  # the experts have none, as in JAX
     sum_err = max(_rel(bg.sum(0), grads[k]) for k, bg in bgs.items())
-    # BatchL2, BatchDot and SecondMoment off the experts against float64 of batch_grad
-    moment = by_path(res.ext["second_moment"])
+    moment = _by_path(res.ext["second_moment"])
     exact64 = _vs_float64_of_batch_grad(torch, list(bgs.values()), res,
                                         moments=[moment[k] for k in bgs])
     # Variance ≥ 0 off the experts: theirs is JAX's N·Σ_slots g² − (Σ g)², a
     # token-level sum against the sequence count N, below 0 where more than N
     # slots of an expert carry a gradient (as in JAX)
     var_min = min((v.min() / moment[k].abs().max()).item()
-                  for k, v in by_path(res.ext["variance"]).items() if "/e_" not in k)
+                  for k, v in _by_path(res.ext["variance"]).items() if "/e_" not in k)
     mc_min = min(v.min().item() for v in tree_leaves(res.ext["diag_ggn_mc"]))
     finite = all(torch.isfinite(v).all() for v in tree_leaves(res.ext))
     layer = res.ext["second_moment"][1]
     expert_shapes = {k: list(layer[k]["w"].shape) for k in ("e_gate", "e_up", "e_down")}
+    no_expert_batch_grad = all(res.ext["batch_grad"][1][k] == () for k in expert_shapes)
     del auto, res, grads, moment, bgs
-    out["run"] = dict(arch=rcfg.name, layers=lr, batch=nr, seq=tr, masked=spec["masked"],
-                      vocab=rcfg.vocab, capacity=capacity(nr * tr, E, top_k, cfg.capacity_factor),
-                      extensions=names, first_call_s=first_s, step_s=step_s,
-                      ms=medians_ms({"s": step_s})["s"], peak_bytes_above_start=peak,
-                      launches=launches, launches_derived=want,
-                      expert_launches=rexperts, wall_ms=prof["wall_ms"],
-                      device_ms=prof["device_ms"], idle_share=prof["idle_share"],
-                      split_device_ms={k: prof[f"{k}_device_ms"] for k in (
-                          *TRAIN_GROUPS, "attention_backward")},
-                      top=prof["top"][:8], grads_vs_autograd=grad_err,
-                      batch_grad_sum_vs_grads=sum_err, vs_float64_of_batch_grad=exact64,
-                      variance_min_over_second_moment=var_min, diag_ggn_mc_min=mc_min,
-                      finite=bool(finite), expert_second_moment_shapes=expert_shapes,
-                      expert_moment_vs_float64=moment64, f64_tol=F64_TOL,
-                      entry_tol=ENTRY_TOL, tol=TOL)
-    say("moe_run", **out["run"])
+    torch.cuda.empty_cache()
+    step_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run(model, params, toks, labels, loss, extensions=exts, cfg=fused, rng=draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    prof = profiled(lambda: run(model, params, toks, labels, loss, extensions=exts, cfg=fused,
+                                rng=draws),
+                    groups=TRAIN_GROUPS, ranges={"attention_backward": "flash_attention_backward"})
+    prof["idle_share"] = 1 - prof["device_ms"] / prof["wall_ms"]
+    row = dict(arch=rcfg.name, layers=lr, batch=nr, seq=tr, masked=spec["masked"],
+               vocab=rcfg.vocab, capacity=capacity(nr * tr, E, top_k, cfg.capacity_factor),
+               extensions=names, param_bytes=pbytes, expert_bytes=ebytes,
+               reckoned_result_bytes=reckoned, first_call_s=first_s, step_s=step_s,
+               ms=medians_ms({"s": step_s})["s"], peak_bytes_above_start=peak,
+               launches=launches, launches_derived=want, expert_launches=rexperts,
+               wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+               idle_share=prof["idle_share"],
+               split_device_ms={k: prof[f"{k}_device_ms"] for k in (
+                   *TRAIN_GROUPS, "attention_backward")},
+               top=prof["top"][:8], grads_vs_autograd=grad_err,
+               batch_grad_sum_vs_grads=sum_err, vs_float64_of_batch_grad=exact64,
+               variance_min_over_second_moment=var_min, diag_ggn_mc_min=mc_min,
+               finite=bool(finite), expert_second_moment_shapes=expert_shapes,
+               expert_moment_vs_float64=moment64, f64_tol=F64_TOL, entry_tol=ENTRY_TOL,
+               tol=TOL)
+    say(f"{tag}_run", **row)
     if not grad_err <= TOL or not sum_err <= TOL:
-        fail(f"moe run: grads vs autograd {grad_err:.3e}, Σ batch_grad vs grads "
+        fail(f"{tag} run: grads vs autograd {grad_err:.3e}, Σ batch_grad vs grads "
              f"{sum_err:.3e} (limit {TOL})")
     if max(e for e, _ in exact64.values()) > F64_TOL:
-        fail(f"moe run against float64 of batch_grad: {exact64} (limit {F64_TOL})")
-    if not (finite and var_min >= -1e-6 and mc_min >= 0):
-        fail(f"moe run: non-finite, or variance {var_min:.3e} or diag_ggn_mc {mc_min:.3e} "
-             "below 0")
+        fail(f"{tag} run against float64 of batch_grad: {exact64} (limit {F64_TOL})")
+    if not (finite and var_min >= -1e-6 and mc_min >= 0 and no_expert_batch_grad):
+        fail(f"{tag} run: non-finite, or variance {var_min:.3e} or diag_ggn_mc {mc_min:.3e} "
+             "below 0, or an expert BatchGrad entry")
     if expert_shapes["e_gate"] != [lr, E, cfg.d_model, cfg.d_expert]:
-        fail(f"moe run: expert SecondMoment shapes {expert_shapes}")
+        fail(f"{tag} run: expert SecondMoment shapes {expert_shapes}")
     if len(moments) != rexperts or not (moment64["rel64"] <= F64_TOL
                                         and moment64["entry_median"] <= ENTRY_TOL):
-        fail(f"moe run: the experts' moments against float64 {moment64} "
+        fail(f"{tag} run: the experts' moments against float64 {moment64} "
              f"({len(moments)} of {rexperts} read)")
     del model, params, toks
     torch.cuda.empty_cache()
 
     # the reduced config, card against CPU, the draws passed in
-    ccfg, model, params = granite32(reduced=True)
+    ccfg, model, params = model32(reduced=True)
     toks, labels, draws = batch(ccfg, spec["cpu_batch"], spec["cpu_seq"], 3)
     cnames = names + ("kfac",)
     cexts = tuple(by_name(e) for e in cnames)
@@ -2375,25 +2479,220 @@ def moe_phase(torch, ops):
     cpu = run(model, tree_map(lambda p: p.cpu(), params), toks.cpu(), labels.cpu(), loss,
               extensions=cexts, cfg=fused, rng=draws.cpu())
     errs = _ext_errs(card, cpu, cnames)
-    out["run_card_vs_cpu"] = errs
-    say("moe_run_card_vs_cpu", reduced=True, rel_err=errs, tol=TOL)
+    say(f"{tag}_run_card_vs_cpu", reduced=True, rel_err=errs, tol=TOL)
     if max(errs.values()) > TOL:
-        fail(f"moe run reduced card vs CPU: {errs}")
-    del card, cpu, model, params
+        fail(f"{tag} run reduced card vs CPU: {errs}")
+    return row, errs
 
-    # -- the training launcher, bf16, full depth ------------------------------------------
-    mc = counts(flash_attention=L, fused_first_order=dense + experts, fused_second_order=dense)
+
+def _phase_launches(out, *rows):
+    """A phase's launches: the counted prefill call's, generate's, the
+    decode rows' and those of ``rows``."""
+    rows = (out["prefill"], out["generate"], *rows)
+    return {k: sum(r["launches"][k] for r in rows) for k in out["prefill"]["launches"]}
+
+
+def moe_phase(torch, ops):
+    """Granite-3.0-1B-A400M (``MOE``), the mixture of experts, at full width
+    through the entry points a user calls, random weights drawn on the card,
+    each call with the launch counts set to 0 just before and read just
+    after, against the counts derived from the module tree:
+
+    * serving in bf16 at full depth (``_moe_serving``): ``make_prefill_step``
+      on 4 × 2048 tokens (flash_attention once a layer, nothing else; the
+      (token, slot) pairs each layer drops at capacity 2560), tokens/s,
+      profiled; greedy ``generate`` from 4 prompts of 32 tokens to 128
+      (flash_attention once a layer a serve_step); 16 decode steps timed at
+      32 cached tokens and one profiled (device ms, idle share);
+    * in float32 at capacity factor E / top_k (``_moe_agreement``): the
+      serve_step chain over 64 tokens against the forward at full depth,
+      and 2 of the 24 layers card against CPU;
+    * BackPACK ``run`` in float32 on 4 layers at 4 × 512 tokens
+      (``_moe_run``) and the reduced config card against CPU;
+    * the training launcher in bf16 at full depth, 4 × 512, AdamW and
+      DiagGGN-MC with ``--track-variance`` (``launcher_runs``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.moe import capacity
+
+    spec = MOE
+    cfg = get_config(spec["arch"])
+    L, n = cfg.n_layers, spec["batch"]
+    # q, k, v, o and the router a layer
+    out, model, params = _moe_serving(torch, ops, cfg, spec, "moe", 5, L,
+                                      kv_heads=cfg.kv_heads)
+    dense, experts = out["model"]["dense_layers"], out["model"]["batched_dense_layers"]
+    del model, params
+    torch.cuda.empty_cache()
+    out["agreement"] = _moe_agreement(torch, cfg, spec, "moe", L)
+    out["run"], out["run_card_vs_cpu"] = _moe_run(torch, ops, cfg, spec, "moe")
+    mc = _counts(ops, flash_attention=L, fused_first_order=dense + experts,
+                 fused_second_order=dense)
     out["launcher"] = launcher_runs(
         torch, ops, "moe_train", ["--arch", spec["arch"], "--full", "--seq", str(spec["seq"]),
                                   "--batch", str(n)], (
-            ("adamw", spec["adamw_steps"], [], counts(flash_attention=L)),
+            ("adamw", spec["adamw_steps"], [], _counts(ops, flash_attention=L)),
             ("diag_ggn_mc", spec["mc_steps"], ["--track-variance"], mc)),
-        dict(layers=L, experts=E, top_k=top_k, dtype=cfg.dtype, batch=n, seq=spec["seq"],
-             capacity=capacity(n * spec["seq"], E, top_k, cfg.capacity_factor)))
-    out["launches"] = {k: launches_prefill + gen_launches[k] + out["run"]["launches"][k]
-                       + sum(r["launches"][k] for r in out["launcher"].values())
-                       for k, launches_prefill in out["prefill"]["launches"].items()}
+        dict(layers=L, experts=cfg.n_experts, top_k=cfg.top_k, dtype=cfg.dtype, batch=n,
+             seq=spec["seq"],
+             capacity=capacity(n * spec["seq"], cfg.n_experts, cfg.top_k, cfg.capacity_factor)))
+    out["launches"] = _phase_launches(out, out["decode"], out["run"],
+                                      *out["launcher"].values())
     return out
+
+
+def mla_phase(torch, ops):
+    """DeepSeek-V2-Lite (``MLA``), MLA attention over a compressed cache with
+    routed and shared experts, at full width through the entry points a
+    user calls, random weights drawn on the card, each call with the launch
+    counts set to 0 just before and read just after, against the counts
+    derived from the module tree:
+
+    * serving in bf16 at full depth (``_moe_serving``): ``make_prefill_step``
+      on 4 × 2048 tokens (flash_attention once a layer at q, k 192 and v
+      128, nothing else; the pairs each layer drops at capacity 960),
+      tokens/s, profiled; greedy ``generate`` from 4 prompts of 32 tokens to
+      128 and 16 decode steps timed at 32 cached tokens, one profiled: no
+      kernel a serve_step, the absorbed decode is float32 einsums; 16 decode
+      steps at 1500 cached tokens on 4 of the layers, the compressed cache
+      written directly;
+    * in float32 at capacity factor E / top_k (``_moe_agreement``): the
+      absorbed serve_step chain over 64 tokens on 4 layers against the
+      unabsorbed forward, and 2 layers card against CPU;
+    * BackPACK ``run`` in float32 on 2 layers at 4 × 512 tokens
+      (``_moe_run``) and the reduced config card against CPU;
+    * training in bf16 at full width on 4 layers through ``fit`` with the
+      launcher's ``make_optimizer``: AdamW, and DiagGGN-MC with Variance
+      (``launcher_runs``); KFAC refused on the stacked per-expert factors;
+      the training launcher itself on the reduced config."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.module import Dense
+    from repro_torch.launch import train as train_launch
+    from repro_torch.nn.layers import BatchedDense
+    from repro_torch.nn.models import build_model
+    from repro_torch.nn.moe import capacity
+    from repro_torch.train import loop as loop_mod
+
+    spec = MLA
+    cfg = get_config(spec["arch"])
+    L, E, top_k, n = cfg.n_layers, cfg.n_experts, cfg.top_k, spec["batch"]
+    # dq, dkv, uk, uv, wo, the router and the shared experts' three a layer
+    out, model, params = _moe_serving(
+        torch, ops, cfg, spec, "mla", 9, 0, kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
+        qk_rope=cfg.qk_rope, v_head_dim=cfg.v_head_dim, shared_experts=cfg.n_shared_experts)
+    # 1500 cached tokens on 4 layers: the compressed cache written directly
+    gen = _card_gen(torch, spec["seed"] + 3)
+    lmodel = build_model(dataclasses.replace(cfg, n_layers=spec["long_layers"]), device="meta")
+    lparams = _cut_params(torch, params, spec["long_layers"])
+    caches = lmodel.init_serve_cache(lparams, n, spec["long_len"], torch.float32)
+    c, k = caches[0], spec["long_cached"]
+    c["ckv"][:, :, :k] = torch.randn(c["ckv"][:, :, :k].shape, device="cuda", generator=gen)
+    c["kpe"][:, :, :k] = torch.randn(c["kpe"][:, :, :k].shape, device="cuda", generator=gen)
+    c["pos"][:, :k] = torch.arange(k, device="cuda", dtype=torch.int32)
+    logits = torch.randn(n, cfg.vocab, device="cuda", generator=gen)
+    out["decode_long"] = _timed_decode(
+        torch, ops, lmodel, lparams, caches, logits, k, spec["decode_steps"], "mla_decode_long",
+        _counts(ops), batch=n, cached=k, layers=spec["long_layers"],
+        cache_slots=spec["long_len"],
+        cache_bytes_per_layer=_nbytes({"ckv": c["ckv"][0], "kpe": c["kpe"][0]}))
+    del caches, c, logits, params, model, lparams, lmodel
+    torch.cuda.empty_cache()
+    out["agreement"] = _moe_agreement(torch, cfg, spec, "mla", spec["chain_layers"])
+    out["run"], out["run_card_vs_cpu"] = _moe_run(torch, ops, cfg, spec, "mla")
+
+    # -- training, bf16, full width, cut in depth, through fit ----------------------------
+    tcfg = dataclasses.replace(cfg, n_layers=spec["train_layers"])
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=spec["seq"], global_batch=n)
+    tmeta = build_model(tcfg, device="meta")
+    tdense, texperts = _layers_of(tmeta, Dense), _layers_of(tmeta, BatchedDense)
+
+    def fit_cut(opt, steps, extra):
+        model = build_model(tcfg, device="cuda", generator=_card_gen(torch, 0))
+        kw = train_launch.make_optimizer(opt, model,
+                                         track_variance="--track-variance" in extra)
+        params, _, hist, _ = loop_mod.fit(model, tcfg, shape, kw.pop("opt"),
+                                          loop_mod.LoopConfig(steps=steps, log_every=10), **kw)
+        return dict(model=model, params=params, history=hist)
+
+    lt = tcfg.n_layers
+    out["train"] = launcher_runs(
+        torch, ops, "mla_train", [], (
+            ("adamw", spec["adamw_steps"], [], _counts(ops, flash_attention=lt)),
+            ("diag_ggn_mc", spec["mc_steps"], ["--track-variance"],
+             _counts(ops, flash_attention=lt, fused_first_order=tdense + texperts,
+                     fused_second_order=tdense))),
+        dict(layers=lt, experts=E, top_k=top_k, dtype=tcfg.dtype, batch=n, seq=spec["seq"],
+             param_count=tcfg.param_count(tmeta),
+             capacity=capacity(n * spec["seq"], E, top_k, cfg.capacity_factor)), train=fit_cut)
+    # KFAC: the stacked per-expert factors [L, E, b, b] are refused, as the
+    # reference's preconditioner fails on them
+    lv = ["--arch", spec["arch"], "--seq", str(spec["launcher_seq"]),
+          "--batch", str(spec["launcher_batch"])]
+    try:
+        train_launch.main(lv + ["--optimizer", "kfac", "--steps", "1"])
+        fail("mla: KFAC on the stacked per-expert factors was not refused")
+    except NotImplementedError as e:
+        if "precond.py:62-64" not in str(e):
+            fail(f"mla: KFAC refused for another reason: {e}")
+        out["kfac_refused"] = str(e)
+    say("mla_kfac_refused", reason=out["kfac_refused"])
+    # the training launcher itself, on the reduced config
+    rcfg = cfg.reduced()
+    rmeta = build_model(rcfg, device="meta")
+    rd, rx = _layers_of(rmeta, Dense), _layers_of(rmeta, BatchedDense)
+    out["launcher"] = launcher_runs(
+        torch, ops, "mla_launcher", lv, (
+            ("adamw", spec["launcher_steps"], [], _counts(ops, flash_attention=rcfg.n_layers)),
+            ("diag_ggn_mc", spec["launcher_steps"], ["--track-variance"],
+             _counts(ops, flash_attention=rcfg.n_layers, fused_first_order=rd + rx,
+                     fused_second_order=rd))),
+        dict(layers=rcfg.n_layers, reduced=True, batch=spec["launcher_batch"],
+             seq=spec["launcher_seq"]))
+    out["launches"] = _phase_launches(out, out["decode"], out["decode_long"], out["run"],
+                                      *out["train"].values(), *out["launcher"].values())
+    return out
+
+
+def _layers_of(m, cls):
+    """The ``cls`` layers a sweep of module ``m`` meets, counted on the
+    module tree."""
+    from repro_torch.core.module import ScanStack, Sequential
+    from repro_torch.nn.wired import Wired
+
+    if isinstance(m, cls):
+        return 1
+    if isinstance(m, ScanStack):
+        return m.L * _layers_of(m.block, cls)
+    kids = (m.children_map.values() if isinstance(m, Wired) else
+            m.mods if isinstance(m, Sequential) else ())
+    return sum(_layers_of(c, cls) for c in kids)
+
+
+def _drop_spy():
+    """Each ``moe_apply`` call's tokens, capacity and dropped pairs (a spy on
+    the blocks' ``moe_apply``), into the returned list until ``unpatch()``."""
+    from repro_torch.nn import blocks as blocks_mod
+    from repro_torch.nn.moe import capacity, dropped
+
+    real, seen = blocks_mod.moe_apply, []
+
+    def spy(call, h, logits, n_experts, k, factor, act):
+        m = h.shape[0] * h.shape[1]
+        seen.append(dict(tokens=m, capacity=capacity(m, n_experts, k, factor),
+                         dropped=dropped(logits, k, factor)))
+        return real(call, h, logits, n_experts, k, factor, act)
+
+    blocks_mod.moe_apply = spy
+    return seen, lambda: setattr(blocks_mod, "moe_apply", real)
+
+
+def _by_path(tree):
+    """{"i/name/w": leaf} of a parameter-shaped tree."""
+    from repro_torch.core.tree import tree_leaves, tree_map_with_path
+
+    paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(map(str, p)), tree))
+    return dict(zip(paths, tree_leaves(tree), strict=True))
 
 
 def _rel(a, b):
@@ -2713,9 +3012,10 @@ TRAIN_RANGES = {"attention_backward": "flash_attention_backward",
                 "attention_jvp": "flash_attention_jvp"}
 
 
-def launcher_runs(torch, ops, tag, argv, runs, meta):
+def launcher_runs(torch, ops, tag, argv, runs, meta, train=None):
     """The training launcher, ``launch.train.main(argv + ["--optimizer",
-    opt, "--steps", steps] + extra)`` for each (opt, steps, extra, launches
+    opt, "--steps", steps] + extra)`` (or ``train(opt, steps, extra)``,
+    which returns the launcher's dict) for each (opt, steps, extra, launches
     derived a step) of ``runs``, the launch counts set to 0 before and read
     after: the last step lowers the loss of its own batch (the weights
     before and after it, one deterministic forward each; the share of each
@@ -2725,6 +3025,9 @@ def launcher_runs(torch, ops, tag, argv, runs, meta):
     from repro_torch.launch import train as train_launch
     from repro_torch.train import loop as loop_mod
 
+    if train is None:
+        def train(opt, steps, extra):
+            return train_launch.main(argv + ["--optimizer", opt, "--steps", str(steps)] + extra)
     loss = CrossEntropyLoss()
     launcher = {}
     for opt, steps, extra, want in runs:
@@ -2736,8 +3039,7 @@ def launcher_runs(torch, ops, tag, argv, runs, meta):
                                  ranges=TRAIN_RANGES if opt == "adamw" else None,
                                  host_ops=opt == "adamw")
         try:
-            run_, s, launches, peak = _measured(torch, ops, lambda: train_launch.main(
-                argv + ["--optimizer", opt, "--steps", str(steps)] + extra))
+            run_, s, launches, peak = _measured(torch, ops, lambda: train(opt, steps, extra))
         finally:
             unpatch()
         hist = run_["history"]
@@ -3127,11 +3429,10 @@ def whisper_phase(torch, ops):
 
     from repro_torch.configs import get_config
     from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
-    from repro_torch.core.module import Dense, ScanStack, Sequential
-    from repro_torch.core.tree import tree_leaves, tree_map, tree_map_with_path
+    from repro_torch.core.module import Dense
+    from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.examples import serving as serving_example
     from repro_torch.nn.models import build_model
-    from repro_torch.nn.wired import Wired
     from repro_torch.serve import ServeConfig, generate_whisper
 
     spec = WHISPER
@@ -3145,18 +3446,9 @@ def whisper_phase(torch, ops):
         return {k: want.get(k, 0) for k in ops.KERNELS}
 
     def dense_layers(m):
-        """The Dense layers a sweep meets, counted on the module tree."""
-        if isinstance(m, Dense):
-            return 1
-        if isinstance(m, ScanStack):
-            return m.L * dense_layers(m.block)
-        kids = (m.children_map.values() if isinstance(m, Wired) else
-                m.mods if isinstance(m, Sequential) else ())
-        return sum(dense_layers(c) for c in kids)
+        return _layers_of(m, Dense)
 
-    def by_path(tree):
-        paths = tree_leaves(tree_map_with_path(lambda p, _: "/".join(map(str, p)), tree))
-        return dict(zip(paths, tree_leaves(tree), strict=True))
+    by_path = _by_path
 
     # -- serving, bf16 -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3551,6 +3843,7 @@ def main():
     cases += dense_kernel_cases(torch)
     cases += whisper_kernel_cases(torch)
     cases += moe_kernel_cases(torch)
+    cases += mla_kernel_cases(torch)
 
     wrapper = {k: getattr(ops, k) for k in ops.KERNELS}
     plain = {k: getattr(ref, k) for k in ops.KERNELS}
@@ -4046,7 +4339,8 @@ def main():
             ("lm_run", lambda: lm_run_phase(torch, ops)),  # BackPACK on StableLM-2
             ("train_lm", lambda: train_lm_phase(torch, ops)),  # training LMs
             ("whisper", lambda: whisper_phase(torch, ops)),  # the encoder-decoder
-            ("moe", lambda: moe_phase(torch, ops))):  # the mixture of experts
+            ("moe", lambda: moe_phase(torch, ops)),  # the mixture of experts
+            ("mla", lambda: mla_phase(torch, ops))):  # MLA with routed and shared experts
         t0 = time.perf_counter()
         record[name] = phase()
         record["phase_s"][name] = time.perf_counter() - t0
@@ -4063,13 +4357,14 @@ def main():
     # and KFAC calls; the LM training phase's launcher runs, cg_ngd, KFAC and
     # --uncertainty calls; Whisper's encode, generate, run, KFAC, launcher
     # runs and the serving example; Granite's checked prefill call, generate,
-    # run and launcher runs).
+    # run and launcher runs; DeepSeek-V2-Lite's checked prefill call, run and
+    # training runs).
     lm_launches = {k: record["lm_run"]["launches"][k] + record["train_lm"]["launches"][k]
                    + record["whisper"]["launches"][k] + record["moe"]["launches"][k]
-                   for k in ops.KERNELS}
+                   + record["mla"]["launches"][k] for k in ops.KERNELS}
     attn = sum(record[p]["launches"]["flash_attention"]
                for p in ("serve", "serve_dense", "dense_heads", "lm_run", "train_lm",
-                         "whisper", "moe"))
+                         "whisper", "moe", "mla"))
     path_launches = dict(launches,
                          fused_first_order=launches["fused_first_order"]
                          + lm_launches["fused_first_order"],

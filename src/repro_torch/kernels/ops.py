@@ -367,8 +367,9 @@ class _WkvFn(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
                     k_positions=None, scale=None) -> torch.Tensor:
     """Causal, sliding-window GQA attention (``nn/functional.sdpa``): q
-    [N, T, H, dh], k/v [N, S, KV, dh] → [N, T, H, dh] in q's dtype, with
-    optional positions q_positions [T] / k_positions [S] (slots < 0 empty)."""
+    [N, T, H, dh], k [N, S, KV, dh], v [N, S, KV, dv] → [N, T, H, dv] in q's
+    dtype, with optional positions q_positions [T] / k_positions [S] (slots
+    < 0 empty)."""
     kw = dict(causal=causal, window=window, scale=scale)
     xs = [x for x in (q, k, v, q_positions, k_positions) if x is not None]
     if not _on_card("flash_attention", *xs):

@@ -3,12 +3,14 @@
 Port of ``src/repro/nn/blocks.py``: ``AttnBlock`` (GQA attention with full or
 partial RoPE, optional qkv biases, a GLU or plain feed-forward, RMSNorm or
 LayerNorm), ``AttnMoEBlock`` (that attention with a routed mixture of
-experts in place of the feed-forward), ``RWKV6Block`` (token-shift time and
+experts in place of the feed-forward), ``MLAMoEBlock`` (DeepSeek-V2's
+multi-head latent attention, decoded over its compressed cache, with routed
+and shared experts), ``RWKV6Block`` (token-shift time and
 channel mixes around the WKV recurrence) and ``HymbaBlock`` (parallel
 attention and SSD heads sharing one block), each with its full-sequence
 ``wire`` and its single-token ``wire_step`` against a KV cache (a ring of
-``window`` slots in the sliding-window layers), the SSD or WKV state, and
-RWKV's shifted inputs.  One block = one decoder layer, so a layer stack is a
+``window`` slots in the sliding-window layers), MLA's latent cache, the SSD
+or WKV state, and RWKV's shifted inputs.  One block = one decoder layer, so a layer stack is a
 single homogeneous ``ScanStack``.
 
 Every parameter lives in a Dense / BatchedDense / norm / Param child, in the
@@ -150,6 +152,131 @@ class AttnBlock(Wired):
         x = x + call("wo", a.reshape(n, 1, self.h * self.dh))
         x = self._ffn(call, x)
         return (x, pos), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2) attention + routed and shared experts
+# ---------------------------------------------------------------------------
+
+
+class MLAMoEBlock(Wired):
+    """Port of ``src/repro/nn/blocks.py:161-285``: multi-head latent
+    attention (``dq`` → q with RoPE on its last ``qk_rope`` dims; ``dkv`` →
+    the latent ``c_kv`` [N, T, kv_lora] and one shared RoPE key ``k_pe``;
+    ``uk`` / ``uv`` lift ``c_kv`` to the heads' keys and values of width
+    ``v_dim``) and a routed mixture of experts plus ``n_shared`` experts
+    folded into one SiLU GLU of width ``d_expert · n_shared``.
+
+    Decode keeps only the compressed cache (``ckv``, ``kpe``: kv_lora +
+    qk_rope floats a token) and absorbs ``uk`` into the query and ``uv``
+    into the context, in float32, reading their weights outside a ``call``
+    as JAX does; BackPACK never records the decode path.  The cache is not
+    a ring: a position past its end overwrites the last slot."""
+
+    def __init__(self, d, n_heads, d_expert, n_experts, top_k, *, kv_lora=512,
+                 qk_nope=128, qk_rope=64, v_dim=128, n_shared=2, capacity_factor=1.25,
+                 rope_theta=10000.0, act="silu", dtype=torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.h = n_heads
+        self.kv_lora, self.nope, self.rh, self.dv = kv_lora, qk_nope, qk_rope, v_dim
+        self.E, self.k_top, self.cf = n_experts, top_k, capacity_factor
+        self.n_shared = n_shared
+        self.rope_theta = rope_theta
+        self.act = _act(act)
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        ch = {
+            "ln1": RMSNorm(d, dtype=dtype, device=device),
+            "dq": Dense(d, n_heads * (qk_nope + qk_rope), use_bias=False, **kw),
+            "dkv": Dense(d, kv_lora + qk_rope, use_bias=False, **kw),
+            "uk": Dense(kv_lora, n_heads * qk_nope, use_bias=False, **kw),
+            "uv": Dense(kv_lora, n_heads * v_dim, use_bias=False, **kw),
+            "wo": Dense(n_heads * v_dim, d, use_bias=False, **kw),
+            "ln2": RMSNorm(d, dtype=dtype, device=device),
+            "router": Dense(d, n_experts, use_bias=False, **kw),
+            "e_gate": BatchedDense(n_experts, d, d_expert, **kw),
+            "e_up": BatchedDense(n_experts, d, d_expert, **kw),
+            "e_down": BatchedDense(n_experts, d_expert, d, **kw),
+        }
+        if n_shared:
+            sd = d_expert * n_shared
+            ch.update({"s_gate": Dense(d, sd, use_bias=False, **kw),
+                       "s_up": Dense(d, sd, use_bias=False, **kw),
+                       "s_down": Dense(sd, d, use_bias=False, **kw)})
+        self.set_children(ch)
+
+    def _mla_qkv(self, call, h, positions):
+        n, t = h.shape[:2]
+        q = call("dq", h).reshape(n, t, self.h, self.nope + self.rh)
+        q_nope, q_pe = q[..., : self.nope], q[..., self.nope:]
+        q_pe = F.apply_rope(q_pe, positions, self.rope_theta)
+        ckv_full = call("dkv", h)
+        c_kv, k_pe = ckv_full[..., : self.kv_lora], ckv_full[..., self.kv_lora:]
+        k_pe = F.apply_rope(k_pe[:, :, None, :], positions, self.rope_theta)
+        return q_nope, q_pe, c_kv, k_pe  # k_pe: [N, T, 1, rh]
+
+    def _mla_attend(self, call, q_nope, q_pe, c_kv, k_pe):
+        n, t = q_nope.shape[:2]
+        k_nope = call("uk", c_kv).reshape(n, -1, self.h, self.nope)
+        v = call("uv", c_kv).reshape(n, -1, self.h, self.dv)
+        k_pe = k_pe.expand(-1, -1, self.h, -1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe], dim=-1)
+        a = F.sdpa(q, k, v, causal=True, scale=(self.nope + self.rh) ** -0.5)
+        return call("wo", a.reshape(n, t, self.h * self.dv))
+
+    def _moe_ffn(self, call, x):
+        h = call("ln2", x)
+        logits = call("router", h)
+        y = moe_apply(call, h, logits, self.E, self.k_top, self.cf, self.act)
+        if self.n_shared:
+            y = y + call("s_down", self.act(call("s_gate", h)) * call("s_up", h))
+        return x + y
+
+    def wire(self, call, params, x):
+        h = call("ln1", x)
+        q_nope, q_pe, c_kv, k_pe = self._mla_qkv(
+            call, h, torch.arange(x.shape[1], device=x.device))
+        x = x + self._mla_attend(call, q_nope, q_pe, c_kv, k_pe)
+        return self._moe_ffn(call, x)
+
+    # -- decode: absorbed MLA over the compressed cache ---------------------------
+    def init_cache(self, params, batch, max_len, dtype):
+        device = params["dkv"]["w"].device
+        return {
+            "ckv": torch.zeros((batch, max_len, self.kv_lora), dtype=dtype, device=device),
+            "kpe": torch.zeros((batch, max_len, self.rh), dtype=dtype, device=device),
+            "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        }
+
+    def wire_step(self, call, params, xp, cache):
+        x, pos = xp  # x: [N, 1, d], pos: a 0-dimensional integer tensor
+        n = x.shape[0]
+        h = call("ln1", x)
+        q_nope, q_pe, c_kv, k_pe = self._mla_qkv(call, h, pos)
+        S = cache["ckv"].shape[1]
+        pos1 = torch.as_tensor(pos, device=x.device).reshape(1)
+        slot = pos1.clamp(max=S - 1).long()
+        ckv = cache["ckv"].index_copy(1, slot, c_kv.to(cache["ckv"].dtype))
+        kpe = cache["kpe"].index_copy(1, slot, k_pe[:, :, 0].to(cache["kpe"].dtype))
+        pbuf = cache["pos"].index_copy(0, slot, pos1.to(torch.int32))
+        # absorb W_UK into the query:  score = q_nopeᵀ W_UK c_kv + q_peᵀ k_pe
+        f32 = torch.float32
+        wuk = params["uk"]["w"].reshape(self.kv_lora, self.h, self.nope).to(f32)
+        q_lat = torch.einsum("nthd,lhd->nthl", q_nope.to(f32), wuk)  # [N, 1, H, kv_lora]
+        scale = (self.nope + self.rh) ** -0.5
+        ckv32 = ckv.to(f32)
+        logits = (torch.einsum("nthl,nsl->nhts", q_lat, ckv32)
+                  + torch.einsum("nthr,nsr->nhts", q_pe.to(f32), kpe.to(f32))) * scale
+        mask = (pbuf >= 0) & (pbuf <= pos1)  # [S]
+        logits = torch.where(mask, logits, torch.full_like(logits, F.NEG_INF))
+        p = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("nhts,nsl->nthl", p, ckv32)
+        wuv = params["uv"]["w"].reshape(self.kv_lora, self.h, self.dv).to(f32)
+        a = torch.einsum("nthl,lhv->nthv", ctx, wuv)
+        x = x + call("wo", a.reshape(n, 1, self.h * self.dv).to(x.dtype))
+        x = self._moe_ffn(call, x)
+        return (x, pos), {"ckv": ckv, "kpe": kpe, "pos": pbuf}
 
 
 # ---------------------------------------------------------------------------

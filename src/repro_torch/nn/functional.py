@@ -50,7 +50,8 @@ def apply_rope(x, positions, theta=10000.0):
 
 def sdpa(q, k, v, *, causal=True, window=None, q_positions=None,
          k_positions=None, scale=None):
-    """q: [N, T, H, dh], k/v: [N, S, KV, dh] → [N, T, H, dh] in q's dtype.
+    """q, k: [N, T, H, dh], [N, S, KV, dh]; v: [N, S, KV, dv] → [N, T, H, dv]
+    in q's dtype (dv = dh(v), which MLA sets apart from dh).
 
     ``*_positions``: absolute positions (default arange), used for masking
     with KV caches / rings (slots at −1 are empty).  The ``flash_attention``

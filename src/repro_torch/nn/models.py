@@ -5,10 +5,9 @@ Port of ``src/repro/nn/models.py`` (``sinusoid_pos``, ``TokenEmbed``,
 ``CausalLM``, ``WhisperModel``, ``_expand_segments``, ``make_stacks``,
 ``build_model``).  The same module tree serves the full-sequence forward
 (``call``, the prefill step) and decode (``serve_step`` with per-block
-caches) and BackPACK's ``run``.  The dense, Hymba, RWKV6, encoder-decoder
-and GQA mixture-of-experts (``moe_gqa``) kinds are built; ``moe_mla``
-(DeepSeek-V2's MLA attention with shared experts) raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+caches) and BackPACK's ``run``.  Every kind of the JAX package is built:
+dense, Hymba, RWKV6, encoder-decoder and the two mixtures of experts, GQA
+(``moe_gqa``) and DeepSeek-V2's MLA with shared experts (``moe_mla``).
 """
 from __future__ import annotations
 
@@ -33,16 +32,11 @@ from repro_torch.nn.blocks import (
     DecBlock,
     EncBlock,
     HymbaBlock,
+    MLAMoEBlock,
     RWKV6Block,
 )
 from repro_torch.nn.layers import Param
 from repro_torch.nn.wired import Wired
-
-_STILL_TO_PORT = {
-    "moe_mla": "MLA attention, its absorbed decode cache and shared experts: "
-               "ROADMAP queue A item 13.5",
-}
-
 
 def sinusoid_pos(t, d, dtype=torch.float32, device=None):
     """The [t, d] sinusoidal positions (sin at even, cos at odd columns),
@@ -235,9 +229,6 @@ def build_model(cfg, remat=False, attn_impl="naive", wkv_chunk=16, device="cuda"
     (:class:`~repro_torch.core.module.ScanStack`).  JAX's ``seq_constraint``
     comes with the sharded lane (ROADMAP queue A item 12).  ``wkv_chunk`` is
     RWKV6's scan chunk (Hymba scans with chunks of 16)."""
-    if cfg.kind not in ("hymba", "dense", "rwkv", "encdec", "moe_gqa"):
-        raise NotImplementedError(f"{cfg.name} (kind {cfg.kind!r}) needs "
-                                  f"{_STILL_TO_PORT.get(cfg.kind, 'ROADMAP queue A item 13')}")
     dtype = getattr(torch, cfg.dtype)
     d = cfg.d_model
     if cfg.kind == "encdec":  # no remat, as in JAX; max_dec stays 448
@@ -253,6 +244,12 @@ def build_model(cfg, remat=False, attn_impl="naive", wkv_chunk=16, device="cuda"
                               ssm_state=cfg.ssm_state, window=w, act=cfg.act,
                               attn_impl=attn_impl, rope_theta=cfg.rope_theta, dtype=dtype,
                               device=dev, generator=generator)
+        if cfg.kind == "moe_mla":
+            return MLAMoEBlock(d, cfg.n_heads, cfg.d_expert, cfg.n_experts, cfg.top_k,
+                               kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
+                               v_dim=cfg.v_head_dim, n_shared=cfg.n_shared_experts,
+                               capacity_factor=cfg.capacity_factor, rope_theta=cfg.rope_theta,
+                               act=cfg.act, dtype=dtype, device=dev, generator=generator)
         if cfg.kind == "moe_gqa":  # window, norm and attn_impl are not passed, as in JAX
             return AttnMoEBlock(d, cfg.n_heads, cfg.kv_heads, cfg.d_expert, cfg.n_experts,
                                 cfg.top_k, capacity_factor=cfg.capacity_factor, act=cfg.act,

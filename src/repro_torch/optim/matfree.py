@@ -30,7 +30,7 @@ from repro_torch.core.loss_hessian import _f32
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.curv import GGNOperator, cg_solve, kernel_ngd_direction
 
-from .optimizers import Optimizer, _mask_buffers, apply_updates
+from .optimizers import Optimizer, _leafwise, apply_updates
 
 
 def make_cg_ngd_step(model, loss, *, lr: float, damping: float = 1e-3,
@@ -74,7 +74,7 @@ def make_cg_ngd_step(model, loss, *, lr: float, damping: float = 1e-3,
             metrics["cg_resid"] = sol.resid
         if weight_decay:
             d = tree_map(lambda di, p: di + float(weight_decay) * _f32(p), d, params)
-        ups = _mask_buffers(tree_map(lambda di: -lr * di, d), params)
+        ups = _leafwise(lambda di, p: -lr * di, params, d)
         params = apply_updates(params, ups)
         metrics.update({"loss": res.loss, "step": step_idx + 1})
         return params, {"t": opt_state["t"] + 1}, metrics

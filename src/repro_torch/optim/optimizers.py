@@ -6,7 +6,9 @@ makes new tensors and leaves its inputs as they are, as in JAX.
 
 Buffers (non-trainable leaves in the params tree) are frozen: any leaf whose
 path holds a key ending in ``_buf``, or whose dtype is not floating, gets a
-zero update.
+zero update.  Each update leaf is cast to its parameter's dtype as it is
+made, so a step holds one leaf's float32 update at a time, not a float32
+copy of every parameter.
 """
 from __future__ import annotations
 
@@ -26,13 +28,17 @@ def _is_buffer_path(path) -> bool:
     return any(isinstance(k, str) and k.endswith("_buf") for k in path)
 
 
-def _mask_buffers(updates, params):
-    def fix(path, u, p):
-        if _is_buffer_path(path) or not p.dtype.is_floating_point:
-            return torch.zeros_like(p)
-        return u.to(p.dtype)
+def _finish(path, u, p):
+    """The update leaf ``u`` of parameter ``p`` in ``p``'s dtype; a buffer's is 0."""
+    if _is_buffer_path(path) or not p.dtype.is_floating_point:
+        return torch.zeros_like(p)
+    return u.to(p.dtype)
 
-    return tree_map_with_path(fix, updates, params)
+
+def _leafwise(fn, params, *trees):
+    """``fn(*leaves, p)`` finished (``_finish``) leaf by leaf."""
+    return tree_map_with_path(lambda path, p, *xs: _finish(path, fn(*xs, p), p),
+                              params, *trees)
 
 
 def apply_updates(params, updates):
@@ -48,8 +54,7 @@ def sgd(lr):
         return ()
 
     def update(grads, state, params, **kw):
-        ups = tree_map(lambda g: -lr * g.float(), grads)
-        return _mask_buffers(ups, params), state
+        return _leafwise(lambda g, p: -lr * g.float(), params, grads), state
 
     return Optimizer(init, update)
 
@@ -60,8 +65,7 @@ def momentum_sgd(lr, rho=0.9):
 
     def update(grads, state, params, **kw):
         new_m = tree_map(lambda m, g: rho * m + g.float(), state, grads)
-        ups = tree_map(lambda m: -lr * m, new_m)
-        return _mask_buffers(ups, params), new_m
+        return _leafwise(lambda m, p: -lr * m, params, new_m), new_m
 
     return Optimizer(init, update)
 
@@ -82,7 +86,6 @@ def adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
             return -lr * lr_scale * ((m_ / b1t) / ((v_ / b2t).sqrt() + eps)
                                      + weight_decay * p.float())
 
-        ups = tree_map(upd, m, v, params)
-        return _mask_buffers(ups, params), {"m": m, "v": v, "t": t}
+        return _leafwise(upd, params, m, v), {"m": m, "v": v, "t": t}
 
     return Optimizer(init, update)

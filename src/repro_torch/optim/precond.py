@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import kron as K
 from repro_torch.core.tree import tree_map
-from repro_torch.optim.optimizers import Optimizer, _mask_buffers
+from repro_torch.optim.optimizers import Optimizer, _finish
 
 _DIAG = {"diag_ggn", "diag_ggn_mc", "diag_hessian"}
 _KRON = {"kfac", "kflr", "kfra"}
@@ -64,15 +64,10 @@ def _kron_step(c, gf, damping):
 
 
 def _precond_tree(grads, curv, damping, eta, params, lr):
-    """Recurse (grads, curv, params) producing updates."""
+    """Recurse (grads, curv, params) producing updates, each leaf finished
+    (``_finish``: its parameter's dtype, 0 for a buffer) as it is made."""
 
-    def rec(g, c, p):
-        if isinstance(g, dict):
-            return {k: rec(g[k], c.get(k) if isinstance(c, dict) else None, p[k])
-                    for k in g}
-        if isinstance(g, (tuple, list)):
-            c_t = c if isinstance(c, (tuple, list)) else (None,) * len(g)
-            return tuple(rec(gi, ci, pi) for gi, ci, pi in zip(g, c_t, p))
+    def step(g, c, p):
         gf = g.float() + eta * p.float()
         if c is None or (isinstance(c, tuple) and len(c) == 0):
             return -lr * gf / (damping + eta)
@@ -80,7 +75,17 @@ def _precond_tree(grads, curv, damping, eta, params, lr):
             return -lr * _kron_step(c, gf, damping + eta)
         return -lr * gf / (c.float() + damping + eta)  # diagonal curvature
 
-    return rec(grads, curv, params)
+    def rec(g, c, p, path):
+        if isinstance(g, dict):
+            return {k: rec(g[k], c.get(k) if isinstance(c, dict) else None, p[k], path + (k,))
+                    for k in g}
+        if isinstance(g, (tuple, list)):
+            c_t = c if isinstance(c, (tuple, list)) else (None,) * len(g)
+            return tuple(rec(gi, ci, pi, path + (i,))
+                         for i, (gi, ci, pi) in enumerate(zip(g, c_t, p)))
+        return _finish(path, step(g, c, p), p)
+
+    return rec(grads, curv, params, ())
 
 
 def curvature_optimizer(lr, damping=1e-2, curvature="diag_ggn_mc",
@@ -101,6 +106,6 @@ def curvature_optimizer(lr, damping=1e-2, curvature="diag_ggn_mc",
             curv = _ema(state["stats"], curv, stat_decay)
         ups = _precond_tree(grads, curv, damping, weight_decay, params, lr)
         new_state = {"stats": curv if stat_decay > 0.0 else None, "t": state["t"] + 1}
-        return _mask_buffers(ups, params), new_state
+        return ups, new_state
 
     return Optimizer(init, update)
