@@ -14,11 +14,12 @@ feed-forward), Granite-3.0-1B-A400M's (GQA attention at 16 over 8 heads,
 fused_first_order with its 32 experts as the group axis at R = 1, and
 every Dense shape of its BackPACK sweep: q, k, v, o, the router and the
 head) and DeepSeek-V2-Lite's (MLA attention at q, k 192 and v 128, its 64
-experts at R = 1, every Dense shape of its sweep).  Then it drives fifteen
+experts at R = 1, every Dense shape of its sweep).  Then it drives sixteen
 paths through the entry points a user calls, seven on 3C3D (CIFAR-10
 shapes, full width, random weights from a seed), five on language models,
-one on the encoder-decoder and two on the mixtures of experts, each with
-the launch counts set to 0 just before and read just after:
+one on the encoder-decoder, two on the mixtures of experts and one through
+the observability layer, each with the launch counts set to 0 just before
+and read just after:
 
 * the main path, ``repro_torch.core.run`` with the ten first-order,
   exact-GGN and MC extensions on the fused route (the default), which must
@@ -156,7 +157,27 @@ the launch counts set to 0 just before and read just after:
   25, 6 of them over the 64 experts; fused_second_order 19;
   flash_attention 2) with the same checks as Granite's; training through
   ``fit`` in bf16 at full width on 4 layers with AdamW and DiagGGN-MC +
-  Variance, KFAC refused, and the training launcher on the reduced config.
+  Variance, KFAC refused, and the training launcher on the reduced config;
+* the observability layer (``obs_phase``): 3C3D's fused and per-extension
+  ``SweepPlan.run`` with ``repro_torch.obs`` off and on (results bit for
+  bit, ``kernel.calls.*`` equal to the launches and to the route's counts,
+  the span tree printed, the cost timed in turns); the training launcher
+  with ``--trace-jsonl``, ``--metrics-report`` and ``--profile-dir`` on
+  StableLM-2-1.6B at full size, DiagGGN-MC + Variance, 3 steps (the Chrome
+  trace holding fused_first_order's, fused_second_order's and
+  flash_attention's kernels by symbol and the ``train/step`` ranges; the
+  steps against the same 3 without the flags); Hymba-1.5B's ``generate``
+  under a registry (its spans, ``serve.tokens``, wkv's and flash_attention's
+  counters against the launches); the ``ntk_apps`` launcher's GP with
+  ``--trace-jsonl`` (cross_dot).
+
+Every card-against-CPU ``run`` check (``card_vs_cpu``) names the samples
+whose ReLU signs or max-pool picks a card and a CPU forward decide
+differently (a pre-activation within rounding of 0, a window whose two
+largest inputs tie within rounding: ``flipped``, ``[]`` when none), holds
+the per-sample outputs over the other samples, and the batch-summed ones
+from ``run`` on the card and the CPU over the sub-batch without them, which
+must itself flip nothing; any other difference fails at ``TOL``.
 
 The two kernels with a library counterpart (sq_matmul: ``torch.matmul`` of
 the squares; flash_attention: SDPA), and fused_first_order's expert rows
@@ -475,6 +496,144 @@ def f64_readings(torch, kernel, got, want64):
     return dict(rel64=rel, entry_median=median, entry_max=worst)
 
 
+def rel_errs(got, want, names, keep=None, kinds=None):
+    """max |got − want| / max |want| per output of two ``run`` Results
+    (``want`` may lie on the CPU).  ``keep`` (sample indices) restricts the
+    per-sample outputs to those rows and the pairwise ones to those rows and
+    columns; ``kinds`` reads only outputs of those kinds (``output_kinds``)."""
+    from repro_torch.core.tree import tree_leaves
+
+    kind = output_kinds(names)
+    pairs = [("loss", [got.loss], [want.loss]), ("logits", [got.logits], [want.logits]),
+             ("grads", tree_leaves(got.grads), tree_leaves(want.grads))]
+    pairs += [(e.name, tree_leaves(got.ext[e.name]), tree_leaves(want.ext[e.name]))
+              for e in names]
+    # Variance = N·Σg² − (Σg)²: its rounding error scales with N·Σg².
+    scale = ({"variance": tree_leaves(want.ext["second_moment"])}
+             if "variance" in got.ext else {})
+    errs = {}
+    for key, gs, ws in pairs:
+        if kinds is not None and kind[key] not in kinds:
+            continue
+        err = 0.0
+        for i, (g, w) in enumerate(zip(gs, ws, strict=True)):
+            g = g.to(w.device)
+            den = scale[key][i] if key in scale else w
+            if keep is not None and kind[key] != "batch":
+                rows = keep.to(w.device)
+                g, w, den = g[rows], w[rows], den[rows]
+                if kind[key] == "pairs":
+                    g, w, den = g[:, rows], w[:, rows], den[:, rows]
+            err = max(err, (g - w).abs().max().item() / max(den.abs().max().item(), 1e-30))
+        errs[key] = err
+    return errs
+
+
+def output_kinds(names):
+    """Each output of a ``run`` with these extensions: ``"rows"`` (a leading
+    per-sample axis: the logits, BatchGrad, BatchL2, per-sample traces),
+    ``"pairs"`` ([N, N, ...]: BatchDot, the Gram family) or ``"batch"``
+    (summed over the batch: the loss, the gradient, the moments, diagonals
+    and Kronecker factors), by each extension's reducer."""
+    from repro_torch.core.extensions import reduce_spec
+
+    kinds = {"loss": "batch", "logits": "rows", "grads": "batch"}
+    for name, red in reduce_spec(names).items():
+        kinds[name] = "pairs" if red.pairwise else "rows" if red.streams_rows else "batch"
+    return kinds
+
+
+def forward_pattern(model, params, x):
+    """Each sample's ReLU signs and max-pool picks in a forward of ``x``:
+    ``[(layer, kind, [N, ...] tensor)]``, the choices that rounding can tip
+    one way on the card and the other on the CPU (a pre-activation within
+    rounding of 0; a window whose two largest inputs tie within rounding)."""
+    from repro_torch.core import Activation
+    from repro_torch.nn.layers import MaxPool2d
+
+    _, tapes = model.forward_tape(params, x)
+    out = []
+    for i, (mod, tape) in enumerate(zip(model.mods, tapes, strict=True)):
+        if isinstance(mod, MaxPool2d):
+            out.append((i, "max_pool", tape[1]))  # [N, C, H', W']: the window's pick
+        elif isinstance(mod, Activation) and mod.name == "relu":
+            out.append((i, "relu", tape > 0))
+    return out
+
+
+def flipped_windows(torch, model, params, cpu_params, x):
+    """The max-pool windows and ReLU units that a card forward of ``x`` and a
+    CPU forward of it decide differently: ``[dict(sample, layer, kind,
+    at)]``, ``at`` the window's [channel, row, column] (a ReLU: its unit's
+    index within the sample)."""
+    with torch.no_grad():
+        card = forward_pattern(model, params, x)
+        cpu = forward_pattern(model, cpu_params, x.cpu())
+    flips = []
+    for (layer, kind, a), (_, _, b) in zip(card, cpu, strict=True):
+        for idx in (a.cpu() != b).nonzero().tolist():
+            flips.append(dict(sample=idx[0], layer=layer, kind=kind, at=idx[1:]))
+    return flips
+
+
+def card_vs_cpu(torch, run, model, params, x, y, loss, names, rng, cfg, tol=TOL):
+    """One ``run`` on the card against the same call on the CPU, with the
+    rule for what rounding may tip (the matrix-free phase's for its slices):
+
+    * the samples whose ReLU signs or max-pool picks differ between a card
+      and a CPU forward (``flipped_windows``) are named;
+    * per-sample outputs (logits, BatchGrad, BatchL2, per-sample traces; the
+      rows and columns of BatchDot and the Gram family) are compared over the
+      other samples;
+    * batch-summed outputs over the whole batch when nothing flips, else
+      from ``run`` on the card and on the CPU over the sub-batch without the
+      flipped samples (the MC draws' columns taken with them), which must
+      itself flip nothing.
+
+    Returns the compare line's fields: ``rel_err`` (per output), ``flipped``,
+    ``sub_batch`` (its rows, or None), ``reflipped`` (the sub-batch's flips)
+    and ``bad`` (the outputs above ``tol``)."""
+    from repro_torch.core.tree import tree_map
+
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    flips = flipped_windows(torch, model, params, cpu_params, x)
+
+    def both(xx, yy, draws):
+        card = run(model, params, xx, yy, loss, extensions=names, cfg=cfg, rng=draws)
+        torch.cuda.synchronize()
+        cpu = run(model, cpu_params, xx.cpu(), yy.cpu(), loss, extensions=names, cfg=cfg,
+                  rng=draws)
+        return card, cpu
+
+    t0 = time.perf_counter()
+    card, cpu = both(x, y, rng)
+    out = dict(cpu_s=time.perf_counter() - t0, batch=x.shape[0], flipped=flips, sub_batch=None,
+               reflipped=[])
+    bad_samples = sorted({f["sample"] for f in flips})
+    if not bad_samples:
+        out["rel_err"] = rel_errs(card, cpu, names)
+    else:
+        keep = torch.tensor([i for i in range(x.shape[0]) if i not in bad_samples])
+        out["rel_err"] = rel_errs(card, cpu, names, keep=keep, kinds=("rows", "pairs"))
+        del card, cpu
+        xs, ys = x[keep.to(x.device)], y[keep.to(y.device)]
+        out["sub_batch"] = len(keep)
+        out["reflipped"] = flipped_windows(torch, model, params, cpu_params, xs)
+        draws = rng[:, keep.to(rng.device)] if isinstance(rng, torch.Tensor) else rng
+        card, cpu = both(xs, ys, draws)
+        out["rel_err"].update(rel_errs(card, cpu, names, kinds=("batch",)))
+    out["bad"] = {k: v for k, v in out["rel_err"].items() if not v <= tol}
+    return out
+
+
+def check_errs(label, errs, tol=TOL, **extra):
+    say("compare", label=label, tol=tol, rel_err=errs, **extra)
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        fail(f"{label}: disagree {bad}")
+    return errs
+
+
 def medians_ms(samples):
     return {k: sorted(v)[len(v) // 2] * 1e3 for k, v in samples.items()}
 
@@ -491,6 +650,9 @@ def profiled(call, groups=None, host_ops=True, ranges=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if torch.autograd._profiler_enabled():
+        fail("profiled: another torch.profiler window (an obs.profile?) is open: "
+             "windows cannot nest")
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -541,6 +703,9 @@ def device_per_call(torch, fn, iters=10, windows=3):
     is taken again, up to ``windows`` in all; then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
+    if torch.autograd._profiler_enabled():
+        fail("device_per_call: another torch.profiler window (an obs.profile?) is open: "
+             "windows cannot nest")
     fn()
     torch.cuda.synchronize()
     for _ in range(windows):
@@ -952,7 +1117,7 @@ def row_set_spy(ops, kinds):
     return lambda: setattr(ops, "cross_dot_cuda", launch)
 
 
-def accumulated_phase(torch, ops, model, params, loss, exts, gram_exts, rel_errs, check_errs):
+def accumulated_phase(torch, ops, model, params, loss, exts, gram_exts):
     """The accumulated lane on 3C3D at full width, through ``plan_for_batch``
     with a ``microbatch_size``: the main path's ten extensions at n = 450 in
     four slices (launch counts ``ACC_LAUNCHES``, every cross_dot on two row
@@ -3748,6 +3913,261 @@ def whisper_phase(torch, ops):
     return out
 
 
+# The observability layer (obs_phase): 3C3D's fused and per-extension
+# run with repro_torch.obs off and on (results bit for bit, kernel.calls.*
+# against the launch counts, 5 timed in turns); the training launcher with its
+# obs flags at StableLM-2's full size in bf16, DiagGGN-MC with Variance (its
+# moment is fused_first_order's: the train phase's MC run), 3 steps at the
+# train phase's 4 × 512 (and the same 3 steps without them); one more Hymba-1.5B
+# generate (4 × 32 → 128); the ntk_apps launcher's GP on c2d2 with
+# --trace-jsonl.  The symbols by which the profiler's trace names each kernel
+# the launcher runs (tf32x3::xty_kernel, rowprod::kernel, the anonymous
+# namespace's flash_tc_kernel).
+OBS = dict(turns=5, launcher_steps=3, ntk_argv=["--gp", "--model", "c2d2"],
+           symbols={"fused_first_order": "xty_kernel", "fused_second_order": "rowprod::kernel",
+                    "flash_attention": "flash_tc_kernel"})
+
+
+def obs_phase(torch, ops, record):
+    """``repro_torch.obs`` on the card, outside every other profiler window,
+    each part's launches read as the change of the launch counts over it:
+
+    * 3C3D at batch 128 with the ten extensions, ``SweepPlan.run`` on the
+      fused and the per-extension route: twice with obs off, once under an
+      ``ObsRegistry`` with a JSONL sink; each output leaf with obs on equal
+      bit for bit to obs off wherever the two runs with obs off are (the
+      others named); ``kernel.calls.*`` equal to the launches and to the
+      route's counts; the rendered span tree printed; the fused run timed
+      off and on in turns, the ratio printed (no limit);
+    * ``launch.train.main`` on StableLM-2-1.6B (``--full``, bf16) with
+      DiagGGN-MC and Variance, 3 steps, without the obs flags and then with
+      ``--trace-jsonl``, ``--metrics-report`` and ``--profile-dir``: 3
+      ``train/step`` spans and ``train.steps``, ``kernel.calls.*`` equal to
+      the launches, the Chrome trace holding fused_first_order's,
+      fused_second_order's and flash_attention's kernels by their symbols
+      and the ``train/step`` ranges; the steps' times with and without;
+    * Hymba-1.5B's ``generate`` under a registry: ``serve/prefill`` and
+      ``serve/decode``, ``serve.tokens`` = 4 · 96, ``kernel.calls.wkv`` and
+      ``flash_attention`` equal to the launches, ``serve.decode.s_per_token``
+      beside the serve phase's own time a token;
+    * ``launch.ntk_apps.main`` (GP on c2d2) with ``--trace-jsonl``: its
+      ``ntk_apps/*`` spans, ``kernel.calls.cross_dot`` equal to the launches.
+    """
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config, papernets
+    from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, plan_sweeps
+    from repro_torch.launch import ntk_apps as ntk_launch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.nn.models import build_model
+    from repro_torch.obs.profile import TRACE_FILE
+    from repro_torch.obs.reporting import load_jsonl, render
+    from repro_torch.serve import ServeConfig, generate
+
+    card = record["device"]["nvidia_smi"]
+    out = {}
+
+    def delta(before):
+        now = ops.launch_counts()
+        return {k: now[k] - before[k] for k in ops.KERNELS}
+
+    def calls_of(counters):
+        """kernel.calls.* as {kernel: count}, every kernel named."""
+        return {k: counters.get(f"kernel.calls.{k}", 0) for k in ops.KERNELS}
+
+    def summed(events):
+        counters = {}
+        for e in events:
+            if e["kind"] == "count":
+                counters[e["name"]] = counters.get(e["name"], 0) + e["value"]
+        return counters
+
+    def spans(events, name):
+        return [e for e in events if e["kind"] == "span" and e["name"] == name]
+
+    def report(label, text):
+        say("obs_report", label=label, card=card)
+        print(text, flush=True)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="obs_phase_") as tmp:
+        # -- 3C3D: results bit for bit with obs on, the counters, the cost -----
+        model = papernets.c3d3(device="cuda", generator=torch.Generator().manual_seed(0))
+        params = model.params()
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        x = torch.randn(N, 32, 32, 3, device="cuda", generator=gen)
+        y = torch.randint(0, 10, (N,), device="cuda", generator=gen)
+        loss = CrossEntropyLoss()
+        exts = tuple(by_name(n) for n in FIRST + EXACT + MC)
+        fused_counts = {"fused_first_order": 3, "fused_second_order": 6, "sq_matmul": 9}
+        out["c3d3"] = {}
+        for route, cfg, per_call in (
+                ("fused", ExtensionConfig(mc_seed=0), fused_counts),
+                ("per_extension", ExtensionConfig(mc_seed=0, use_fused=False),
+                 PER_EXTENSION_LAUNCHES)):
+            plan = plan_sweeps(exts, cfg)
+
+            def call(plan=plan, cfg=cfg):
+                res = plan.run(model, params, x, y, loss, cfg=cfg)
+                torch.cuda.synchronize()
+                return _by_path(dict(loss=res.loss, grads=res.grads, logits=res.logits,
+                                     ext=res.ext))
+
+            off1, off2 = call(), call()
+            trace = os.path.join(tmp, f"c3d3_{route}.jsonl")
+            reg = obs.ObsRegistry(trace_jsonl=trace)
+            before = ops.launch_counts()
+            with obs.use(reg):
+                on = call()
+            launches = delta(before)
+            reg.close()
+            unstable = sorted(k for k in off1 if not torch.equal(off1[k], off2[k]))
+            differ = sorted(k for k in off1
+                            if k not in unstable and not torch.equal(off1[k], on[k]))
+            calls = calls_of(reg.counters)
+            want = {k: per_call.get(k, 0) for k in ops.KERNELS}
+            row = dict(route=route, leaves=len(off1), not_bit_stable_off=unstable,
+                       differ_on=differ, kernel_calls=calls, launches=launches,
+                       events=len(reg.events), card=card)
+            del off1, off2, on
+            if route == "fused":  # obs off and on in turns: what the spans cost
+                times = {"off": [], "on": []}
+                for _ in range(OBS["turns"]):
+                    for mode in ("off", "on"):
+                        t0 = time.perf_counter()
+                        if mode == "on":
+                            with obs.use(obs.ObsRegistry()):
+                                call()
+                        else:
+                            call()
+                        times[mode].append(time.perf_counter() - t0)
+                med = medians_ms(times)
+                row.update(step_s=times, median_ms=med, on_over_off=med["on"] / med["off"])
+            out["c3d3"][route] = row
+            say("obs_c3d3", **row)
+            report(f"c3d3 {route}", render(load_jsonl(trace)))
+            if differ:
+                fail(f"obs c3d3 {route}: leaves differ with obs on: {differ}")
+            if calls != launches or launches != want:
+                fail(f"obs c3d3 {route}: kernel.calls {calls}, launches {launches}, "
+                     f"the route's {want}")
+        del model, params, x, y
+
+        # -- the training launcher: its three obs flags, and the same steps without --
+        t = TRAIN_LM
+        argv = ["--arch", t["arch"], "--full", "--seq", str(t["seq"]), "--batch",
+                str(t["batch"]), "--optimizer", "diag_ggn_mc", "--track-variance", "--steps",
+                str(OBS["launcher_steps"])]
+        plain = [h["dur_s"] for h in train_launch.main(argv)["history"]]
+        torch.cuda.empty_cache()
+        trace, prof_dir = os.path.join(tmp, "train.jsonl"), os.path.join(tmp, "prof")
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        run_ = train_launch.main(argv + ["--trace-jsonl", trace, "--metrics-report",
+                                         "--profile-dir", prof_dir])
+        call_s = time.perf_counter() - t0
+        launches = delta(before)
+        hist = [h["dur_s"] for h in run_["history"]]
+        del run_
+        torch.cuda.empty_cache()
+        events = load_jsonl(trace)
+        counters = summed(events)
+        chrome_path = os.path.join(prof_dir, TRACE_FILE)
+        chrome_bytes = os.path.getsize(chrome_path)
+        t0 = time.perf_counter()
+        with open(chrome_path) as fh:
+            chrome = json.load(fh)["traceEvents"]
+        load_s = time.perf_counter() - t0
+        kernels = [e["name"] for e in chrome if str(e.get("cat", "")).lower() == "kernel"]
+        found = {k: sum(sym in name for name in kernels) for k, sym in OBS["symbols"].items()}
+        ranges = sum(e.get("name") == "train/step" for e in chrome)
+        del chrome
+        steps = [e["attrs"]["step"] for e in spans(events, "train/step")]
+        row = dict(argv=argv, steps=steps, train_steps=counters.get("train.steps"),
+                   kernel_calls=calls_of(counters), launches=launches, step_s=hist,
+                   step_s_without_obs=plain,
+                   median_ms=medians_ms({"with_obs_and_profiler": hist[1:],
+                                         "without": plain[1:]}),
+                   call_s=call_s, chrome_trace_bytes=chrome_bytes, chrome_load_s=load_s,
+                   device_kernel_events=len(kernels), kernel_events_by_symbol=found,
+                   train_step_ranges=ranges, card=card)
+        out["launcher"] = row
+        say("obs_launcher", **row)
+        if steps != list(range(OBS["launcher_steps"])) or row["train_steps"] != len(steps):
+            fail(f"obs launcher: train/step spans {steps}, train.steps {row['train_steps']}")
+        if row["kernel_calls"] != launches or not launches["fused_first_order"]:
+            fail(f"obs launcher: kernel.calls {row['kernel_calls']}, launches {launches}")
+        if not all(found.values()) or ranges < len(steps):
+            fail(f"obs launcher: the Chrome trace's kernels by symbol {found}, "
+                 f"train/step ranges {ranges}")
+
+        # -- Hymba-1.5B's generate under a registry ---------------------------------
+        cfg = get_config(SERVE["arch"])
+        model = build_model(cfg, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+        params = model.params()
+        n, p = SERVE["batch"], SERVE["prompt_len"]
+        prompts = torch.randint(0, cfg.vocab, (n, p), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(7))
+        sc = ServeConfig(max_len=SERVE["max_len"])
+        reg = obs.ObsRegistry()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        with obs.use(reg):
+            toks = generate(model, params, prompts, sc)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = delta(before)
+        ok = tuple(toks.shape) == (n, sc.max_len) and torch.equal(toks[:, :p], prompts.int())
+        del model, params, toks
+        torch.cuda.empty_cache()
+        tree = {e["name"]: e["attrs"] for e in reg.events if e["kind"] == "span"}
+        serve = record["serve"]
+        row = dict(spans=tree, counters={k: v for k, v in reg.counters.items()
+                                         if not k.startswith("kernel.")},
+                   kernel_calls=calls_of(reg.counters), launches=launches, s=gen_s,
+                   s_per_token=reg.gauges.get("serve.decode.s_per_token"),
+                   serve_phase_ms_per_token=serve["decode"]["ms_per_token"],
+                   serve_phase_ms_per_serve_step=serve["generate"]["ms_per_serve_step"],
+                   card=card)
+        out["generate"] = row
+        say("obs_generate", **row)
+        report("hymba generate", reg.report())
+        want_tree = {"serve/prefill": {"n": n, "tokens": p},
+                     "serve/decode": {"n": n, "tokens": sc.max_len - p}}
+        if (not ok or tree != want_tree
+                or row["counters"].get("serve.tokens") != n * (sc.max_len - p)
+                or row["counters"].get("serve.requests") != n
+                or not row["s_per_token"] or row["s_per_token"] <= 0):
+            fail(f"obs generate: spans {tree}, counters {row['counters']}, tokens ok {ok}")
+        if row["kernel_calls"] != launches or not (launches["wkv"]
+                                                  and launches["flash_attention"]):
+            fail(f"obs generate: kernel.calls {row['kernel_calls']}, launches {launches}")
+
+        # -- the ntk_apps launcher with --trace-jsonl ---------------------------------
+        trace = os.path.join(tmp, "ntk.jsonl")
+        before = ops.launch_counts()
+        ntk_launch.main(OBS["ntk_argv"] + ["--trace-jsonl", trace])
+        launches = delta(before)
+        events = load_jsonl(trace)
+        names = sorted({e["name"] for e in events if e["kind"] == "span"})
+        row = dict(argv=OBS["ntk_argv"], spans=names, kernel_calls=calls_of(summed(events)),
+                   launches=launches, card=card)
+        out["ntk_apps"] = row
+        say("obs_ntk_apps", **row)
+        report("ntk_apps --gp", render(events))
+        if not {"ntk_apps/gp_predict", "ntk_apps/kernel", "ntk_apps/kernel_solve"} <= set(names):
+            fail(f"obs ntk_apps: spans {names}")
+        if row["kernel_calls"] != launches or not launches["cross_dot"]:
+            fail(f"obs ntk_apps: kernel.calls {row['kernel_calls']}, launches {launches}")
+    out["launches"] = ops.launch_counts()
+    if obs.enabled():
+        fail("obs: a launcher left its registry enabled")
+    return out
+
+
 def main():
     import torch
 
@@ -4055,39 +4475,16 @@ def main():
     cfg_fused = ExtensionConfig(use_kernels=True, use_fused=True)
     cfg_pe = ExtensionConfig(use_kernels=True, use_fused=False)
 
-    def rel_errs(got, want, names):
-        """max |got − want| / max |want| per output; ``want`` may lie on the CPU."""
-        errs = {}
-        pairs = [("loss", [got.loss], [want.loss]), ("logits", [got.logits], [want.logits]),
-                 ("grads", tree_leaves(got.grads), tree_leaves(want.grads))]
-        pairs += [(e.name, tree_leaves(got.ext[e.name]), tree_leaves(want.ext[e.name]))
-                  for e in names]
-        # Variance = N·Σg² − (Σg)²: its rounding error scales with N·Σg².
-        scale = ({"variance": tree_leaves(want.ext["second_moment"])}
-                 if "variance" in got.ext else {})
-        for key, gs, ws in pairs:
-            err = 0.0
-            for i, (g, w) in enumerate(zip(gs, ws, strict=True)):
-                den = (scale[key][i] if key in scale else w).abs().max().item()
-                err = max(err, (g.to(w.device) - w).abs().max().item() / max(den, 1e-30))
-            errs[key] = err
-        return errs
-
-    def check_errs(label, errs, tol=TOL, **extra):
-        say("compare", label=label, tol=tol, rel_err=errs, **extra)
-        bad = {k: v for k, v in errs.items() if not v <= tol}
-        if bad:
-            fail(f"{label}: disagree {bad}")
-        return errs
-
     def compare(label, mdl, prm, xx, yy, names, rng, cfg_k=cfg_fused):
-        card = run(mdl, prm, xx, yy, loss, extensions=names, cfg=cfg_k, rng=rng)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cpu = run(mdl, tree_map(lambda p: p.cpu(), prm), xx.cpu(), yy.cpu(), loss,
-                  extensions=names, cfg=cfg_k, rng=rng)
-        return check_errs(label, rel_errs(card, cpu, names),
-                          cpu_s=time.perf_counter() - t0, batch=xx.shape[0])
+        """``card_vs_cpu``'s line, printed; fails on a sub-batch that flips
+        again or an output above ``TOL``."""
+        line = card_vs_cpu(torch, run, mdl, prm, xx, yy, loss, names, rng, cfg_k)
+        errs, refl = line.pop("rel_err"), line.pop("reflipped")
+        line.pop("bad")
+        if refl:
+            say("compare", label=label, tol=TOL, rel_err=errs, reflipped=refl, **line)
+            fail(f"{label}: the sub-batch without the flipped samples flips again: {refl}")
+        return check_errs(label, errs, **line)
 
     record["compare_c3d3"] = compare("c3d3 card vs cpu", model, params, x, y, exts, draws)
 
@@ -4256,8 +4653,7 @@ def main():
     del res_g, ntk, K, K2
 
     # -- 9b. the accumulated lane: the main path and the Gram family in slices
-    record["accumulated"] = accumulated_phase(torch, ops, model, params, loss, exts, gram_exts,
-                                              rel_errs, check_errs)
+    record["accumulated"] = accumulated_phase(torch, ops, model, params, loss, exts, gram_exts)
 
     # -- 9c. the matrix-free lane and its NTK consumers --------------------------
     record["matfree"] = matfree_phase(torch, ops, model, params, x, y, loss)
@@ -4340,7 +4736,8 @@ def main():
             ("train_lm", lambda: train_lm_phase(torch, ops)),  # training LMs
             ("whisper", lambda: whisper_phase(torch, ops)),  # the encoder-decoder
             ("moe", lambda: moe_phase(torch, ops)),  # the mixture of experts
-            ("mla", lambda: mla_phase(torch, ops))):  # MLA with routed and shared experts
+            ("mla", lambda: mla_phase(torch, ops)),  # MLA with routed and shared experts
+            ("obs", lambda: obs_phase(torch, ops, record))):  # the observability layer
         t0 = time.perf_counter()
         record[name] = phase()
         record["phase_s"][name] = time.perf_counter() - t0
@@ -4358,7 +4755,7 @@ def main():
     # --uncertainty calls; Whisper's encode, generate, run, KFAC, launcher
     # runs and the serving example; Granite's checked prefill call, generate,
     # run and launcher runs; DeepSeek-V2-Lite's checked prefill call, run and
-    # training runs).
+    # training runs; the observability phase, whole).
     lm_launches = {k: record["lm_run"]["launches"][k] + record["train_lm"]["launches"][k]
                    + record["whisper"]["launches"][k] + record["moe"]["launches"][k]
                    + record["mla"]["launches"][k] for k in ops.KERNELS}
@@ -4379,6 +4776,8 @@ def main():
                          flash_attention=attn,
                          wkv=record["serve"]["launches"]["wkv"]
                          + record["whisper"]["launches"]["wkv"])
+    # the observability phase's path: each kernel it runs, over the whole phase
+    path_launches = {k: v + record["obs"]["launches"][k] for k, v in path_launches.items()}
     table = []
     for k in ops.KERNELS:
         agg = per_kernel[k]

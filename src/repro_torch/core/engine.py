@@ -29,6 +29,15 @@ accumulated lanes; the batch-sharded lane is ROADMAP queue A item 12).
 ``run`` works on the device its tensors lie on; with ``cfg.use_kernels`` the
 reductions of CUDA tensors go through the Hopper kernels
 (:mod:`repro_torch.kernels.ops`).
+
+The :mod:`repro_torch.obs` spans are JAX's: ``engine/sweep`` around
+``SweepPlan.run`` (``lane="monolithic"``) and ``AccumulatedSweepPlan.run``
+(``lane="accumulated"``, with an ``engine/finalize`` child per carried
+extension); a :class:`SweepStream` driven unit by unit (``stream``,
+``run_checkpointed``, ``resume``) records ``engine/stream/slice`` and
+``engine/stream/pair`` a unit, the ``engine.stream.cursor`` gauge and
+``engine/finalize``.  JAX's accumulated ``run`` is one scan, so it records
+no unit spans; the port's runs the stream's units without theirs.
 """
 from __future__ import annotations
 
@@ -37,6 +46,8 @@ import hashlib
 from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
+
+from repro_torch import obs
 
 from .extensions import (
     Extension,
@@ -107,8 +118,9 @@ class SweepPlan:
             cfg: Optional[ExtensionConfig] = None, rng=None) -> "Results":
         """:func:`run` for this plan's extensions."""
         extensions = tuple(by_name(n) for n in sorted(self.names))
-        return run(model, params, inputs, targets, loss,
-                   extensions=extensions, cfg=cfg, rng=rng)
+        with obs.span("engine/sweep", lane="monolithic", extensions=",".join(sorted(self.names))):
+            return run(model, params, inputs, targets, loss,
+                       extensions=extensions, cfg=cfg, rng=rng)
 
 
 def plan_sweeps(extensions: Sequence[Extension],
@@ -565,8 +577,14 @@ class AccumulatedSweepPlan:
             cfg: Optional[ExtensionConfig] = None, rng=None) -> Results:
         """The accumulated :func:`run`: the same signature minus
         ``extensions`` (the plan carries them), the same Results."""
-        stream = SweepStream(self, model, params, inputs, targets, loss, cfg=cfg, rng=rng)
-        return _drive_stream(stream, None, 1, None)
+        n = tree_leaves(inputs)[0].shape[0]
+        with obs.span("engine/sweep", lane="accumulated", k=self.num_microbatches, n=n,
+                      extensions=",".join(sorted(self.plan.names))):
+            stream = SweepStream(self, model, params, inputs, targets, loss, cfg=cfg, rng=rng)
+            for unit in stream.units:
+                stream._run_unit(unit)
+            stream._cursor = len(stream.units)
+            return stream.result()
 
     def stream(self, model, params, inputs, targets, loss,
                cfg: Optional[ExtensionConfig] = None, rng=None) -> "SweepStream":
@@ -810,11 +828,22 @@ class SweepStream:
                              "holds the finalized Results")
         unit = self.units[self._cursor]
         if unit[0] == "slice":
+            t = unit[1]
+            span = obs.span("engine/stream/slice", t=t,
+                            rows=self.m if t < self.k_full else self.rem)
+        else:
+            span = obs.span("engine/stream/pair", off_p=unit[1], off_q=unit[2], rows_q=unit[3])
+        with span:
+            self._run_unit(unit)
+        self._cursor += 1
+        obs.gauge("engine.stream.cursor", self._cursor)
+        return self._cursor
+
+    def _run_unit(self, unit):
+        if unit[0] == "slice":
             self._do_slice(unit[1])
         else:
             self._do_pair(*unit[1:])
-        self._cursor += 1
-        return self._cursor
 
     def _do_slice(self, t):
         lo = t * self.m
@@ -941,7 +970,10 @@ class SweepStream:
             meta_fin["replay"] = lambda gbar, parts: _merge_stat_trees(
                 self.model.kfra_apply(self.params, gbar, parts, self.extensions,
                                       self.cfg)[1], "kfra")
-        ext = {nm: self.red[nm].finalize(st["carry"][nm], meta_fin) for nm in self.carry_names}
+        ext = {}
+        for nm in self.carry_names:
+            with obs.span("engine/finalize", ext=nm, reducer=self.red[nm].name):
+                ext[nm] = self.red[nm].finalize(st["carry"][nm], meta_fin)
         ext.update(st["rows"])
         ext.update(st["pair"])
         return Results(loss=st["loss"], grads=st["grads"], logits=st["logits"], ext=ext)

@@ -24,12 +24,17 @@ On the CPU autograd and ``torch.func`` reach the plain versions directly.
 Each kernel has a launch counter, a plain integer that the wrapper raises by
 one where it launches the kernel and nowhere else; :func:`launch_counts`
 reads them and :func:`reset_launch_counts` sets them to 0, so a run can show
-that it went through the kernels.
+that it went through the kernels.  Each entry point also counts
+``kernel.calls.<name>`` in :mod:`repro_torch.obs` once a call, on either
+device (JAX's ``dispatch`` counts the same); on the card a call launches its
+kernel once, so the counter moves with the launch count.
 
 The TPU registry's padding policy (``_pad_to``, ``_auto_block``,
 ``_auto_class_chunk``, ``_pad_factor_pair``) served the (8, 128) tiling and
 VMEM; the CUDA kernels mask their ragged edges themselves.  Its jit cache has
-no counterpart either: PyTorch runs eagerly.
+no counterpart either: PyTorch runs eagerly.  So JAX's
+``kernel.cache_hit.*``, ``kernel.cache_miss.*`` and
+``kernel.padding_waste_bytes.*`` counters have none.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ref
 from repro_torch.kernels.batch_l2 import batch_l2_cuda
 from repro_torch.kernels.cross_dot import cross_dot_cuda
@@ -80,6 +86,7 @@ def _on_card(kernel: str, *xs: torch.Tensor) -> bool:
 
 def sq_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """(A∘A)ᵀ(B∘B): A [N, a], B [N, b] → [a, b] float32."""
+    obs.count("kernel.calls.sq_matmul")
     if not _on_card("sq_matmul", A, B):
         return ref.sq_matmul(A, B)
     out = sq_matmul_cuda(A, B)
@@ -93,6 +100,7 @@ def fused_first_order(A, B, want_l2=True, want_moment=False, want_dot=False):
     l2 [E, N] / moment [E, a, b] / dot [E, N, N].  The Dense sweeps pass
     [N, R, a]; ``BatchedDense`` passes [E, cap, 1, a], its experts the group
     axis and its capacity slots the samples (R = 1)."""
+    obs.count("kernel.calls.fused_first_order")
     squeeze = A.dim() == 3
     if squeeze:
         A, B = A[None], B[None]
@@ -111,6 +119,7 @@ def fused_second_order(A, S, want_diag=True, want_kron=False,
                        want_trace=False):
     """Fused second-order stats: A [N, R, a], S [C, N, R, b] → the requested
     keys of diag [a, b] / kron [b, b] (unscaled SᵀS) / trace [N]."""
+    obs.count("kernel.calls.fused_second_order")
     wants = dict(want_diag=want_diag, want_kron=want_kron,
                  want_trace=want_trace)
     if not _on_card("fused_second_order", A, S):
@@ -122,6 +131,7 @@ def fused_second_order(A, S, want_diag=True, want_kron=False,
 
 def per_sample_moment(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Σ_n (A_nᵀB_n)∘²: A [N, R, a], B [N, R, b] → [a, b] float32."""
+    obs.count("kernel.calls.per_sample_moment")
     if not _on_card("per_sample_moment", A, B):
         return ref.per_sample_moment(A, B)
     out = per_sample_moment_cuda(A, B)
@@ -133,6 +143,7 @@ def batch_l2(A: torch.Tensor, B: torch.Tensor, form=None) -> torch.Tensor:
     """‖A_nᵀB_n‖²: A [N, R, a], B [N, R, b] → [N] float32.  On the card
     ``form`` (``"gram"`` or ``"g"``) overrides the kernel's choice of
     algorithm (:func:`repro_torch.kernels.batch_l2.batch_l2_form`)."""
+    obs.count("kernel.calls.batch_l2")
     if not _on_card("batch_l2", A, B):
         return ref.batch_l2(A, B)
     out = batch_l2_cuda(A, B, form)
@@ -142,6 +153,7 @@ def batch_l2(A: torch.Tensor, B: torch.Tensor, form=None) -> torch.Tensor:
 
 def ggn_diag(A: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     """Σ_cn (A_nᵀS_cn)∘²: A [N, R, a], S [C, N, R, b] → [a, b] float32."""
+    obs.count("kernel.calls.ggn_diag")
     if not _on_card("ggn_diag", A, S):
         return ref.ggn_diag(A, S)
     out = ggn_diag_cuda(A, S)
@@ -167,6 +179,7 @@ def cross_dot(A1, B1, A2, B2) -> torch.Tensor:
     p mod N/k), so the NTK and GGNGram read the layer input without a
     broadcast copy.
     """
+    obs.count("kernel.calls.cross_dot")
     squeeze = B1.dim() == 3
     if squeeze:
         A1, B1, A2, B2 = A1[None], B1[None], A2[None], B2[None]
@@ -183,6 +196,7 @@ def predictive_var(A: torch.Tensor, S: torch.Tensor, Sigma=None) -> torch.Tensor
     """GLM predictive variance [C, N]: A [N, R, a], S [C, N, R, b], with the
     squared Jacobian weighted by ``Sigma`` [a, b] (a diagonal posterior) or
     not (a Kronecker posterior's half-transformed inputs)."""
+    obs.count("kernel.calls.predictive_var")
     xs = (A, S) if Sigma is None else (A, S, Sigma)
     if not _on_card("predictive_var", *xs):
         return ref.predictive_var(A, S, Sigma)
@@ -370,6 +384,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_positions=None,
     [N, T, H, dh], k [N, S, KV, dh], v [N, S, KV, dv] → [N, T, H, dv] in q's
     dtype, with optional positions q_positions [T] / k_positions [S] (slots
     < 0 empty)."""
+    obs.count("kernel.calls.flash_attention")
     kw = dict(causal=causal, window=window, scale=scale)
     xs = [x for x in (q, k, v, q_positions, k_positions) if x is not None]
     if not _on_card("flash_attention", *xs):
@@ -383,6 +398,7 @@ def wkv(r, k, v, log_w, u=None, state0=None, chunk=16):
     ``chunk`` that divides T): r, k [N, T, H, dk], v [N, T, H, dv], log_w
     [N, T, H, dk or 1], u [H, dk] or None, state0 [N, H, dk, dv] or None →
     (y in r's dtype, state float32)."""
+    obs.count("kernel.calls.wkv")
     xs = [x for x in (r, k, v, log_w, u, state0) if x is not None]
     if not _on_card("wkv", *xs):
         return ref.wkv(r, k, v, log_w, u, state0, chunk)

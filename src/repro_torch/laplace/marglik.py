@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engine import refuse_mesh
 from repro_torch.core.loss_hessian import MSELoss, _f32
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -78,8 +79,9 @@ def log_marglik_matfree(model, params, inputs, targets, loss, *, prior_prec: flo
         gv = op.mv(v)
         return tree_map(lambda vi, gi: _f32(vi) + (scale / delta) * _f32(gi), v, gv)
 
-    slq = slq_logdet(mv_ratio, params, rng=rng, probes=probes, iters=iters,
-                     probe_vectors=probe_vectors)
+    with obs.span("laplace/marglik_matfree", probes=probes, iters=iters):
+        slq = slq_logdet(mv_ratio, params, rng=rng, probes=probes, iters=iters,
+                         probe_vectors=probe_vectors)
     ld_ratio = slq.logdet
     if regression:
         n_out = m * z.shape[-1]
@@ -136,20 +138,21 @@ def optimize_marglik(post, n_steps: int = 100, lr: float = 0.1,
     m = torch.zeros_like(theta)
     v = torch.zeros_like(theta)
     hist = []
-    for step in range(1, n_steps + 1):
-        th = theta.detach().requires_grad_(True)
-        sigma = torch.exp(th[1]) if tune_sigma else f32(s0)
-        val = -log_marglik(inner, torch.exp(th[0]), sigma)
-        (g,) = torch.autograd.grad(val, th)
-        if not tune_sigma:
-            g = g * f32([1.0, 0.0])
-        t = f32(float(step))
-        m = 0.9 * m + 0.1 * g
-        v = 0.999 * v + 0.001 * g * g
-        mh = m / (1.0 - torch.pow(f32(0.9), t))
-        vh = v / (1.0 - torch.pow(f32(0.999), t))
-        theta = theta - lr * mh / (torch.sqrt(vh) + 1e-8)
-        hist.append(-val.detach())
+    with obs.span("laplace/marglik", n_steps=n_steps, tune_sigma=bool(tune_sigma)):
+        for step in range(1, n_steps + 1):
+            th = theta.detach().requires_grad_(True)
+            sigma = torch.exp(th[1]) if tune_sigma else f32(s0)
+            val = -log_marglik(inner, torch.exp(th[0]), sigma)
+            (g,) = torch.autograd.grad(val, th)
+            if not tune_sigma:
+                g = g * f32([1.0, 0.0])
+            t = f32(float(step))
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            mh = m / (1.0 - torch.pow(f32(0.9), t))
+            vh = v / (1.0 - torch.pow(f32(0.999), t))
+            theta = theta - lr * mh / (torch.sqrt(vh) + 1e-8)
+            hist.append(-val.detach())
     new_prior = float(torch.exp(theta[0]))
     new_sigma = float(torch.exp(theta[1])) if tune_sigma else s0
     new_inner = dataclasses.replace(inner, prior_prec=new_prior, sigma_noise=new_sigma)

@@ -35,6 +35,7 @@ from typing import Any, ClassVar, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import kron as K
 from repro_torch.core.engine import AccumulatedSweepPlan, plan_for_batch, plan_sweeps
 from repro_torch.core.extensions import KFAC, KFLR, DiagGGN, DiagGGNMC, ExtensionConfig
@@ -163,21 +164,23 @@ def _run_sweep(model, params, x, y, loss, extensions, cfg, rng, mesh, shard_axes
     n = tree_leaves(x)[0].shape[0]
     plan = plan_for_batch(extensions, cfg, n, mesh=mesh, shard_axes=shard_axes,
                           microbatch_size=microbatch_size)
-    if ckpt_dir is None:
-        return plan.run(model, params, x, y, loss, cfg=cfg, rng=rng)
-    if not isinstance(plan, AccumulatedSweepPlan):
-        raise LaplaceStructureError(
-            "laplace: ckpt_dir needs the streaming accumulated sweep "
-            "lane — pass microbatch_size (or cfg.microbatch_size) small "
-            "enough to split the fit batch into more than one slice, so "
-            "the sweep has checkpointable work units "
-            f"(plan: {plan.describe()})")
-    from repro_torch.train.checkpoint import SweepCheckpointer
+    with obs.span("laplace/fit_sweep", n=n,
+                  extensions=",".join(sorted(e.name for e in extensions))):
+        if ckpt_dir is None:
+            return plan.run(model, params, x, y, loss, cfg=cfg, rng=rng)
+        if not isinstance(plan, AccumulatedSweepPlan):
+            raise LaplaceStructureError(
+                "laplace: ckpt_dir needs the streaming accumulated sweep "
+                "lane — pass microbatch_size (or cfg.microbatch_size) small "
+                "enough to split the fit batch into more than one slice, so "
+                "the sweep has checkpointable work units "
+                f"(plan: {plan.describe()})")
+        from repro_torch.train.checkpoint import SweepCheckpointer
 
-    return plan.run_checkpointed(
-        model, params, x, y, loss, cfg=cfg, rng=rng,
-        checkpointer=SweepCheckpointer(ckpt_dir), checkpoint_every=checkpoint_every,
-        injector=injector, resume=resume)
+        return plan.run_checkpointed(
+            model, params, x, y, loss, cfg=cfg, rng=rng,
+            checkpointer=SweepCheckpointer(ckpt_dir), checkpoint_every=checkpoint_every,
+            injector=injector, resume=resume)
 
 
 def _is_kron_block(node) -> bool:
@@ -628,12 +631,13 @@ def fit_posterior(model, params, x, y, loss, *, structure: str = "diag",
         the layer structure it needs.
     """
     o = _merge_fit_options(options, legacy, "fit_posterior")
-    if last_layer:
-        return LastLayerLaplace.fit(model, params, x, y, loss, structure=structure,
-                                    options=o)
-    cls = {"diag": DiagLaplace, "kron": KronLaplace}.get(structure)
-    if cls is None:
-        raise LaplaceStructureError(
-            f"fit_posterior: unknown structure '{structure}' "
-            "(expected 'diag' or 'kron')")
-    return cls.fit(model, params, x, y, loss, options=o)
+    with obs.span("laplace/fit", structure=structure, last_layer=last_layer):
+        if last_layer:
+            return LastLayerLaplace.fit(model, params, x, y, loss, structure=structure,
+                                        options=o)
+        cls = {"diag": DiagLaplace, "kron": KronLaplace}.get(structure)
+        if cls is None:
+            raise LaplaceStructureError(
+                f"fit_posterior: unknown structure '{structure}' "
+                "(expected 'diag' or 'kron')")
+        return cls.fit(model, params, x, y, loss, options=o)

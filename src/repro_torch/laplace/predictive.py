@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.loss_hessian import _f32_dtype
 from repro_torch.core.module import Dense, Sequential, _f32, _nra
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -196,12 +197,13 @@ def glm_predictive(model, params, posterior, x, *, use_kernels: bool = True):
         return glm_predictive(head, h_params, posterior.inner, phi, use_kernels=use_kernels)
     if isinstance(model, Dense) and x.dim() == 2:
         return _dense_glm_closed_form(model, params, posterior, x)
-    z, tape = model.forward_tape(params, x)
-    S0 = _output_factor(z)
-    var0 = torch.zeros((z.shape[-1], z.shape[0]), dtype=_f32_dtype(z), device=z.device)
-    _, var = _var_sweep(model, params, tape, S0, posterior.layer_blocks(), posterior,
-                        use_kernels, var0)
-    return z, var.T
+    with obs.span("laplace/predictive/glm", n=x.shape[0], use_kernels=use_kernels):
+        z, tape = model.forward_tape(params, x)
+        S0 = _output_factor(z)
+        var0 = torch.zeros((z.shape[-1], z.shape[0]), dtype=_f32_dtype(z), device=z.device)
+        _, var = _var_sweep(model, params, tape, S0, posterior.layer_blocks(), posterior,
+                            use_kernels, var0)
+        return z, var.T
 
 
 @torch.no_grad()
@@ -209,10 +211,11 @@ def mc_predictive(model, params, posterior, x, rng, n_samples: int = 30):
     """Monte-Carlo predictive over posterior weight samples: (mean [N, C],
     variance [N, C]) of the sampled outputs.  ``rng`` is what the
     posterior's ``sample`` takes (a ``torch.Generator`` or the draws)."""
-    thetas = posterior.sample(rng, n_samples)
-    zs = torch.stack([_f32(model.call(tree_map(lambda leaf, k=k: leaf[k], thetas), x))
-                      for k in range(n_samples)])
-    return zs.mean(dim=0), zs.var(dim=0, unbiased=False)
+    with obs.span("laplace/predictive/mc", n=x.shape[0], n_samples=n_samples):
+        thetas = posterior.sample(rng, n_samples)
+        zs = torch.stack([_f32(model.call(tree_map(lambda leaf, k=k: leaf[k], thetas), x))
+                          for k in range(n_samples)])
+        return zs.mean(dim=0), zs.var(dim=0, unbiased=False)
 
 
 def probit_predictive(mean, var):

@@ -8,9 +8,11 @@
 Runs the requested consumer on a papernets model (weights from a generator
 seeded 0) over synthetic data drawn from a ``torch.Generator`` seeded 1, on
 the card unless ``--device cpu`` is given.  ``--microbatches`` streams the
-Jacobian sweep in row blocks.  Port of ``src/repro/launch/ntk_apps.py``:
-``--shard-sweep`` (the sharded lane) is ROADMAP queue A item 12 and
-``--trace-jsonl`` (the ``obs`` trace) item 11; both raise.
+Jacobian sweep in row blocks; ``--trace-jsonl FILE`` records the
+:mod:`repro_torch.obs` trace of the run (``ntk_apps/*`` spans; render it
+with ``python -m repro_torch.obs.reporting FILE``).  Port of
+``src/repro/launch/ntk_apps.py``: ``--shard-sweep`` (the sharded lane) is
+ROADMAP queue A item 12 and raises.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import argparse
 
 import torch
 
-from repro_torch import ntk_apps
+from repro_torch import ntk_apps, obs
 from repro_torch.configs import papernets
 from repro_torch.core import CrossEntropyLoss, ExtensionConfig
 from repro_torch.core.module import resolve_device
@@ -65,8 +67,17 @@ def main(argv=None):
         raise NotImplementedError("--shard-sweep (the sharded lane) is still to port: "
                                   "ROADMAP queue A item 12")
     if args.trace_jsonl:
-        raise NotImplementedError("--trace-jsonl (the obs span trace) is still to port: "
-                                  "ROADMAP queue A item 11")
+        obs.enable(trace_jsonl=args.trace_jsonl)
+    try:
+        _run(args)
+    finally:
+        if args.trace_jsonl:
+            obs.disable()  # close the sink so the trace file is complete
+    if args.trace_jsonl:
+        print(f"[obs] trace written to {args.trace_jsonl}")
+
+
+def _run(args):
     device = resolve_device(args.device)
     init = torch.Generator().manual_seed(0)
     if args.model == "logreg":

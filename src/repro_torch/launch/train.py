@@ -12,22 +12,30 @@ the paper's curvature-preconditioned step with ``diag_ggn_mc`` or ``kfac``
 returns the run: its config, shape, model, trained parameters, history (a
 dict of floats a step) and watchdog.
 
+``--trace-jsonl FILE`` records the :mod:`repro_torch.obs` trace (render it
+with ``python -m repro_torch.obs.reporting FILE``), ``--metrics-report``
+prints the measured span tree and counters after training, and
+``--profile-dir DIR`` writes a ``torch.profiler`` trace of the training
+(host and card) to ``DIR/trace.json``, with each span a named range.
+
 Port of ``src/repro/launch/train.py``: ``--shard-sweep`` (the sharded lane)
-is ROADMAP queue A item 12, and ``--trace-jsonl``, ``--metrics-report`` and
-``--profile-dir`` (the ``obs`` layer) item 11; each raises.
+is ROADMAP queue A item 12 and raises.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.core import KFAC, CrossEntropyLoss, DiagGGNMC, ExtensionConfig, Variance
 from repro_torch.core.module import resolve_device
 from repro_torch.nn.models import build_model
+from repro_torch.obs.profile import TRACE_FILE
 from repro_torch.optim import adamw, curvature_optimizer, make_cg_ngd_step, momentum_sgd
 from repro_torch.train.fault import FailureInjector
 from repro_torch.train.loop import LoopConfig, fit, fit_with_restarts
@@ -100,20 +108,36 @@ def main(argv=None):
                          "identical numbers, activation memory bounded by "
                          "the microbatch")
     ap.add_argument("--trace-jsonl", default=None,
-                    help="record an observability trace to this file")
+                    help="record an observability trace (spans / counters / gauges, one "
+                         "JSON object per line) to this file; render it with "
+                         "'python -m repro_torch.obs.reporting FILE'")
     ap.add_argument("--metrics-report", action="store_true",
-                    help="print the measured span tree + counters after training")
+                    help="print the measured span tree + counters after training "
+                         "(obs.report())")
     ap.add_argument("--profile-dir", default=None,
-                    help="capture a device trace of the run into this directory")
+                    help="capture a torch.profiler trace of the training (host and "
+                         "card) into DIR/trace.json (view with Perfetto)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     if args.shard_sweep:
         raise NotImplementedError("--shard-sweep (the sharded lane) is still to port: "
                                   "ROADMAP queue A item 12")
-    if args.trace_jsonl or args.metrics_report or args.profile_dir:
-        raise NotImplementedError("--trace-jsonl, --metrics-report and --profile-dir (the "
-                                  "obs layer) are still to port: ROADMAP queue A item 11")
+    recording = bool(args.trace_jsonl or args.metrics_report or args.profile_dir)
+    if recording:
+        obs.enable(trace_jsonl=args.trace_jsonl)
+    try:
+        run = _train(args)
+    finally:
+        if recording:
+            obs.disable()  # close the sink so the trace file is complete
+    if args.trace_jsonl:
+        print(f"[obs] trace written to {args.trace_jsonl} — render with "
+              f"'python -m repro_torch.obs.reporting {args.trace_jsonl}'")
+    return run
+
+
+def _train(args):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:
@@ -143,17 +167,22 @@ def main(argv=None):
     opt = run.pop("opt")
     kw = dict(run, injector=injector)
     t0 = time.perf_counter()
-    if args.max_restarts > 0:
-        (params, _, hist, wd), restarts = fit_with_restarts(
-            model, cfg, shape, opt, loop, max_restarts=args.max_restarts,
-            on_restart=lambda i, e: print(f"[restart {i}] after: {e}"), **kw)
-        print(f"[fault] completed with {restarts} restart(s)")
-    else:
-        params, _, hist, wd = fit(model, cfg, shape, opt, loop, resume=args.resume, **kw)
+    with obs.profile(args.profile_dir, cuda=device.type == "cuda"):
+        if args.max_restarts > 0:
+            (params, _, hist, wd), restarts = fit_with_restarts(
+                model, cfg, shape, opt, loop, max_restarts=args.max_restarts,
+                on_restart=lambda i, e: print(f"[restart {i}] after: {e}"), **kw)
+            print(f"[fault] completed with {restarts} restart(s)")
+        else:
+            params, _, hist, wd = fit(model, cfg, shape, opt, loop, resume=args.resume, **kw)
     print(f"final loss {hist[-1]['loss']:.4f} "
           f"(stragglers flagged: {len(wd.straggler_steps)}; {cfg.name}, "
           f"{cfg.n_layers} layers, {cfg.dtype}, on {device}, "
           f"{time.perf_counter() - t0:.1f} s)")
+    if args.profile_dir:
+        print(f"[obs] torch.profiler trace in {os.path.join(args.profile_dir, TRACE_FILE)}")
+    if args.metrics_report:
+        print(obs.report())
     return dict(cfg=cfg, shape=shape, model=model, params=params, history=hist, watchdog=wd)
 
 

@@ -11,8 +11,9 @@
   extracted kernels, greedy max-diversity and BAIT.
 
 Every entry point takes ``microbatches=k`` (the accumulated lane, and the
-products streamed).  Port of ``src/repro/ntk_apps``; ``mesh=`` raises
-(ROADMAP queue A item 12), and the ``obs`` spans are item 11's.
+products streamed).  Port of ``src/repro/ntk_apps``, with its
+:mod:`repro_torch.obs` spans (``ntk_apps/*``, ``sharded=False``); ``mesh=``
+raises (ROADMAP queue A item 12).
 """
 from .influence import InfluenceResult, influence_scores, self_influence
 from .regression import GPPredictive, KernelSolveInfo, gp_predict, kernel_solve, ntk_kernel

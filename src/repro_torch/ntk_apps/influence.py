@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engine import plan_sweeps, refuse_mesh
 from repro_torch.core.extensions import BatchGrad, ExtensionConfig
 from repro_torch.core.loss_hessian import _f32
@@ -86,14 +87,20 @@ def influence_scores(model, params, x_train, y_train, x_test, y_test, loss, *,
     """``scores[i, j] = ∇ℓ_train_iᵀ (G + δI)⁻¹ ∇ℓ_test_j`` for every train
     and test point, by one batched CG solve over the test gradients."""
     refuse_mesh("influence_scores", mesh, shard_axes)
-    cfg = _with_microbatches(cfg, _batch_rows(x_train), microbatches)
-    g_test = per_sample_grads(model, params, x_test, y_test, loss, cfg=cfg,
-                              microbatches=microbatches, rng=rng)
-    sol = _solve_curvature(model, params, x_train, y_train, loss, g_test, damping=damping,
-                           cfg=cfg, cg_tol=cg_tol, cg_maxiter=cg_maxiter)
-    g_train = per_sample_grads(model, params, x_train, y_train, loss, cfg=cfg,
-                               microbatches=microbatches, rng=rng)
-    return InfluenceResult(scores=_dots(g_train, sol.x), iters=sol.iters, resid=sol.resid)
+    n_train = _batch_rows(x_train)
+    cfg = _with_microbatches(cfg, n_train, microbatches)
+    with obs.span("ntk_apps/influence", n_train=n_train, n_test=_batch_rows(x_test),
+                  microbatches=microbatches or 1):
+        g_test = per_sample_grads(model, params, x_test, y_test, loss, cfg=cfg,
+                                  microbatches=microbatches, rng=rng)
+        with obs.span("ntk_apps/influence/solve"):
+            sol = _solve_curvature(model, params, x_train, y_train, loss, g_test,
+                                   damping=damping, cfg=cfg, cg_tol=cg_tol,
+                                   cg_maxiter=cg_maxiter)
+        g_train = per_sample_grads(model, params, x_train, y_train, loss, cfg=cfg,
+                                   microbatches=microbatches, rng=rng)
+        scores = _dots(g_train, sol.x)
+    return InfluenceResult(scores=scores, iters=sol.iters, resid=sol.resid)
 
 
 def self_influence(model, params, x_train, y_train, loss, *, damping: float = 1e-3,
@@ -105,10 +112,14 @@ def self_influence(model, params, x_train, y_train, loss, *, damping: float = 1e
     refuse_mesh("self_influence", mesh, shard_axes)
     n_train = _batch_rows(x_train)
     cfg = _with_microbatches(cfg, n_train, microbatches)
-    g_train = per_sample_grads(model, params, x_train, y_train, loss, cfg=cfg,
-                               microbatches=microbatches, rng=rng)
-    sol = _solve_curvature(model, params, x_train, y_train, loss, g_train, damping=damping,
-                           cfg=cfg, cg_tol=cg_tol, cg_maxiter=cg_maxiter)
-    rows = torch.stack([(g.reshape(n_train, -1) * s.reshape(n_train, -1)).sum(1)
-                        for g, s in zip(tree_leaves(g_train), tree_leaves(sol.x), strict=True)])
+    with obs.span("ntk_apps/self_influence", n_train=n_train, microbatches=microbatches or 1):
+        g_train = per_sample_grads(model, params, x_train, y_train, loss, cfg=cfg,
+                                   microbatches=microbatches, rng=rng)
+        with obs.span("ntk_apps/influence/solve"):
+            sol = _solve_curvature(model, params, x_train, y_train, loss, g_train,
+                                   damping=damping, cfg=cfg, cg_tol=cg_tol,
+                                   cg_maxiter=cg_maxiter)
+        rows = torch.stack([(g.reshape(n_train, -1) * s.reshape(n_train, -1)).sum(1)
+                            for g, s in zip(tree_leaves(g_train), tree_leaves(sol.x),
+                                            strict=True)])
     return InfluenceResult(scores=rows.sum(0), iters=sol.iters, resid=sol.resid)

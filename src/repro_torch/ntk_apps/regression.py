@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.engine import ntk_total, plan_sweeps, refuse_mesh
 from repro_torch.core.extensions import NTK, ExtensionConfig
 from repro_torch.core.loss_hessian import _f32
@@ -71,7 +72,9 @@ def ntk_kernel(model, params, inputs, targets, loss, *, cfg=None, mesh=None,
     plan = plan_sweeps((NTK,), cfg)
     if microbatches and microbatches > 1:
         plan = plan.accumulate(microbatches)
-    res = plan.run(model, params, inputs, targets, loss, cfg=cfg, rng=rng)
+    with obs.span("ntk_apps/kernel", n=_batch_rows(inputs), sharded=False,
+                  microbatches=microbatches or 1):
+        res = plan.run(model, params, inputs, targets, loss, cfg=cfg, rng=rng)
     return ntk_total(res.ext["ntk"])
 
 
@@ -92,38 +95,39 @@ def kernel_solve(K, B, *, ridge: float, solver: str = "cholesky",
     lam = float(ridge)
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     it = 0
-    if solver == "cholesky":
-        X = torch.cholesky_solve(B, torch.linalg.cholesky(K + lam * eye))
-    elif solver == "eigh":
-        evals, U = torch.linalg.eigh(K)
-        if rank is None:
-            X = U @ ((U.T @ B) / (evals + lam)[:, None])
+    with obs.span("ntk_apps/kernel_solve", solver=solver, n=n, rank=rank or 0):
+        if solver == "cholesky":
+            X = torch.cholesky_solve(B, torch.linalg.cholesky(K + lam * eye))
+        elif solver == "eigh":
+            evals, U = torch.linalg.eigh(K)
+            if rank is None:
+                X = U @ ((U.T @ B) / (evals + lam)[:, None])
+            else:
+                top = torch.argsort(evals, descending=True)[:rank]
+                Ur, lr = U[:, top], evals[top]
+                proj = Ur.T @ B
+                # top-r eigenspace solved spectrally, the tail at ridge only
+                X = Ur @ (proj / (lr + lam)[:, None]) + (B - Ur @ proj) / lam
+        elif solver == "lanczos":
+            if rank is None:
+                raise ValueError("kernel_solve: solver='lanczos' needs rank=")
+            start = dict(v0=rng) if isinstance(rng, torch.Tensor) else dict(rng=rng)
+            top = lanczos_topk(lambda v: K @ v, torch.zeros(n, dtype=K.dtype, device=K.device),
+                               k=rank, iters=iters, **start)
+            Ur = top.eigvecs.T                          # [n, r]
+            inv = 1.0 / (top.eigvals + lam)             # [r]
+
+            def precond(R):                             # R: [C, n] batched rows
+                proj = R @ Ur                           # [C, r]
+                return (proj * inv) @ Ur.T + (R - proj @ Ur.T) / lam
+
+            result = cg_solve(lambda X: X @ K + lam * X, B.T, tol=cg_tol, maxiter=cg_maxiter,
+                              precond=precond, batched=True)
+            X, it = result.x.T, result.iters
         else:
-            top = torch.argsort(evals, descending=True)[:rank]
-            Ur, lr = U[:, top], evals[top]
-            proj = Ur.T @ B
-            # top-r eigenspace solved spectrally, the tail at ridge only
-            X = Ur @ (proj / (lr + lam)[:, None]) + (B - Ur @ proj) / lam
-    elif solver == "lanczos":
-        if rank is None:
-            raise ValueError("kernel_solve: solver='lanczos' needs rank=")
-        start = dict(v0=rng) if isinstance(rng, torch.Tensor) else dict(rng=rng)
-        top = lanczos_topk(lambda v: K @ v, torch.zeros(n, dtype=K.dtype, device=K.device),
-                           k=rank, iters=iters, **start)
-        Ur = top.eigvecs.T                          # [n, r]
-        inv = 1.0 / (top.eigvals + lam)             # [r]
-
-        def precond(R):                             # R: [C, n] batched rows
-            proj = R @ Ur                           # [C, r]
-            return (proj * inv) @ Ur.T + (R - proj @ Ur.T) / lam
-
-        result = cg_solve(lambda X: X @ K + lam * X, B.T, tol=cg_tol, maxiter=cg_maxiter,
-                          precond=precond, batched=True)
-        X, it = result.x.T, result.iters
-    else:
-        raise ValueError(f"kernel_solve: unknown solver {solver!r} "
-                         "(want 'cholesky', 'eigh' or 'lanczos')")
-    resid = torch.linalg.norm(K @ X + lam * X - B) / torch.linalg.norm(B).clamp_min(1e-30)
+            raise ValueError(f"kernel_solve: unknown solver {solver!r} "
+                             "(want 'cholesky', 'eigh' or 'lanczos')")
+        resid = torch.linalg.norm(K @ X + lam * X - B) / torch.linalg.norm(B).clamp_min(1e-30)
     if squeeze:
         X = X[:, 0]
     return X, KernelSolveInfo(method=solver, rank=rank, iters=it, resid=resid)
@@ -152,25 +156,26 @@ def gp_predict(model, params, x_train, y_train, x_test, loss, *,
     y_all = tree_map(lambda a: torch.cat(
         [a, torch.zeros((n_test,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)]),
         y_train)
-    K = ntk_kernel(model, params, inputs, y_all, loss, cfg=cfg, microbatches=microbatches)
-    Ktt = K[:n_train, :n_train]
-    Kst = K[n_train:, :n_train]
-    Kss = K[n_train:, n_train:]
+    with obs.span("ntk_apps/gp_predict", n_train=n_train, n_test=n_test, solver=solver):
+        K = ntk_kernel(model, params, inputs, y_all, loss, cfg=cfg, microbatches=microbatches)
+        Ktt = K[:n_train, :n_train]
+        Kst = K[n_train:, :n_train]
+        Kss = K[n_train:, n_train:]
 
-    if targets is not None:
-        Y = _f32(torch.as_tensor(targets))
-    elif not y_train.dtype.is_floating_point:
-        with torch.no_grad():
-            n_classes = model.call(params, tree_map(lambda a: a[:1], x_train)).shape[-1]
-        Y = F.one_hot(y_train.long(), n_classes).to(K.dtype)
-    else:
-        Y = _f32(y_train)
+        if targets is not None:
+            Y = _f32(torch.as_tensor(targets))
+        elif not y_train.dtype.is_floating_point:
+            with torch.no_grad():
+                n_classes = model.call(params, tree_map(lambda a: a[:1], x_train)).shape[-1]
+            Y = F.one_hot(y_train.long(), n_classes).to(K.dtype)
+        else:
+            Y = _f32(y_train)
 
-    kw = dict(ridge=ridge, solver=solver, rank=rank, iters=iters, cg_tol=cg_tol,
-              cg_maxiter=cg_maxiter, rng=rng)
-    alpha, info = kernel_solve(Ktt, Y, **kw)
-    mean = Kst @ alpha
-    # posterior variance: one more solve against the cross block
-    W, _ = kernel_solve(Ktt, Kst.T, **kw)
-    var = torch.diagonal(Kss) - torch.einsum("sn,ns->s", Kst, W)
+        kw = dict(ridge=ridge, solver=solver, rank=rank, iters=iters, cg_tol=cg_tol,
+                  cg_maxiter=cg_maxiter, rng=rng)
+        alpha, info = kernel_solve(Ktt, Y, **kw)
+        mean = Kst @ alpha
+        # posterior variance: one more solve against the cross block
+        W, _ = kernel_solve(Ktt, Kst.T, **kw)
+        var = torch.diagonal(Kss) - torch.einsum("sn,ns->s", Kst, W)
     return GPPredictive(mean=mean, var=var, alpha=alpha, kernel=K, info=info)

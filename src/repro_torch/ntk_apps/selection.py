@@ -25,9 +25,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engine import gram_total, ntk_total, plan_sweeps, refuse_mesh
 from repro_torch.core.extensions import NTK, ExtensionConfig, GGNGram
 from repro_torch.core.loss_hessian import _f32
+from repro_torch.core.tree import tree_leaves
 
 
 class SelectionResult(NamedTuple):
@@ -122,11 +124,14 @@ def select_subset(model, params, inputs, targets, loss, k: int, *,
     plan = plan_sweeps((NTK if method == "diversity" else GGNGram,), cfg)
     if microbatches and microbatches > 1:
         plan = plan.accumulate(microbatches)
-    res = plan.run(model, params, inputs, targets, loss, cfg=cfg, rng=rng)
-    if method == "diversity":
-        K = ntk_total(res.ext["ntk"])
-        idx, scores = greedy_max_diversity(K, k, jitter=jitter)
-    else:
-        K = gram_total(res.ext["ggn_gram"])
-        idx, scores = bait_select(K, k, lam=lam)
+    n = tree_leaves(inputs)[0].shape[0]
+    with obs.span("ntk_apps/select_subset", method=method, n=n, k=k, sharded=False,
+                  microbatches=microbatches or 1):
+        res = plan.run(model, params, inputs, targets, loss, cfg=cfg, rng=rng)
+        if method == "diversity":
+            K = ntk_total(res.ext["ntk"])
+            idx, scores = greedy_max_diversity(K, k, jitter=jitter)
+        else:
+            K = gram_total(res.ext["ggn_gram"])
+            idx, scores = bait_select(K, k, lam=lam)
     return SelectionResult(indices=idx, scores=scores, kernel=K)

@@ -5,15 +5,24 @@ decode loop with greedy/temperature sampling and per-sequence EOS tracking
 (finished slots keep decoding token 0: the static-shape analogue of
 continuous batching's slot reuse).  Where JAX scans, the port loops in
 Python, one ``serve_step`` a position.  ``generate_whisper`` serves the
-encoder-decoder: the frames encoded once, then greedy decode.  The ``obs``
-spans and gauges wait for the observability layer (ROADMAP queue A item 11).
+encoder-decoder: the frames encoded once, then greedy decode.
+
+``generate`` records JAX's :mod:`repro_torch.obs` spans ``serve/prefill``
+and ``serve/decode``; with the registry enabled it waits for the card at the
+end of the decode (JAX's ``block_until_ready``), so the span and the
+``serve.decode.s_per_token`` gauge measure the decode's completion, and
+counts ``serve.requests`` and ``serve.tokens``.  Disabled, ``generate``
+adds no synchronization.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
+
+from repro_torch import obs
 
 
 @dataclasses.dataclass
@@ -51,7 +60,8 @@ def generate(model, params, prompts, cfg: ServeConfig,
     n, p = prompts.shape
     prompts = prompts.to(torch.int32)
     caches = model.init_serve_cache(params, n, cfg.max_len, getattr(torch, cfg.cache_dtype))
-    caches, logits = prefill(model, params, caches, prompts, p)
+    with obs.span("serve/prefill", n=n, tokens=int(p)):
+        caches, logits = prefill(model, params, caches, prompts, p)
     if rng is None:
         rng = torch.Generator(device=prompts.device).manual_seed(0)
 
@@ -63,12 +73,25 @@ def generate(model, params, prompts, cfg: ServeConfig,
 
     done = torch.zeros((n,), dtype=torch.bool, device=prompts.device)
     toks = []
-    for t in range(p, cfg.max_len):
-        tok = sample(logits)
-        tok = torch.where(done, torch.zeros_like(tok), tok)
-        done = done | (tok == cfg.eos_id)
-        logits, caches = model.serve_step(params, caches, tok, t)
-        toks.append(tok)
+    n_decode = cfg.max_len - p
+    reg = obs.get()
+    with obs.span("serve/decode", n=n, tokens=int(n_decode)):
+        t0 = time.perf_counter() if reg.enabled else 0.0
+        for t in range(p, cfg.max_len):
+            tok = sample(logits)
+            tok = torch.where(done, torch.zeros_like(tok), tok)
+            done = done | (tok == cfg.eos_id)
+            logits, caches = model.serve_step(params, caches, tok, t)
+            toks.append(tok)
+        if reg.enabled:
+            # wait for the decode, so the span and the gauge measure its
+            # completion and not its dispatch (the serving latency)
+            if prompts.is_cuda:
+                torch.cuda.synchronize(prompts.device)
+            dt = time.perf_counter() - t0
+            reg.count("serve.requests", n)
+            reg.count("serve.tokens", n * int(n_decode))
+            reg.gauge("serve.decode.s_per_token", dt / max(int(n_decode), 1))
     if not toks:
         return prompts
     return torch.cat([prompts, torch.stack(toks, dim=1)], dim=1)

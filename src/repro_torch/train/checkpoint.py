@@ -9,7 +9,10 @@ moves them to its device (``SweepStream.load_state`` does).
 Port of ``src/repro/train/checkpoint.py``.  The tree structure is recorded in
 the manifest as JSON (dict keys sorted, as
 :func:`~repro_torch.core.tree.tree_leaves` orders the leaves) and checked on
-restore, with every leaf's shape.
+restore, with every leaf's shape.  :mod:`repro_torch.obs` records JAX's
+``ckpt/save`` (``bytes``, the saved arrays' sum, and ``arrays``) with its
+``ckpt/gc`` child, ``ckpt/restore`` (``bytes`` of the file), ``ckpt.saves``
+and ``ckpt.restores``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import tempfile
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 
 
@@ -78,21 +82,25 @@ def save(path, step, params, opt_state=None, extra=None, keep=3):
         state["opt"] = opt_state
     flat = tree_leaves(state)
     tmp = tempfile.mkdtemp(dir=path, prefix=".tmp_save_")
-    try:
-        np.savez(os.path.join(tmp, "arrays.npz"),
-                 **{f"a{i}": _to_numpy(x) for i, x in enumerate(flat)})
-        manifest = {"step": int(step), "n_arrays": len(flat),
-                    "treedef": _treedef(state), "extra": extra or {}}
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        final = os.path.join(path, f"step_{int(step):08d}")
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
-    except Exception:
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise
-    _gc(path, keep)
+    with obs.span("ckpt/save", step=int(step)) as sp:
+        try:
+            arrays = {f"a{i}": _to_numpy(x) for i, x in enumerate(flat)}
+            sp.set(bytes=sum(int(a.nbytes) for a in arrays.values()), arrays=len(arrays))
+            np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+            manifest = {"step": int(step), "n_arrays": len(flat),
+                        "treedef": _treedef(state), "extra": extra or {}}
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            final = os.path.join(path, f"step_{int(step):08d}")
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+        except Exception:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        with obs.span("ckpt/gc", keep=int(keep)):
+            _gc(path, keep)
+    obs.count("ckpt.saves")
     return final
 
 
@@ -160,6 +168,13 @@ def restore(path, step, params_like, opt_like=None):
     optimizer's running average, None until its first step) takes the
     saved subtree, as CPU tensors."""
     d = os.path.join(path, f"step_{int(step):08d}")
+    with obs.span("ckpt/restore", step=int(step),
+                  bytes=os.path.getsize(os.path.join(d, "arrays.npz"))):
+        obs.count("ckpt.restores")
+        return _restore(d, step, params_like, opt_like)
+
+
+def _restore(d, step, params_like, opt_like):
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     state_like = {"params": params_like}

@@ -4,12 +4,16 @@ drivers.
 Port of ``src/repro/train/fault.py``.  The watchdog records stragglers and
 stalls; the restart drivers rerun their job from its last checkpoint after
 any exception, so the restart path can be exercised end to end in tests.
+Each fault caught counts ``fault.restarts`` (``fault.sweep_restarts`` for a
+sweep) in :mod:`repro_torch.obs`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Callable, Optional
+
+from repro_torch import obs
 
 
 class SimulatedFailure(RuntimeError):
@@ -74,6 +78,7 @@ def run_with_restarts(make_and_run: Callable[[Optional[int]], int],
             return make_and_run(resume), restarts
         except Exception as e:  # noqa: BLE001 — any fault triggers restart
             restarts += 1
+            obs.count("fault.restarts")
             if restarts > max_restarts:
                 raise
             if on_restart is not None:
@@ -119,6 +124,7 @@ def run_sweep_with_restarts(plan, model, params, inputs, targets, loss,
             return res, restarts
         except Exception as e:  # noqa: BLE001 — any fault triggers restart
             restarts += 1
+            obs.count("fault.sweep_restarts")
             if restarts > max_restarts:
                 raise
             if on_restart is not None:

@@ -17,9 +17,10 @@ places:
   ``fold_in(PRNGKey(loop.seed + 1), s)``), a pure function of the step, so a
   resumed run repeats the uninterrupted one.
 
-The JAX loop's observability spans and counters (``obs.span("train/step")``,
-``train.steps``, ``train.watchdog.straggler``) wait for the port's
-observability layer (ROADMAP queue A item 11).
+Each step is a ``train/step`` span of :mod:`repro_torch.obs` (its ``float``
+of the metrics waits for the card, so the span covers the step's device
+work), counted in ``train.steps``, and a straggler the watchdog flags in
+``train.watchdog.straggler``, as in JAX.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import CrossEntropyLoss, ExtensionConfig
 from repro_torch.core.engine import refuse_mesh
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -145,12 +147,13 @@ def fit(model, cfg, shape, opt, loop: LoopConfig,
         # perf_counter is the one wall clock for durations (monotonic, highest
         # resolution); reading the metrics as floats waits for the device
         t0 = time.perf_counter()
-        if extensions or prebuilt:
-            params, opt_state, metrics = step_fn(params, opt_state, batch, step,
-                                                 step_rng(loop.seed + 1, step, device))
-        else:
-            params, opt_state, metrics = step_fn(params, opt_state, batch, step)
-        metrics = {k: float(v) for k, v in metrics.items()}
+        with obs.span("train/step", step=step):
+            if extensions or prebuilt:
+                params, opt_state, metrics = step_fn(params, opt_state, batch, step,
+                                                     step_rng(loop.seed + 1, step, device))
+            else:
+                params, opt_state, metrics = step_fn(params, opt_state, batch, step)
+            metrics = {k: float(v) for k, v in metrics.items()}
         dur = time.perf_counter() - t0
         stalled = wd.stalled()  # gap since the previous beat, pre-beat
         ok = wd.beat(step, dur)
@@ -159,6 +162,9 @@ def fit(model, cfg, shape, opt, loop: LoopConfig,
         metrics["dur_s"] = dur
         metrics["stalled"] = float(stalled)
         metrics["straggler"] = float(not ok)
+        obs.count("train.steps")
+        if not ok:
+            obs.count("train.watchdog.straggler")
         if (loop.marglik_every and marglik_ok
                 and (step + 1) % loop.marglik_every == 0):
             marglik_ok = _marglik_callback(model, params, batch, loss, loop, step, metrics,

@@ -5,14 +5,17 @@ CPU.
 StableLM-2 (2 sequences of 8 tokens, 2 steps) with each optimizer, the
 accumulated lane (``--microbatch-size``: the same losses as the whole batch),
 ``--track-variance``, checkpoint and resume, the restart loop after an
-injected failure (the uninterrupted run's losses bit for bit), and the flags
-whose lanes are still to port (they raise, naming their ROADMAP items); the
-default device is the card, which raises here.  ``serve_uncertainty``
+injected failure (the uninterrupted run's losses bit for bit), the obs flags
+(``--trace-jsonl`` writes the trace, ``--metrics-report`` prints the report,
+``--profile-dir`` holds a Chrome trace with the steps as ranges), and
+``--shard-sweep``, whose lane is still to port (it raises, naming its ROADMAP
+item); the default device is the card, which raises here.  ``serve_uncertainty``
 against JAX's from the same parameters (``bridge``), calibration batch and
 MC draws: the next-token mean and variance within 1e-4.  Each LM example's
 ``main`` with its config swapped for a small one.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +35,8 @@ from repro_torch.data import synthetic as syn
 from repro_torch.examples import curvature_training, laplace_uncertainty, noise_scale
 from repro_torch.launch import serve, train
 from repro_torch.nn.models import build_model
+from repro_torch.obs import enabled as obs_enabled
+from repro_torch.obs.reporting import load_jsonl
 
 ARCH = "stablelm-1.6b"
 SMALL = ["--arch", ARCH, "--seq", "8", "--batch", "2", "--steps", "2", "--device", "cpu"]
@@ -84,13 +89,34 @@ def test_launcher_checkpoint_resume_and_restart(tmp_path, capsys):
         train.main(SMALL + ["--max-restarts", "1"])
 
 
-@pytest.mark.parametrize("flag,item", [(["--shard-sweep"], "item 12"),
-                                       (["--trace-jsonl", "t.jsonl"], "item 11"),
-                                       (["--metrics-report"], "item 11"),
-                                       (["--profile-dir", "prof"], "item 11")])
+@pytest.mark.parametrize("flag,item", [(["--shard-sweep"], "item 12")])
 def test_launcher_flags_still_to_port_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
         train.main(SMALL + flag)
+
+
+@pytest.mark.parametrize("flag", ["--trace-jsonl", "--metrics-report", "--profile-dir"])
+def test_launcher_obs_flags_work_on_the_cpu(flag, tmp_path, capsys):
+    """Each obs flag records the run (two ``train/step`` spans, the
+    ``train.steps`` counter) and the launcher disables the registry after."""
+    path = str(tmp_path / ("t.jsonl" if flag == "--trace-jsonl" else "prof"))
+    train.main(SMALL + ([flag] if flag == "--metrics-report" else [flag, path]))
+    out = capsys.readouterr().out
+    assert not obs_enabled()
+    if flag == "--trace-jsonl":
+        events = load_jsonl(path)
+        steps = [e["attrs"]["step"] for e in events
+                 if e["kind"] == "span" and e["name"] == "train/step"]
+        assert steps == [0, 1]
+        assert sum(e["value"] for e in events if e["name"] == "train.steps") == 2
+        assert f"[obs] trace written to {path}" in out
+    elif flag == "--metrics-report":
+        assert "train/step" in out and "train.steps = 2" in out
+    else:
+        trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+        names = [e.get("name") for e in trace["traceEvents"]]
+        assert names.count("train/step") == 2 and "obs/profile" in names
+        assert "[obs] torch.profiler trace in" in out
 
 
 def test_launcher_asks_for_the_card_by_default(monkeypatch):

@@ -11,7 +11,8 @@
   indices;
 * the refusals: bad ``k``, an unknown solver or method, ``'lanczos'``
   without ``rank``, ``mesh=`` (ROADMAP queue A item 12), and the launcher's
-  ``--shard-sweep`` (item 12) and ``--trace-jsonl`` (item 11).
+  ``--shard-sweep`` (item 12); the launcher's ``--trace-jsonl`` writes the
+  run's ``ntk_apps/*`` spans.
 
 Nothing is held against JAX's sharded GP test.  Parameters are initialised
 in JAX and cross by numpy.  Tolerances: kernels, GP mean and variance and
@@ -37,6 +38,7 @@ from repro.ntk_apps import ntk_kernel as jntk_kernel
 from repro.ntk_apps import select_subset as jselect_subset
 from repro.ntk_apps import self_influence as jself_influence
 from repro.ntk_apps.influence import per_sample_grads as jper_sample_grads
+from repro_torch import obs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import papernets as tnets
 from repro_torch.core import Activation, CrossEntropyLoss, Dense, Sequential
@@ -53,6 +55,7 @@ from repro_torch.ntk_apps import (
     self_influence,
 )
 from repro_torch.ntk_apps.influence import per_sample_grads
+from repro_torch.obs.reporting import load_jsonl
 
 JLOSS, LOSS = JCrossEntropy(), CrossEntropyLoss()
 RIDGE = 2.0  # cond(K + λI) ≲ 60 (JAX's test_gp_predictive_matches_dense_oracle_on_papernets)
@@ -295,5 +298,17 @@ def test_refusals():
             call()
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
         launcher.main(["--gp", "--device", "cpu", "--shard-sweep"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 11"):
-        launcher.main(["--gp", "--device", "cpu", "--trace-jsonl", "t.jsonl"])
+
+
+def test_launcher_trace_jsonl_writes_the_ntk_apps_spans(tmp_path, capsys):
+    trace = str(tmp_path / "t.jsonl")
+    launcher.main(["--gp", "--device", "cpu", "--n-train", "16", "--n-test", "4",
+                   "--trace-jsonl", trace])
+    assert not obs.enabled()
+    spans = [(tuple(e["path"]), e["attrs"]) for e in load_jsonl(trace) if e["kind"] == "span"]
+    gp = ("ntk_apps/gp_predict",)
+    assert [p for p, _ in spans] == [
+        gp + ("ntk_apps/kernel", "engine/sweep"), gp + ("ntk_apps/kernel",),
+        gp + ("ntk_apps/kernel_solve",), gp + ("ntk_apps/kernel_solve",), gp]
+    assert spans[-1][1] == {"n_train": 16, "n_test": 4, "solver": "cholesky"}
+    assert f"[obs] trace written to {trace}" in capsys.readouterr().out

@@ -16,7 +16,11 @@ sample by sample (the worst sample and the median), and each max-pool
 window whose argmax the card's forward chooses differently from the CPU's
 (layer, sample, and the gap between the window's two largest inputs over
 the largest): a flip routes that sample's gradient to another input of the
-pool.
+pool.  Then the same seed's batch goes through ``chip_smoke.py``'s
+card-against-CPU check (``card_vs_cpu``: the flipped samples named and left
+out of the per-sample outputs, the batch-summed ones read on the sub-batch
+without them), whose line is printed as ``check``; the script exits 1 if the
+check fails on any seed.
 """
 import argparse
 import json
@@ -39,7 +43,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from chip_smoke import EXACT, FIRST, MC, N
+    from chip_smoke import EXACT, FIRST, MC, N, card_vs_cpu
     from repro_torch.configs import papernets
     from repro_torch.core import CrossEntropyLoss, ExtensionConfig, by_name, run
     from repro_torch.core.tree import tree_leaves, tree_map
@@ -56,6 +60,7 @@ def main() -> int:
     exts = tuple(by_name(n) for n in FIRST + EXACT + MC)
     cfg = ExtensionConfig(use_kernels=True, use_fused=True)
     draws = torch.randint(0, 10, (1, N), generator=torch.Generator().manual_seed(1))
+    failed = []
     for seed in cli.seeds:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         x = torch.randn(N, 32, 32, 3, device="cuda", generator=gen)
@@ -82,8 +87,14 @@ def main() -> int:
                     line["flips"].append(dict(layer=i, sample=s, gap=gp,
                                               sample_err=per_sample[s].item()))
             hc, hp = m.call(p, hc), m.call(pc, hp)
+        del card, cpu
+        check = card_vs_cpu(torch, run, model, params, x, y, loss, exts, draws, cfg)
+        line["check"] = check
+        if check["bad"] or check["reflipped"]:
+            failed.append(seed)
         print(json.dumps(line), flush=True)
-    return 0
+    print(json.dumps({"seeds": cli.seeds, "check_failed": failed}), flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
